@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's batched main path, on one CUDA card.
+
+Builds the bf16 TTSKing of chip_smoke.py (shipped width, seeded weights, 66
+speakers), warms it up, and runs one batched ``generate`` + vocoder at the
+bench shape (B=32, L=128, T_mel=1000) under ``torch.profiler`` with CPU and
+CUDA activities. Prints one JSON line: the wall time, the device's busy time
+(the sum of kernel times: one stream, so kernels do not overlap), its idle
+share, and the device time by operator and by kernel, largest first. The
+full tables and a Chrome trace go to ``--out``.
+
+    python3 scripts/profile_port.py [--out build/profile_port]
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the repo root in place of scripts/, whose profile.py would shadow the
+# standard library's profile module that torch imports
+sys.path[0] = REPO
+
+
+def _device_us(evt, self_time):
+    names = (("self_device_time_total", "self_cuda_time_total") if self_time
+             else ("device_time_total", "cuda_time_total"))
+    for name in names:
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=os.path.join(REPO, "build",
+                                                  "profile_port"))
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_port: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+
+    cfg = chip_smoke.main_config()
+    king = chip_smoke.main_path_kings(cfg)["bf16"]
+    am, voc = king.tts, king.vocoder
+    phonemes, speakers = chip_smoke.bench_batch()
+
+    def run():
+        out = am.generate(phonemes, speaker_name=speakers,
+                          max_mel_len=chip_smoke.BENCH_T)
+        return voc(out["postnet_mel"])
+
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_kernel = {}
+    for e in kernels:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    ops = [(evt.key, _device_us(evt, True) / 1e3, evt.count)
+           for evt in prof.key_averages()]
+    ops = sorted((o for o in ops if o[1] > 0), key=lambda o: -o[1])
+
+    os.makedirs(args.out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
+    with open(os.path.join(args.out, "key_averages.txt"), "w") as f:
+        f.write(prof.key_averages().table(
+            sort_by="self_cuda_time_total", row_limit=60))
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "shape": {"B": chip_smoke.BENCH_B, "L": chip_smoke.BENCH_L,
+                  "T_mel": chip_smoke.BENCH_T, "dtype": "bf16"},
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "n_kernels": len(kernels),
+        "top_ops_self_device_ms": [[k, round(ms, 3), n]
+                                   for k, ms, n in ops[:args.top]],
+        "top_kernels_ms": sorted(([k[:90], round(ms, 3)] for k, ms in
+                                  by_kernel.items()),
+                                 key=lambda r: -r[1])[:args.top],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,152 @@
+"""Neural building blocks of the FastSpeech2 acoustic model, inference only.
+
+Port of tts_king_tpu/models/layers.py. Behaviour kept from the reference
+(fs_two/transformer/Layers.py, SubLayers.py, fs_two/model/modules.py):
+  * FFTBlock = masked multi-head self-attention + conv1d feed-forward,
+    post-LayerNorm, padded positions zeroed after each sub-layer;
+  * PostNet = 5x [conv1d(k=5) + BatchNorm on running stats], tanh on all but
+    the last, activations zeroed past mel_len after every stage;
+  * VariancePredictor = 2x [conv1d(k=3) + ReLU + LayerNorm] + linear head,
+    0 at padded positions; conv1d_2's padding is 1 whatever k is.
+
+Activations are (B, T, C) at every module boundary, as in the JAX package;
+convolutions run on the transposed (B, C, T) view. Submodules carry the flax
+names (``w_qs``, ``conv1d_1``, ``layer_0`` ...) so a flax parameter tree maps
+onto the state dict by path (tts_king_torch/weights.py).
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tts_king_torch.ops.kernels.attention import attention
+
+LN_EPS = 1e-5  # torch LayerNorm/BatchNorm default
+
+
+def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
+    """Fixed sinusoid table, same angle layout as the reference
+    (fs_two/transformer/Models.py:10-30): angle = pos / 10000^(2*(i//2)/d),
+    sin on even channels, cos on odd."""
+    pos = np.arange(n_position)[:, None]
+    idx = np.arange(d_hid)[None, :]
+    angle = pos / np.power(10000, 2 * (idx // 2) / d_hid)
+    table = np.zeros((n_position, d_hid), dtype=np.float64)
+    table[:, 0::2] = np.sin(angle[:, 0::2])
+    table[:, 1::2] = np.cos(angle[:, 1::2])
+    return table.astype(np.float32)
+
+
+def _conv(conv, x):
+    """nn.Conv1d on a (B, T, C) tensor."""
+    return conv(x.transpose(1, 2)).transpose(1, 2)
+
+
+class MultiHeadAttention(nn.Module):
+    """Post-LN multi-head self-attention (fs_two/transformer/SubLayers.py:8-65).
+
+    The attention itself is the fused kernel's function (``attention``):
+    q scaled before the product, padded keys at -1e9, f32 softmax."""
+
+    def __init__(self, n_head, d_model, d_k, d_v):
+        super().__init__()
+        if d_k != d_v:
+            raise ValueError("the attention kernel needs d_k == d_v")
+        self.n_head, self.d_k = n_head, d_k
+        self.w_qs = nn.Linear(d_model, n_head * d_k)
+        self.w_ks = nn.Linear(d_model, n_head * d_k)
+        self.w_vs = nn.Linear(d_model, n_head * d_v)
+        self.fc = nn.Linear(n_head * d_v, d_model)
+        self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def forward(self, x, key_pad_mask):
+        B, T, _ = x.shape
+        H, D = self.n_head, self.d_k
+
+        def heads(t):  # (B, T, H*D) -> (B, H, T, D) view
+            return t.view(B, T, H, D).transpose(1, 2)
+
+        out = attention(heads(self.w_qs(x)), heads(self.w_ks(x)),
+                        heads(self.w_vs(x)), key_pad_mask)
+        out = self.fc(out.transpose(1, 2).reshape(B, T, H * D))
+        return self.layer_norm(out + x)
+
+
+class PositionwiseFeedForward(nn.Module):
+    """Conv1d FFN: k=9 expand, k=1 project, post-LN
+    (fs_two/transformer/SubLayers.py:68-100)."""
+
+    def __init__(self, d_in, d_hid, kernel_size=(9, 1)):
+        super().__init__()
+        k1, k2 = kernel_size
+        self.w_1 = nn.Conv1d(d_in, d_hid, k1, padding=(k1 - 1) // 2)
+        self.w_2 = nn.Conv1d(d_hid, d_in, k2, padding=(k2 - 1) // 2)
+        self.layer_norm = nn.LayerNorm(d_in, eps=LN_EPS)
+
+    def forward(self, x):
+        h = _conv(self.w_2, F.relu(_conv(self.w_1, x)))
+        return self.layer_norm(h + x)
+
+
+class FFTBlock(nn.Module):
+    """Feed-forward transformer block (fs_two/transformer/Layers.py:11-34)."""
+
+    def __init__(self, d_model, n_head, d_k, d_v, d_inner, kernel_size):
+        super().__init__()
+        self.slf_attn = MultiHeadAttention(n_head, d_model, d_k, d_v)
+        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, kernel_size)
+
+    def forward(self, x, pad_mask):
+        not_pad = (~pad_mask)[:, :, None].to(x.dtype)
+        x = self.slf_attn(x, pad_mask) * not_pad
+        return self.pos_ffn(x) * not_pad
+
+
+class PostNet(nn.Module):
+    """Residual mel refiner (fs_two/transformer/Layers.py:71-143)."""
+
+    def __init__(self, n_mel_channels=80, embedding_dim=512, kernel_size=5,
+                 n_convolutions=5):
+        super().__init__()
+        self.n_convolutions = n_convolutions
+        for i in range(n_convolutions):
+            c_in = n_mel_channels if i == 0 else embedding_dim
+            c_out = (n_mel_channels if i == n_convolutions - 1
+                     else embedding_dim)
+            self.add_module(f"conv_{i}", nn.Conv1d(
+                c_in, c_out, kernel_size, padding=(kernel_size - 1) // 2))
+            self.add_module(f"bn_{i}", nn.BatchNorm1d(c_out, eps=LN_EPS))
+
+    def forward(self, x, pad_mask):
+        """pad_mask (B, T) True=pad: zeroing activations after every stage
+        makes each conv see zeros past mel_len, as if the stack ran at that
+        item's true length."""
+        not_pad = (~pad_mask)[:, None, :].to(x.dtype)
+        h = x.transpose(1, 2) * not_pad
+        for i in range(self.n_convolutions):
+            h = getattr(self, f"bn_{i}")(getattr(self, f"conv_{i}")(h))
+            if i < self.n_convolutions - 1:
+                h = torch.tanh(h)
+            h = h * not_pad
+        return h.transpose(1, 2)
+
+
+class VariancePredictor(nn.Module):
+    """Duration/pitch/energy predictor (fs_two/model/modules.py:255-309)."""
+
+    def __init__(self, d_in, filter_size=256, kernel_size=3):
+        super().__init__()
+        k = kernel_size
+        self.conv1d_1 = nn.Conv1d(d_in, filter_size, k, padding=(k - 1) // 2)
+        self.layer_norm_1 = nn.LayerNorm(filter_size, eps=LN_EPS)
+        # conv2 padding is hard-coded to 1 in the reference (modules.py:291)
+        self.conv1d_2 = nn.Conv1d(filter_size, filter_size, k, padding=1)
+        self.layer_norm_2 = nn.LayerNorm(filter_size, eps=LN_EPS)
+        self.linear_layer = nn.Linear(filter_size, 1)
+
+    def forward(self, x, pad_mask):
+        h = self.layer_norm_1(F.relu(_conv(self.conv1d_1, x)))
+        h = self.layer_norm_2(F.relu(_conv(self.conv1d_2, h)))
+        out = self.linear_layer(h)[..., 0]
+        return torch.where(pad_mask, out.new_zeros(()), out)
