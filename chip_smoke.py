@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""The PyTorch port's main path on one CUDA card, checked end to end.
+"""The PyTorch port's main paths on one CUDA card, checked end to end:
+synthesis (TTSKing.speak and batched generate + vocode) and FastSpeech2
+training (train() from a preprocessed corpus, with resume).
 
 Run from the root of a checkout, with one card and no arguments:
 
@@ -9,23 +11,33 @@ Phases, one JSON line each; any failure raises and ends the run with a
 non-zero exit (nothing is caught):
 
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — both CUDA kernels compiled from tts_king_torch/csrc with nvcc
-               for sm_90a, in parallel;
+  2. build   — the three CUDA kernel sources compiled from
+               tts_king_torch/csrc with nvcc for sm_90a, in parallel;
   3. kernel vs plain — each kernel against its plain PyTorch version on the
                card at main-path shapes, f32 (TF32 off) and bf16, within the
-               stated tolerance;
+               stated tolerance; the flash kernels forward and backward
+               against the plain version and autograd;
   4. goldens — golden_fs2, golden_vocoder and golden_trained_vocoder
-               through the port in f32 at the CPU tests' tolerances, and the
+               through the port in f32 at the CPU tests' tolerances, the
                golden_e2e sentences through TTSKing.speak from the npz
-               export of the trained weights;
-  5. main path — TTSConfig() at the shipped width with seeded weights (66
-               speakers) brought in through weights.flax_to_torch:
-               TTSKing.speak on three Russian sentences (f32), then one
-               batched generate + vocode at the bench shape B=32, L=128,
-               T_mel=1000 (bf16); kernel launch counts are zeroed just before
-               and read just after, and must show both kernels ran;
-  6. kernels — kernel time, plain time, library time and the card's bound at
-               the bench shape.
+               export of the trained weights, and the JAX train step of
+               golden_train_step.npz replayed through the port's train step;
+  5. main paths — TTSConfig() at the shipped width: (a) synthesis with
+               seeded weights (66 speakers) brought in through
+               weights.flax_to_torch: TTSKing.speak on three Russian
+               sentences (f32), then one batched generate + vocode at the
+               bench shape B=32, L=128, T_mel=1000 (bf16); (b) training:
+               train() for 4 optimizer steps of 16 x 4 on a synthetic
+               preprocessed corpus written to a temporary directory (L = 96,
+               T = 640), with validation, objective metrics and a
+               checkpoint, then a resume for one more step. Every kernel
+               launch count is zeroed just before each path and read just
+               after, and must show the path's kernels ran (training: 40
+               flash forward and 40 flash backward launches per step);
+  6. train step — the sustained ms per optimizer step at the superbatch of
+               bench.py:286-301 (acc 4 x B 16, L = 96, T = 640, f32);
+  7. kernels — kernel time, plain time, library time and the card's bound at
+               the bench shapes.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout, it prints no result and exits 1. The JAX package is not imported.
@@ -42,8 +54,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
 E2E_DIR = os.path.join(FIXTURES, "golden_e2e")
 
-# H100 SXM data-sheet peaks: dense bf16 on the tensor cores, HBM3 bandwidth.
+# H100 SXM data-sheet peaks: dense bf16 on the tensor cores, f32 on the
+# CUDA cores, HBM3 bandwidth.
 PEAK_BF16_OPS = 989e12
+PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 
 # Tolerances, kernel vs plain version on the card (max |kernel - plain|):
@@ -59,8 +73,13 @@ PEAK_BYTES = 3.35e12
 #    other way, and that ulp is carried through the later convs of the
 #    chain; 2^-5 relative to the output's largest magnitude (8 ulps of a
 #    value in the output's top binade). Observed: 2 ulps at B=2.
+#  * flash attention f32, forward and dq/dk/dv: f32 sums of up to T = 640
+#    products in other orders, the forward with an online softmax and the
+#    backward recomputing P from the log-sum-exp; 1e-4 on values of order
+#    1. dK and dV at padded keys must be exactly 0.
 TOL = {("attention", "f32"): 1e-4, ("attention", "bf16"): 2e-2,
-       ("mrf_stage", "f32"): 1e-4, ("mrf_stage", "bf16"): 2.0 ** -5}
+       ("mrf_stage", "f32"): 1e-4, ("mrf_stage", "bf16"): 2.0 ** -5,
+       ("flash_attention", "f32"): 1e-4}
 
 # Shapes: the bench shape of bench.py:134-171 and the main-path shapes the
 # kernels are checked at (attention: encoder- and decoder-like T, ragged;
@@ -70,6 +89,11 @@ BENCH_B, BENCH_L, BENCH_T = 32, 128, 1000
 ATTN_CHECKS = [(8, 2, 128, 128), (8, 2, 1000, 128), (3, 2, 77, 16)]
 MRF_CHECKS = [(2, 128, 64000), (2, 64, 128000), (2, 32, 256000),
               (3, 16, 4001)]
+# Training: the superbatch of bench.py:286-301, and the flash kernels'
+# shapes on that path (decoder T = 640, encoder L = 96) plus a ragged one.
+TRAIN_ACC, TRAIN_B, TRAIN_L, TRAIN_T = 4, 16, 96, 640
+FLASH_CHECKS = [(16, 2, 640, 128), (16, 2, 96, 128), (3, 2, 77, 16)]
+TRAIN_STEPS = 4
 
 SENTENCES = ["Привет, мир!",
              "Сегодня хорошая погода, и мы идём гулять в парк.",
@@ -185,6 +209,62 @@ def phase_kernels_vs_plain():
                 fail(f"mrf_stage {dname} C={C}: max err {err} > {tol}")
             errs["mrf_stage"][dname] = max(err, errs["mrf_stage"].get(dname, 0))
     return errs
+
+
+def flash_inputs(B, H, T, D, seed, lens=None):
+    """q, k, v as the FFT block hands them over ((B, T, H, D) Linear outputs
+    viewed as (B, H, T, D)), requiring grad; a ragged key mask; an upstream
+    gradient that is 0 on padded query rows, as the block's zeroing makes
+    it."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    qkv = [torch.from_numpy(rng.randn(B, T, H, D).astype(np.float32))
+           .cuda().transpose(1, 2).requires_grad_(True) for _ in range(3)]
+    if lens is None:
+        lens = rng.randint(max(T // 2, 1), T + 1, size=(B,))
+        lens[0] = T
+    mask = torch.from_numpy(np.arange(T)[None] >= np.asarray(lens)[:, None])
+    mask = mask.cuda()
+    g = torch.from_numpy(rng.randn(B, H, T, D).astype(np.float32)).cuda()
+    g = g * (~mask)[:, None, :, None]
+    return qkv, mask, g
+
+
+def phase_flash_vs_plain():
+    """The flash kernels (forward, then dQ and dK/dV) against the plain
+    version and autograd, at the training path's shapes."""
+    import torch
+
+    from tts_king_torch.ops.kernels import flash_attention as fa
+
+    worst = 0.0
+    tol = TOL[("flash_attention", "f32")]
+    for B, H, T, D in FLASH_CHECKS:
+        (q, k, v), mask, g = flash_inputs(B, H, T, D, seed=T)
+        out = fa.flash_attention(q, k, v, mask)
+        grads = torch.autograd.grad(out, (q, k, v), g)
+        ref = fa.flash_attention_plain(q, k, v, mask)
+        ref_grads = torch.autograd.grad(ref, (q, k, v), g)
+        torch.cuda.synchronize()
+        errs = {name: float((a - b).detach().abs().max()) for name, a, b in
+                zip(("o", "dq", "dk", "dv"), (out,) + grads,
+                    (ref,) + ref_grads)}
+        pad = mask[:, None, :, None].expand_as(grads[1])
+        pad_zero = (not bool(grads[1][pad].any())
+                    and not bool(grads[2][pad].any()))
+        finite = all(bool(torch.isfinite(t.detach()).all())
+                     for t in (out,) + grads)
+        ok = finite and pad_zero and max(errs.values()) <= tol
+        emit({"phase": "kernel_vs_plain", "kernel": "flash_attention",
+              "dtype": "f32", "shape": [B, H, T, D], "max_abs_err": errs,
+              "padded_key_grads_zero": pad_zero, "tol": tol, "ok": ok})
+        if not ok:
+            fail(f"flash_attention {[B, H, T, D]}: errors {errs}, padded "
+                 f"key grads zero {pad_zero}, finite {finite}")
+        worst = max(worst, max(errs.values()))
+    return worst
 
 
 # ---------------------------------------------------------------- phase 4
@@ -319,6 +399,149 @@ def phase_goldens():
             fail(f"golden_e2e {i}: mel MAE {mae}, wav off {off}")
 
 
+# ------------------------------------------------------- golden train step
+
+GOLDEN_TRAIN = os.path.join(FIXTURES, "torch_port", "golden_train_step.npz")
+# the model of the train-step goldens and tests (tests/test_torch_train.py)
+TRAIN_N_SPEAKERS = 3
+TRAIN_STATS = {"pitch": [-2.0, 2.0], "energy": [-2.0, 2.0]}
+ADAM_B1 = 0.95   # OptimizerConfig's default beta 1
+
+
+def port_model_no_dropout(model_cfg, variables, device="cpu"):
+    """The port's FastSpeech2 of ``model_cfg`` (a plain dict of ModelConfig
+    fields) with ``variables`` (a flax tree) and every dropout at p = 0."""
+    from tts_king_torch import config as pcfg
+    from tts_king_torch.models.fs2 import build_fastspeech2
+    from tts_king_torch.models.layers import Dropout
+    from tts_king_torch.weights import flax_to_torch, load_into
+
+    model = build_fastspeech2(pcfg._build(pcfg.ModelConfig, model_cfg),
+                              TRAIN_STATS, TRAIN_N_SPEAKERS)
+    load_into(model, flax_to_torch(variables))
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return model.to(device)
+
+
+def port_train_steps(model_cfg, opt_cfg, variables, superbatches,
+                     device="cpu"):
+    """The port's train step from ``variables``, one optimizer step per
+    numpy superbatch, dropout off. Returns the state after each step as
+    numpy, keyed by state-dict name."""
+    import torch
+
+    from tts_king_torch import config as pcfg
+    from tts_king_torch.train.state import Optimizer, TrainState
+    from tts_king_torch.train.step import make_train_step, to_device
+
+    mc = pcfg._build(pcfg.ModelConfig, model_cfg)
+    model = port_model_no_dropout(model_cfg, variables, device)
+    optimizer = Optimizer(pcfg._build(pcfg.OptimizerConfig, opt_cfg),
+                          mc.transformer.encoder_hidden)
+    state = TrainState(model, optimizer.init(model))
+    step = make_train_step(optimizer)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def host(tree):   # copies: the next step updates in place
+        return {k: v.detach().cpu().numpy().copy() for k, v in tree.items()}
+
+    out = []
+    for sb in superbatches:
+        losses = step(state, to_device(sb, device), gen)
+        out.append({"losses": dict(zip(losses._fields,
+                                       (float(x) for x in losses))),
+                    "state_dict": host(model.state_dict()),
+                    "count": state.opt_state.count,
+                    "mu": host(state.opt_state.mu),
+                    "nu": host(state.opt_state.nu)})
+    return out
+
+
+def compare_train_step(got, want, lr, stats_atol=1e-6):
+    """A port step (numpy, state-dict names) against a JAX step (flax trees:
+    losses, params, batch_stats, count, mu, nu); raises on a mismatch and
+    returns the largest errors.
+
+    Tolerances, f32 on both sides with sums in other orders: losses rtol
+    1e-5; the Adam moments and the clipped grads mu / (1 - b1) rtol 1e-4
+    with an atol of 1e-5 of the largest magnitude over all parameters
+    (entries near 0 carry the rounding of the large ones); running stats
+    rtol 1e-5, atol ``stats_atol``; new params atol 1e-3 * lr. Adam moves
+    each weight by lr * m_hat / (sqrt(v_hat) + eps), which a gradient error
+    d moves by up to lr * d / eps: the optimizers of these checks use eps =
+    1e-3, so that the gradients' rounding (d < 1e-8 here; the weights whose
+    gradient is 0 in exact arithmetic, the key projection's bias and the
+    conv biases in front of BatchNorm, get such rounding noise as their
+    whole gradient) moves a weight by ~1e-4 * lr at most (5e-5 * lr
+    measured on the CPU), while a wrong learning rate, bias correction or
+    decay moves it by a visible share of lr."""
+    import numpy as np
+
+    from tts_king_torch.weights import flax_adam_to_torch, flax_to_torch
+
+    errs = {"loss_rel": 0.0, "param_abs": 0.0, "stats_abs": 0.0,
+            "grad_rel_top": 0.0}
+    for name, v in want["losses"].items():
+        np.testing.assert_allclose(got["losses"][name], v, rtol=1e-5,
+                                   atol=1e-7, err_msg=f"loss {name}")
+        errs["loss_rel"] = max(errs["loss_rel"], abs(
+            got["losses"][name] - float(v)) / max(abs(float(v)), 1e-30))
+    params = {k: v.numpy() for k, v in flax_to_torch(
+        {"params": want["params"], "batch_stats": want["batch_stats"]}
+    ).items()}
+    adam = flax_adam_to_torch(want["count"], want["mu"], want["nu"])
+    if got["count"] != adam.count:
+        fail(f"Adam count {got['count']} vs {adam.count}")
+    for k, v in params.items():
+        stat = "running" in k
+        np.testing.assert_allclose(
+            got["state_dict"][k], v, rtol=1e-5 if stat else 0,
+            atol=stats_atol if stat else 1e-3 * lr, err_msg=k)
+        key = "stats_abs" if stat else "param_abs"
+        errs[key] = max(errs[key], float(np.abs(got["state_dict"][k] - v)
+                                         .max()))
+    for coll, factor in (("mu", 1.0 / (1.0 - ADAM_B1)), ("mu", 1.0),
+                         ("nu", 1.0)):
+        ref = {k: v.numpy() * factor for k, v in getattr(adam, coll).items()}
+        top = max(float(np.abs(r).max()) for r in ref.values())
+        for k, v in got[coll].items():
+            np.testing.assert_allclose(v * factor, ref[k], rtol=1e-4,
+                                       atol=1e-5 * top, err_msg=f"{coll} {k}")
+            if factor != 1.0:
+                errs["grad_rel_top"] = max(errs["grad_rel_top"], float(
+                    np.abs(v * factor - ref[k]).max()) / top)
+    return errs
+
+
+def replay_train_step_golden(device="cpu"):
+    """golden_train_step.npz (scripts/export_train_step_golden.py: one JAX
+    train step at acc = 2) through the port on ``device``, held to
+    compare_train_step's tolerances. Returns (losses, max errors)."""
+    import numpy as np
+
+    from tts_king_torch.train.schedule import noam_schedule
+    from tts_king_torch.weights import load_flax_npz
+
+    z = np.load(GOLDEN_TRAIN)
+    meta = json.loads(str(z["meta::config"]))
+    trees = load_flax_npz(GOLDEN_TRAIN)
+    variables = {"params": trees["params"],
+                 "batch_stats": trees["batch_stats"]}
+    sb = {k[len("in::"):]: z[k] for k in z.files if k.startswith("in::")}
+    (got,) = port_train_steps(meta["model"], meta["optimizer"], variables,
+                              [sb], device=device)
+    want = {"losses": {k[len("out::loss::"):]: float(z[k]) for k in z.files
+                       if k.startswith("out::loss::")},
+            "count": int(z["out::count"]),
+            **{c: trees[f"out_{c}"]
+               for c in ("params", "batch_stats", "mu", "nu")}}
+    lr = noam_schedule(meta["model"]["transformer"]["encoder_hidden"],
+                       meta["optimizer"]["warm_up_step"], [], 1.0)(0)
+    return got["losses"], compare_train_step(got, want, lr)
+
+
 # ---------------------------------------------------------------- phase 5
 
 
@@ -389,7 +612,23 @@ def bench_batch(n_spk=66):
     return phonemes, [int(s) for s in np.arange(BENCH_B) % n_spk]
 
 
-def phase_main_path(mods):
+def launch_counts():
+    """Every kernel wrapper's launch count."""
+    from tts_king_torch.ops.kernels import attention, flash_attention, mrf
+
+    return {"attention": attention.launches, "mrf_stage": mrf.launches,
+            "flash_fwd": flash_attention.launches_fwd,
+            "flash_bwd": flash_attention.launches_bwd}
+
+
+def zero_launch_counts():
+    from tts_king_torch.ops.kernels import attention, flash_attention, mrf
+
+    attention.launches = mrf.launches = 0
+    flash_attention.launches_fwd = flash_attention.launches_bwd = 0
+
+
+def phase_main_path():
     import numpy as np
     import torch
 
@@ -401,9 +640,7 @@ def phase_main_path(mods):
     kings = main_path_kings(cfg, n_spk)
     hop = cfg.preprocess.stft.hop_length
     sr = cfg.preprocess.audio.sampling_rate
-
-    def counts():
-        return {k: m.launches for k, m in mods.items()}
+    counts = launch_counts
 
     B, L, T = BENCH_B, BENCH_L, BENCH_T
     phonemes, speakers = bench_batch(n_spk)
@@ -416,8 +653,7 @@ def phase_main_path(mods):
     torch.cuda.synchronize()
 
     # -- the main path's counted run: every count 0 just before it
-    for m in mods.values():
-        m.launches = 0
+    zero_launch_counts()
     results = []
     king = kings["f32"]
     for i, text in enumerate(SENTENCES):
@@ -491,17 +727,207 @@ def phase_main_path(mods):
           "rtf": batch_ms / 1e3 / (B * T * hop / sr),
           "mel_lens_min_max": [int(mel_lens.min()), int(mel_lens.max())],
           "launches": {"attention": d_att, "mrf_stage": d_mrf}, "ok": True})
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"kernel {name} was not launched on the main path")
-    emit({"phase": "main_path", "launches": launches, "ok": True})
+    for name in ("attention", "mrf_stage"):
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the synthesis path")
+    emit({"phase": "main_path", "path": "synthesis", "launches": launches,
+          "ok": True})
     return launches, [int(n) for n in mel_lens]
+
+
+def bench_train_superbatch():
+    """The training superbatch of bench.py:286-301 (acc 4 x B 16, L = 96,
+    T = 640; 4-8 frames per phoneme, mel lengths capped at T), seeded as
+    there."""
+    import numpy as np
+
+    acc, B, L, T = TRAIN_ACC, TRAIN_B, TRAIN_L, TRAIN_T
+    rng = np.random.RandomState(4)
+    d = rng.randint(4, 9, (acc, B, L))
+    return dict(
+        speakers=rng.randint(0, 66, (acc, B)).astype(np.int32),
+        texts=rng.randint(1, 206, (acc, B, L)).astype(np.int32),
+        src_lens=np.full((acc, B), L, np.int32),
+        mels=rng.randn(acc, B, T, 80).astype(np.float32),
+        mel_lens=np.minimum(d.sum(-1), T).astype(np.int32),
+        energies=rng.randn(acc, B, L).astype(np.float32),
+        durations=d.astype(np.int32),
+        pitches_raw=rng.randn(acc, B, L).astype(np.float32),
+        pitches_cwt=rng.randn(acc, B, L, 11).astype(np.float32),
+        pitches_mean=rng.randn(acc, B).astype(np.float32),
+        pitches_std=rng.rand(acc, B).astype(np.float32))
+
+
+def train_corpus_config(tmp):
+    """TTSConfig() (the shipped width) training on a synthetic preprocessed
+    corpus under ``tmp``: enough utterances for TRAIN_STEPS optimizer steps
+    of 16 x 4 with phoneme counts up to 96 and mel lengths up to 640 (so
+    L = 96 and T = 640 after padding), and one val batch."""
+    from tts_king_torch.config import StepConfig
+    from tts_king_torch.data.synthetic import write_feature_corpus
+
+    cfg = main_config()
+    opt = cfg.train.optimizer
+    n_train = TRAIN_STEPS * opt.batch_size * opt.grad_acc_step
+    root = write_feature_corpus(
+        os.path.join(tmp, "processed"), n_train, opt.batch_size,
+        n_speakers=66, phones=(TRAIN_L * 5 // 8, TRAIN_L),
+        frames=(TRAIN_T * 25 // 32, TRAIN_T), seed=0)
+    cfg.preprocess.preprocessed_path = root
+    cfg.train.ckpt_path = os.path.join(tmp, "ckpt")
+    cfg.train.result_path = os.path.join(tmp, "result")
+    cfg.train.step = StepConfig(total_step=TRAIN_STEPS, log_step=1,
+                                synth_step=10 ** 6, val_step=TRAIN_STEPS,
+                                save_step=TRAIN_STEPS)
+    return cfg
+
+
+def phase_train_path(device="cuda"):
+    """train() at the shipped width for TRAIN_STEPS steps, validation and a
+    checkpoint, then a resume for one more step. Every launch count is
+    zeroed just before each train() call and read just after."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tts_king_torch.train.loop import train
+
+    cfg = main_config()
+    tc = cfg.model.transformer
+    # one flash launch (forward and backward) per FFT block and microbatch
+    per_step = ((tc.encoder_layer + tc.decoder_layer)
+                * cfg.train.optimizer.grad_acc_step)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t0 = time.perf_counter()
+        cfg = train_corpus_config(tmp)
+        corpus_s = time.perf_counter() - t0
+        runs = []
+        for restore, steps in ((0, TRAIN_STEPS), (TRAIN_STEPS,
+                                                  TRAIN_STEPS + 1)):
+            cfg.acoustic.restore_step = restore
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            state = train(cfg, max_steps=steps, device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()   # read just after the path's run
+            n = steps - restore
+            if state.step != steps:
+                fail(f"train: ended at step {state.step}, not {steps}")
+            if (launches["flash_fwd"] != per_step * n
+                    or launches["flash_bwd"] != per_step * n):
+                fail(f"train: flash launches {launches} for {n} steps "
+                     f"(want {per_step} forward and backward per step)")
+            if restore == 0 and launches["attention"] == 0:
+                fail("train: validation launched no attention kernel")
+            runs.append((restore, steps, wall, launches))
+        with open(os.path.join(cfg.train.result_path,
+                               f"{cfg.exp_name}.metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        train_recs = [r for r in recs if r["phase"] == "train"]
+        losses = [r["total"] for r in train_recs]
+        if len(losses) != TRAIN_STEPS + 1 or not np.all(np.isfinite(losses)):
+            fail(f"train: losses {losses}")
+        val = [r for r in recs if r["phase"] == "val"]
+        obj = [r for r in recs if r["phase"] == "objective"]
+        if len(val) != 1 or not np.isfinite(val[0]["total"]) or not obj:
+            fail(f"train: val {val}, objective {obj}")
+        # host time to read and collate one superbatch, as the loop does
+        # between steps
+        from tts_king_torch.data.dataset import FS2Dataset
+
+        ds = FS2Dataset("train.txt", cfg.preprocess, cfg.train,
+                        max_mel_len=cfg.model.max_seq_len)
+        t0 = time.perf_counter()
+        n_sb = sum(1 for _ in ds.epoch_superbatches(seed=cfg.train.seed))
+        load_ms = (time.perf_counter() - t0) * 1e3 / n_sb
+        ckpts = sorted(os.listdir(cfg.train.ckpt_path))
+        if ckpts != [f"step_{TRAIN_STEPS:08d}", f"step_{TRAIN_STEPS + 1:08d}"]:
+            fail(f"train: checkpoints {ckpts}")
+        for restore, steps, wall, launches in runs:
+            emit({"phase": "main_path", "path": "training",
+                  "call": "train", "restore_step": restore,
+                  "steps": steps - restore, "wall_s": wall,
+                  "launches": launches,
+                  "flash_per_step": launches["flash_fwd"] // (steps - restore),
+                  "ok": True})
+        emit({"phase": "main_path", "path": "training",
+              "corpus_s": corpus_s, "losses": losses,
+              "sec_per_step": [r["sec_per_step"] for r in train_recs],
+              "load_ms_per_superbatch": load_ms,
+              "val_total": val[0]["total"],
+              "objective": {k: v for k, v in obj[0].items()
+                            if k not in ("step", "t", "phase")},
+              "checkpoints": ckpts, "ok": True})
+        return runs[0][3]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_state_at_width(device="cuda"):
+    """A TrainState of TTSConfig()'s FastSpeech2 on the card, initialized as
+    train() does, with the bench's pitch/energy bins."""
+    from tts_king_torch.models.fs2 import build_fastspeech2
+    from tts_king_torch.train.state import (Optimizer, TrainState,
+                                            init_state_dict)
+    from tts_king_torch.weights import load_into
+
+    import torch
+
+    cfg = main_config()
+    stats = {"pitch": [-7.0, 9.5], "energy": [-1.4, 6.1]}
+    with torch.device("meta"):
+        model = build_fastspeech2(cfg.model, stats, 66)
+    model = load_into(model.to_empty(device=device),
+                      init_state_dict(model, cfg.train.seed))
+    optimizer = Optimizer(cfg.train.optimizer,
+                          cfg.model.transformer.encoder_hidden)
+    return TrainState(model, optimizer.init(model)), optimizer
+
+
+def phase_train_step_time(smi, device="cuda"):
+    """Sustained ms per optimizer step at the bench superbatch: host clock
+    around each of 5 steps that end in a synchronize, after 2."""
+    import torch
+
+    from tts_king_torch.train.loop import step_generator
+    from tts_king_torch.train.step import make_train_step, to_device
+
+    state, optimizer = train_state_at_width(device=device)
+    step = make_train_step(optimizer)
+    sb = to_device(bench_train_superbatch(), device)
+    for _ in range(2):
+        step(state, sb, step_generator(0, state.step, device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        losses = step(state, sb, step_generator(0, state.step, device))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    total = float(losses.total)
+    if not math.isfinite(total):
+        fail(f"train step: loss {total}")
+    out = {"phase": "train_step", "shape": {
+        "acc": TRAIN_ACC, "B": TRAIN_B, "L": TRAIN_L, "T": TRAIN_T},
+        "dtype": "f32", "ms_per_step": sum(times) / len(times),
+        "ms_each": times, "loss": total,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "nvidia_smi": smi, "ok": True}
+    emit(out)
+    del state, sb
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- phase 6
 
 
-def phase_timing(cfg, launches, errs, mel_lens):
+def phase_timing(cfg, launches, train_launches, errs, mel_lens):
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -563,7 +989,73 @@ def phase_timing(cfg, launches, errs, mel_lens):
         "library_ms": None, "dtype": "bf16",
         "shape": {"B": B, "T_mel": T, "stages_C_T": stages,
                   "note": "sum of one launch per fused stage"}})
+    rows.append(flash_timing_row(cfg, train_launches, errs["flash_attention"]))
     return rows
+
+
+def flash_timing_row(cfg, launches, max_err):
+    """The flash kernels at the decoder's call of the bench training step
+    (B=16, H=2, T=640, D=128, key mask from the bench superbatch's mel
+    lengths): forward, backward (dQ then dK/dV), the plain version forward
+    + autograd backward, and SDPA forward + backward with the same boolean
+    key mask. The bound counts the products against the valid keys only,
+    the work this mask needs: 4 T D per (row, valid key) forward and 10
+    backward (S and dP recomputed, dV, dQ, dK), f32 on the CUDA cores."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tts_king_torch.ops.kernels import flash_attention as fa
+
+    tc = cfg.model.transformer
+    B, H, T = TRAIN_B, tc.decoder_head, TRAIN_T
+    D = tc.decoder_hidden // H
+    lens = bench_train_superbatch()["mel_lens"][0]
+    (q, k, v), mask, g = flash_inputs(B, H, T, D, seed=11, lens=lens)
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    m8 = mask.to(torch.uint8)
+    o, lse = fa._forward_cuda(qd, kd, vd, m8)
+    g = fa._out_like(qd).copy_(g)
+    fwd_ms = cuda_ms(lambda: fa._forward_cuda(qd, kd, vd, m8), warmup=2,
+                     reps=10)
+    bwd_ms = cuda_ms(lambda: fa._backward_cuda(qd, kd, vd, m8, o, lse, g),
+                     warmup=2, reps=10)
+
+    def plain():
+        out = fa.flash_attention_plain(q, k, v, mask)
+        torch.autograd.grad(out, (q, k, v), g)
+
+    keep = (~mask)[:, None, None, :]
+
+    def sdpa():
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+        torch.autograd.grad(out, (q, k, v), g)
+
+    plain_ms = cuda_ms(plain, warmup=2, reps=10)
+    lib_ms = cuda_ms(sdpa, warmup=2, reps=10)
+    n_keys = float(np.sum(lens))
+    ops_f = 4.0 * H * D * T * n_keys
+    ops_b = 10.0 * H * D * T * n_keys
+    elems = B * H * T * D
+    bytes_f = 4.0 * (4 * elems + B * H * T) + B * T
+    bytes_b = 4.0 * (8 * elems + B * H * T) + B * T
+    t_ops = (ops_f + ops_b) / PEAK_F32_OPS
+    t_bytes = (bytes_f + bytes_b) / PEAK_BYTES
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "tts_king_torch/csrc/flash_attention.cu",
+        "replaces": "tts_king_tpu/ops/pallas/attention.py:102",
+        "launches": launches["flash_fwd"], "launches_fwd":
+        launches["flash_fwd"], "launches_bwd": launches["flash_bwd"],
+        "max_abs_err": max_err, "ms": fwd_ms + bwd_ms,
+        "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "fwd_bound_ms": max(ops_f / PEAK_F32_OPS, bytes_f / PEAK_BYTES) * 1e3,
+        "bwd_bound_ms": max(ops_b / PEAK_F32_OPS, bytes_b / PEAK_BYTES) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib_ms, "dtype": "f32", "shape": [B, H, T, D],
+        "note": "ms, plain_ms, library_ms: forward + backward; launches "
+                "from the training path's run"}
 
 
 def main():
@@ -586,8 +1078,6 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from tts_king_torch.ops.kernels import _build
-    from tts_king_torch.ops.kernels import attention as attn
-    from tts_king_torch.ops.kernels import mrf
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -604,10 +1094,19 @@ def main():
           "nvcc_seconds": compiled, "ptxas": regs})
 
     errs = phase_kernels_vs_plain()
+    errs["flash_attention"] = phase_flash_vs_plain()
     phase_goldens()
-    launches, mel_lens = phase_main_path({"attention": attn,
-                                          "mrf_stage": mrf})
-    rows = phase_timing(main_config(), launches, errs, mel_lens)
+    t0 = time.perf_counter()
+    losses, golden_errs = replay_train_step_golden(device="cuda")
+    emit({"phase": "golden", "fixture": "golden_train_step",
+          "loss_total": losses["total"], "max_err": golden_errs,
+          "tol": "tests/test_torch_train.py (compare_train_step)",
+          "seconds": time.perf_counter() - t0, "ok": True})
+    launches, mel_lens = phase_main_path()
+    train_launches = phase_train_path()
+    phase_train_step_time(smi)
+    rows = phase_timing(main_config(), launches, train_launches, errs,
+                        mel_lens)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

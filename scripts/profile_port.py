@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's batched main path, on one CUDA card.
+"""Where the time goes in the port's main paths, on one CUDA card.
 
-Builds the bf16 TTSKing of chip_smoke.py (shipped width, seeded weights, 66
-speakers), warms it up, and runs one batched ``generate`` + vocoder at the
-bench shape (B=32, L=128, T_mel=1000) under ``torch.profiler`` with CPU and
-CUDA activities. Prints one JSON line: the wall time, the device's busy time
-(the sum of kernel times: one stream, so kernels do not overlap), its idle
-share, and the device time by operator and by kernel, largest first. The
-full tables and a Chrome trace go to ``--out``.
+Synthesis (the default): builds the bf16 TTSKing of chip_smoke.py (shipped
+width, seeded weights, 66 speakers), warms it up, and runs one batched
+``generate`` + vocoder at the bench shape (B=32, L=128, T_mel=1000).
+Training (``--train``): one f32 optimizer step of TTSConfig()'s
+FastSpeech2 at the superbatch of bench.py:286-301 (acc 4 x B 16, L = 96,
+T = 640), after two warm-up steps, as chip_smoke.py times it.
 
-    python3 scripts/profile_port.py [--out build/profile_port]
+The run is profiled under ``torch.profiler`` with CPU and CUDA activities.
+Prints one JSON line: the wall time, the device's busy time (the sum of
+kernel times: one stream, so kernels do not overlap), its idle share, and
+the device time by operator and by kernel, largest first. The full tables
+and a Chrome trace go to ``--out``.
+
+    python3 scripts/profile_port.py [--train] [--out build/profile_port]
 """
 
 import argparse
@@ -38,6 +43,8 @@ def main(argv=None):
     ap.add_argument("--out", default=os.path.join(REPO, "build",
                                                   "profile_port"))
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--train", action="store_true",
+                    help="profile one optimizer step instead of synthesis")
     args = ap.parse_args(argv)
 
     import torch
@@ -48,15 +55,34 @@ def main(argv=None):
         return 1
     import chip_smoke
 
-    cfg = chip_smoke.main_config()
-    king = chip_smoke.main_path_kings(cfg)["bf16"]
-    am, voc = king.tts, king.vocoder
-    phonemes, speakers = chip_smoke.bench_batch()
+    if args.train:
+        # the training step is f32, as chip_smoke.py times it
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from tts_king_torch.train.loop import step_generator
+        from tts_king_torch.train.step import make_train_step, to_device
 
-    def run():
-        out = am.generate(phonemes, speaker_name=speakers,
-                          max_mel_len=chip_smoke.BENCH_T)
-        return voc(out["postnet_mel"])
+        state, optimizer = chip_smoke.train_state_at_width()
+        step = make_train_step(optimizer)
+        sb = to_device(chip_smoke.bench_train_superbatch(), "cuda")
+        shape = {"acc": chip_smoke.TRAIN_ACC, "B": chip_smoke.TRAIN_B,
+                 "L": chip_smoke.TRAIN_L, "T": chip_smoke.TRAIN_T,
+                 "dtype": "f32"}
+
+        def run():
+            return step(state, sb, step_generator(0, state.step, "cuda"))
+    else:
+        cfg = chip_smoke.main_config()
+        king = chip_smoke.main_path_kings(cfg)["bf16"]
+        am, voc = king.tts, king.vocoder
+        phonemes, speakers = chip_smoke.bench_batch()
+        shape = {"B": chip_smoke.BENCH_B, "L": chip_smoke.BENCH_L,
+                 "T_mel": chip_smoke.BENCH_T, "dtype": "bf16"}
+
+        def run():
+            out = am.generate(phonemes, speaker_name=speakers,
+                              max_mel_len=chip_smoke.BENCH_T)
+            return voc(out["postnet_mel"])
 
     for _ in range(2):
         run()
@@ -87,8 +113,8 @@ def main(argv=None):
             sort_by="self_cuda_time_total", row_limit=60))
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "shape": {"B": chip_smoke.BENCH_B, "L": chip_smoke.BENCH_L,
-                  "T_mel": chip_smoke.BENCH_T, "dtype": "bf16"},
+        "path": "train_step" if args.train else "synthesis",
+        "shape": shape,
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "n_kernels": len(kernels),

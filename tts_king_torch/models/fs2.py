@@ -1,4 +1,4 @@
-"""FastSpeech2 acoustic model, inference only.
+"""FastSpeech2 acoustic model.
 
 Port of tts_king_tpu/models/fs2.py (reference fs_two/model/fastspeech2.py,
 fs_two/transformer/Models.py, fs_two/model/modules.py), with the quirks that
@@ -10,7 +10,16 @@ change outputs kept:
     and a left-sided searchsorted (modules.py:55-90);
   * inference duration rounding clamp(round(exp(logd)-1)*c, 0), with the
     raw (unclamped) mel length returned beside the clamped one;
-  * the sinusoid table is regenerated past max_seq_len (Models.py:163-170).
+  * the sinusoid table is regenerated past max_seq_len (Models.py:163-170);
+  * in training the decoder truncates to max_seq_len (Models.py:172-180).
+
+Teacher forcing: given ``mel_lens`` and the duration, pitch and energy
+targets, the embeddings come from the bucketized targets, the length
+regulator runs on the target durations and the mel mask comes from
+``mel_lens`` (the JAX package's training and eval path). Training mode is
+``model.train()``: dropout at the config's rates with masks from the
+``generator`` passed to forward, BatchNorm on batch statistics, attention
+through the flash kernels, and the decoder truncation.
 The CWT pitch branch (``use_cwt=True``) is not ported yet.
 """
 
@@ -52,50 +61,59 @@ class Encoder(nn.Module):
     (fs_two/transformer/Models.py:33-112)."""
 
     def __init__(self, n_layers=4, n_head=2, d_model=256, d_inner=1024,
-                 kernel_size=(9, 1), max_seq_len=1000, vocab_size=VOCAB_SIZE):
+                 kernel_size=(9, 1), max_seq_len=1000, vocab_size=VOCAB_SIZE,
+                 dropout=0.2):
         super().__init__()
         d_k = d_model // n_head
         self.n_layers = n_layers
         self.src_word_emb = nn.Embedding(vocab_size, d_model)
         for i in range(n_layers):
             self.add_module(f"layer_{i}", FFTBlock(
-                d_model, n_head, d_k, d_k, d_inner, kernel_size))
+                d_model, n_head, d_k, d_k, d_inner, kernel_size, dropout))
         self._pos = _Positions(max_seq_len, d_model)
 
-    def forward(self, src_seq, pad_mask):
+    def forward(self, src_seq, pad_mask, generator=None):
         emb = self.src_word_emb(src_seq)
         # padding_idx=0 semantics: the pad token contributes nothing
         x = torch.where((src_seq == 0)[:, :, None], emb.new_zeros(()), emb)
         x = x + self._pos(src_seq.shape[1], x.device, x.dtype)[None]
         for i in range(self.n_layers):
-            x = getattr(self, f"layer_{i}")(x, pad_mask)
+            x = getattr(self, f"layer_{i}")(x, pad_mask, generator)
         return x
 
 
 class Decoder(nn.Module):
     """Mel decoder: sinusoid positions + N FFT blocks
-    (fs_two/transformer/Models.py:115-189); inference never truncates."""
+    (fs_two/transformer/Models.py:115-189). In training it truncates to
+    max_seq_len; otherwise it never truncates. Returns (x, pad_mask), both
+    truncated alike."""
 
     def __init__(self, n_layers=6, n_head=2, d_model=256, d_inner=1024,
-                 kernel_size=(9, 1), max_seq_len=1000):
+                 kernel_size=(9, 1), max_seq_len=1000, dropout=0.2):
         super().__init__()
         d_k = d_model // n_head
         self.n_layers = n_layers
+        self.max_seq_len = max_seq_len
         for i in range(n_layers):
             self.add_module(f"layer_{i}", FFTBlock(
-                d_model, n_head, d_k, d_k, d_inner, kernel_size))
+                d_model, n_head, d_k, d_k, d_inner, kernel_size, dropout))
         self._pos = _Positions(max_seq_len, d_model)
 
-    def forward(self, x, pad_mask):
+    def forward(self, x, pad_mask, generator=None):
+        if self.training and x.shape[1] > self.max_seq_len:
+            x = x[:, :self.max_seq_len]
+            pad_mask = pad_mask[:, :self.max_seq_len]
         x = x + self._pos(x.shape[1], x.device, x.dtype)[None]
         for i in range(self.n_layers):
-            x = getattr(self, f"layer_{i}")(x, pad_mask)
-        return x
+            x = getattr(self, f"layer_{i}")(x, pad_mask, generator)
+        return x, pad_mask
 
 
 class VarianceAdaptor(nn.Module):
     """Duration/pitch/energy adaptor + length regulator
-    (fs_two/model/modules.py:14-217), inference path."""
+    (fs_two/model/modules.py:14-217). With targets (teacher forcing) the
+    embeddings come from the bucketized targets and the length regulator
+    runs on the target durations; without, from the predictions."""
 
     def __init__(self, d_model=256, predictor: Optional[VariancePredictorConfig]
                  = None, n_bins=256, pitch_quantization="linear",
@@ -107,7 +125,7 @@ class VarianceAdaptor(nn.Module):
         for name in ("duration_predictor", "pitch_predictor",
                      "energy_predictor"):
             self.add_module(name, VariancePredictor(
-                d_model, vp.filter_size, vp.kernel_size))
+                d_model, vp.filter_size, vp.kernel_size, vp.dropout))
         self.pitch_embedding = nn.Embedding(n_bins, d_model)
         self.energy_embedding = nn.Embedding(n_bins, d_model)
         # f32 bins, kept out of the module state so a bf16 cast leaves them be
@@ -128,24 +146,40 @@ class VarianceAdaptor(nn.Module):
                                   values.float().contiguous())
 
     def forward(self, x, speaker_embedding, src_mask, max_mel_len: int,
-                p_control=1.0, e_control=1.0, d_control=1.0):
+                p_control=1.0, e_control=1.0, d_control=1.0, mel_mask=None,
+                pitch_target=None, energy_target=None, duration_target=None,
+                generator=None):
+        g = generator
         # duration predicted BEFORE the speaker embedding is added
-        log_duration_prediction = self.duration_predictor(x, src_mask)
+        log_duration_prediction = self.duration_predictor(x, src_mask, g)
         x = x + speaker_embedding
 
-        pitch_prediction = self.pitch_predictor(x, src_mask) * p_control
-        x = x + self.pitch_embedding(self._bucketize("pitch", pitch_prediction))
+        pitch_prediction = self.pitch_predictor(x, src_mask, g)
+        if pitch_target is None:
+            pitch_prediction = pitch_prediction * p_control
+            pitch_target = pitch_prediction
+        x = x + self.pitch_embedding(self._bucketize("pitch", pitch_target))
 
-        energy_prediction = self.energy_predictor(x, src_mask) * e_control
+        energy_prediction = self.energy_predictor(x, src_mask, g)
+        if energy_target is None:
+            energy_prediction = energy_prediction * e_control
+            energy_target = energy_prediction
         x = x + self.energy_embedding(
-            self._bucketize("energy", energy_prediction))
+            self._bucketize("energy", energy_target))
 
-        duration_rounded = round_durations(log_duration_prediction, d_control)
-        # padded phonemes predict logd = 0 -> round(e^0 - 1) = 0 frames
-        x, mel_len = length_regulate(x, duration_rounded, max_mel_len)
-        # the raw length decides mel-bucket escalation in the pipeline
-        mel_len_raw = mel_len
-        mel_len = mel_len.clamp(max=max_mel_len)
+        if duration_target is not None:
+            x, mel_len = length_regulate(x, duration_target, max_mel_len)
+            duration_rounded = duration_target
+            mel_len_raw = mel_len
+        else:
+            duration_rounded = round_durations(log_duration_prediction,
+                                               d_control)
+            # padded phonemes predict logd = 0 -> round(e^0 - 1) = 0 frames
+            x, mel_len = length_regulate(x, duration_rounded, max_mel_len)
+            # the raw length decides mel-bucket escalation in the pipeline
+            mel_len_raw = mel_len
+            mel_len = mel_len.clamp(max=max_mel_len)
+            mel_mask = mask_from_lengths(mel_len, max_mel_len)
         return {
             "x": x,
             "mel_len_raw": mel_len_raw,
@@ -154,13 +188,15 @@ class VarianceAdaptor(nn.Module):
             "log_duration_prediction": log_duration_prediction,
             "duration_rounded": duration_rounded,
             "mel_len": mel_len,
-            "mel_mask": mask_from_lengths(mel_len, max_mel_len),
+            "mel_mask": mel_mask,
         }
 
 
 class FastSpeech2(nn.Module):
     """Encoder -> (+speaker) -> VarianceAdaptor -> Decoder -> mel + PostNet
-    residual (fs_two/model/fastspeech2.py:43-119), inference only."""
+    residual (fs_two/model/fastspeech2.py:43-119): inference, or teacher
+    forcing with targets (training in train mode, evaluation in eval
+    mode)."""
 
     def __init__(self, model_config: ModelConfig, n_speakers=1, pitch_min=-1.0,
                  pitch_max=1.0, energy_min=-1.0, energy_max=1.0,
@@ -175,7 +211,8 @@ class FastSpeech2(nn.Module):
         self.model_config = mc
         self.encoder = Encoder(
             tc.encoder_layer, tc.encoder_head, tc.encoder_hidden,
-            tc.conv_filter_size, tuple(tc.conv_kernel_size), mc.max_seq_len)
+            tc.conv_filter_size, tuple(tc.conv_kernel_size), mc.max_seq_len,
+            dropout=tc.encoder_dropout)
         if mc.multi_speaker:
             self.speaker_emb = nn.Embedding(n_speakers, tc.encoder_hidden)
         ve = mc.variance_embedding
@@ -185,29 +222,40 @@ class FastSpeech2(nn.Module):
             pitch_max, energy_min, energy_max)
         self.decoder = Decoder(
             tc.decoder_layer, tc.decoder_head, tc.decoder_hidden,
-            tc.conv_filter_size, tuple(tc.conv_kernel_size), mc.max_seq_len)
+            tc.conv_filter_size, tuple(tc.conv_kernel_size), mc.max_seq_len,
+            dropout=tc.decoder_dropout)
         self.mel_linear = nn.Linear(tc.decoder_hidden, n_mel_channels)
         self.postnet = PostNet(n_mel_channels, embedding_dim=mc.postnet_dim)
 
     def forward(self, speakers, texts, src_lens, max_mel_len=None,
-                p_control=1.0, e_control=1.0, d_control=1.0) -> Dict[str, Any]:
+                p_control=1.0, e_control=1.0, d_control=1.0, mel_lens=None,
+                energy_targets=None, duration_targets=None,
+                pitch_raw_targets=None, generator=None) -> Dict[str, Any]:
+        """Inference from (speakers, texts, src_lens), or teacher forcing
+        when ``mel_lens`` and the three targets are given. ``generator``
+        draws the dropout masks in training mode."""
         mc = self.model_config
         if max_mel_len is None:
             max_mel_len = mc.max_seq_len
+        g = generator
         src_masks = mask_from_lengths(src_lens, texts.shape[1])
-        output = self.encoder(texts, src_masks)
+        mel_masks = (mask_from_lengths(mel_lens, max_mel_len)
+                     if mel_lens is not None else None)
+        output = self.encoder(texts, src_masks, g)
         if mc.multi_speaker:
             speaker_embedding = self.speaker_emb(speakers)[:, None, :]
         else:
             speaker_embedding = output.new_zeros(
                 (texts.shape[0], 1, output.shape[-1]))
-        va = self.variance_adaptor(output, speaker_embedding, src_masks,
-                                   max_mel_len, p_control, e_control,
-                                   d_control)
-        decoded = self.decoder(va["x"], va["mel_mask"])
+        va = self.variance_adaptor(
+            output, speaker_embedding, src_masks, max_mel_len, p_control,
+            e_control, d_control, mel_mask=mel_masks,
+            pitch_target=pitch_raw_targets, energy_target=energy_targets,
+            duration_target=duration_targets, generator=g)
+        decoded, mel_masks = self.decoder(va["x"], va["mel_mask"], g)
         mel = self.mel_linear(decoded)
         # masked postnet: every stage sees zeros past mel_len
-        postnet_mel = self.postnet(mel, pad_mask=va["mel_mask"]) + mel
+        postnet_mel = self.postnet(mel, mel_masks, g) + mel
         return {
             "mel": mel,
             "pitch_prediction": va["pitch_prediction"],
@@ -215,7 +263,7 @@ class FastSpeech2(nn.Module):
             "log_duration_prediction": va["log_duration_prediction"],
             "duration_rounded": va["duration_rounded"],
             "src_masks": src_masks,
-            "mel_masks": va["mel_mask"],
+            "mel_masks": mel_masks,
             "src_lens": src_lens,
             "mel_lens": va["mel_len"],
             "mel_lens_raw": va["mel_len_raw"],

@@ -1,13 +1,22 @@
-"""Neural building blocks of the FastSpeech2 acoustic model, inference only.
+"""Neural building blocks of the FastSpeech2 acoustic model.
 
 Port of tts_king_tpu/models/layers.py. Behaviour kept from the reference
 (fs_two/transformer/Layers.py, SubLayers.py, fs_two/model/modules.py):
   * FFTBlock = masked multi-head self-attention + conv1d feed-forward,
-    post-LayerNorm, padded positions zeroed after each sub-layer;
-  * PostNet = 5x [conv1d(k=5) + BatchNorm on running stats], tanh on all but
-    the last, activations zeroed past mel_len after every stage;
-  * VariancePredictor = 2x [conv1d(k=3) + ReLU + LayerNorm] + linear head,
-    0 at padded positions; conv1d_2's padding is 1 whatever k is.
+    post-LayerNorm, dropout before each residual add, padded positions
+    zeroed after each sub-layer;
+  * PostNet = 5x [conv1d(k=5) + BatchNorm], tanh on all but the last,
+    dropout 0.5, activations zeroed past mel_len after every stage;
+  * VariancePredictor = 2x [conv1d(k=3) + ReLU + LayerNorm + dropout] +
+    linear head, 0 at padded positions; conv1d_2's padding is 1 whatever k
+    is.
+
+Training mode is the module's ``training`` flag (``model.train()``): dropout
+draws its masks from a ``torch.Generator`` that the caller passes down the
+forward calls (nothing draws from the global RNG), BatchNorm normalizes
+with the batch's statistics and updates its running ones as flax does, and
+attention with a gradient goes through the flash kernels. In eval mode, or
+with a p of 0, dropout is the identity.
 
 Activations are (B, T, C) at every module boundary, as in the JAX package;
 convolutions run on the transposed (B, C, T) view. Submodules carry the flax
@@ -21,8 +30,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from tts_king_torch.ops.kernels.attention import attention
+from tts_king_torch.ops.kernels.flash_attention import flash_attention
 
 LN_EPS = 1e-5  # torch LayerNorm/BatchNorm default
+BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
 
 
 def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
@@ -43,13 +54,58 @@ def _conv(conv, x):
     return conv(x.transpose(1, 2)).transpose(1, 2)
 
 
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: keep with probability 1 - p, scale kept values
+    by 1 / (1 - p). The mask comes from the ``generator`` given to forward,
+    on the input's device; in eval mode, or at p = 0, the identity."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x, generator):
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout in training mode needs a generator")
+        keep = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=torch.float32) < 1.0 - self.p
+        return torch.where(keep, x / (1.0 - self.p), x.new_zeros(()))
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """BatchNorm1d on (B, C, T) with flax's training semantics (flax
+    linen.BatchNorm, use_fast_variance): batch mean and variance
+    E[x^2] - E[x]^2 (biased, clipped at 0) over every (B, T) position, and
+    running stats updated with that biased variance at momentum 0.9. torch's
+    own training mode updates the running variance with the unbiased one.
+    Eval mode normalizes with the running stats, as BatchNorm1d does."""
+
+    def __init__(self, num_features, eps=LN_EPS):
+        super().__init__(num_features, eps=eps, momentum=1.0 - BN_MOMENTUM)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2))
+        var = ((x * x).mean(dim=(0, 2)) - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=self.momentum)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
+
+
 class MultiHeadAttention(nn.Module):
     """Post-LN multi-head self-attention (fs_two/transformer/SubLayers.py:8-65).
 
-    The attention itself is the fused kernel's function (``attention``):
-    q scaled before the product, padded keys at -1e9, f32 softmax."""
+    With a gradient to take (grad enabled and the projections requiring
+    one) the attention is ``flash_attention``, whose backward is a kernel
+    too; otherwise it is the inference kernel's function (``attention``).
+    Both compute softmax(q k^T / sqrt(d_k), padded keys at -1e9) v with an
+    f32 softmax."""
 
-    def __init__(self, n_head, d_model, d_k, d_v):
+    def __init__(self, n_head, d_model, d_k, d_v, dropout=0.1):
         super().__init__()
         if d_k != d_v:
             raise ValueError("the attention kernel needs d_k == d_v")
@@ -58,49 +114,56 @@ class MultiHeadAttention(nn.Module):
         self.w_ks = nn.Linear(d_model, n_head * d_k)
         self.w_vs = nn.Linear(d_model, n_head * d_v)
         self.fc = nn.Linear(n_head * d_v, d_model)
+        self.dropout = Dropout(dropout)
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x, key_pad_mask):
+    def forward(self, x, key_pad_mask, generator=None):
         B, T, _ = x.shape
         H, D = self.n_head, self.d_k
 
         def heads(t):  # (B, T, H*D) -> (B, H, T, D) view
             return t.view(B, T, H, D).transpose(1, 2)
 
-        out = attention(heads(self.w_qs(x)), heads(self.w_ks(x)),
-                        heads(self.w_vs(x)), key_pad_mask)
+        q, k, v = heads(self.w_qs(x)), heads(self.w_ks(x)), heads(self.w_vs(x))
+        if torch.is_grad_enabled() and q.requires_grad:
+            out = flash_attention(q, k, v, key_pad_mask)
+        else:
+            out = attention(q, k, v, key_pad_mask)
         out = self.fc(out.transpose(1, 2).reshape(B, T, H * D))
-        return self.layer_norm(out + x)
+        return self.layer_norm(self.dropout(out, generator) + x)
 
 
 class PositionwiseFeedForward(nn.Module):
     """Conv1d FFN: k=9 expand, k=1 project, post-LN
     (fs_two/transformer/SubLayers.py:68-100)."""
 
-    def __init__(self, d_in, d_hid, kernel_size=(9, 1)):
+    def __init__(self, d_in, d_hid, kernel_size=(9, 1), dropout=0.1):
         super().__init__()
         k1, k2 = kernel_size
         self.w_1 = nn.Conv1d(d_in, d_hid, k1, padding=(k1 - 1) // 2)
         self.w_2 = nn.Conv1d(d_hid, d_in, k2, padding=(k2 - 1) // 2)
+        self.dropout = Dropout(dropout)
         self.layer_norm = nn.LayerNorm(d_in, eps=LN_EPS)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         h = _conv(self.w_2, F.relu(_conv(self.w_1, x)))
-        return self.layer_norm(h + x)
+        return self.layer_norm(self.dropout(h, generator) + x)
 
 
 class FFTBlock(nn.Module):
     """Feed-forward transformer block (fs_two/transformer/Layers.py:11-34)."""
 
-    def __init__(self, d_model, n_head, d_k, d_v, d_inner, kernel_size):
+    def __init__(self, d_model, n_head, d_k, d_v, d_inner, kernel_size,
+                 dropout=0.1):
         super().__init__()
-        self.slf_attn = MultiHeadAttention(n_head, d_model, d_k, d_v)
-        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, kernel_size)
+        self.slf_attn = MultiHeadAttention(n_head, d_model, d_k, d_v, dropout)
+        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, kernel_size,
+                                               dropout)
 
-    def forward(self, x, pad_mask):
+    def forward(self, x, pad_mask, generator=None):
         not_pad = (~pad_mask)[:, :, None].to(x.dtype)
-        x = self.slf_attn(x, pad_mask) * not_pad
-        return self.pos_ffn(x) * not_pad
+        x = self.slf_attn(x, pad_mask, generator) * not_pad
+        return self.pos_ffn(x, generator) * not_pad
 
 
 class PostNet(nn.Module):
@@ -116,26 +179,28 @@ class PostNet(nn.Module):
                      else embedding_dim)
             self.add_module(f"conv_{i}", nn.Conv1d(
                 c_in, c_out, kernel_size, padding=(kernel_size - 1) // 2))
-            self.add_module(f"bn_{i}", nn.BatchNorm1d(c_out, eps=LN_EPS))
+            self.add_module(f"bn_{i}", BatchNorm(c_out))
+        self.dropout = Dropout(0.5)   # hard-coded in the reference
 
-    def forward(self, x, pad_mask):
+    def forward(self, x, pad_mask, generator=None):
         """pad_mask (B, T) True=pad: zeroing activations after every stage
         makes each conv see zeros past mel_len, as if the stack ran at that
-        item's true length."""
+        item's true length. In training the BatchNorm statistics still run
+        over every (B, T) position, as flax's do."""
         not_pad = (~pad_mask)[:, None, :].to(x.dtype)
         h = x.transpose(1, 2) * not_pad
         for i in range(self.n_convolutions):
             h = getattr(self, f"bn_{i}")(getattr(self, f"conv_{i}")(h))
             if i < self.n_convolutions - 1:
                 h = torch.tanh(h)
-            h = h * not_pad
+            h = self.dropout(h, generator) * not_pad
         return h.transpose(1, 2)
 
 
 class VariancePredictor(nn.Module):
     """Duration/pitch/energy predictor (fs_two/model/modules.py:255-309)."""
 
-    def __init__(self, d_in, filter_size=256, kernel_size=3):
+    def __init__(self, d_in, filter_size=256, kernel_size=3, dropout=0.5):
         super().__init__()
         k = kernel_size
         self.conv1d_1 = nn.Conv1d(d_in, filter_size, k, padding=(k - 1) // 2)
@@ -143,10 +208,13 @@ class VariancePredictor(nn.Module):
         # conv2 padding is hard-coded to 1 in the reference (modules.py:291)
         self.conv1d_2 = nn.Conv1d(filter_size, filter_size, k, padding=1)
         self.layer_norm_2 = nn.LayerNorm(filter_size, eps=LN_EPS)
+        self.dropout = Dropout(dropout)
         self.linear_layer = nn.Linear(filter_size, 1)
 
-    def forward(self, x, pad_mask):
+    def forward(self, x, pad_mask, generator=None):
         h = self.layer_norm_1(F.relu(_conv(self.conv1d_1, x)))
+        h = self.dropout(h, generator)
         h = self.layer_norm_2(F.relu(_conv(self.conv1d_2, h)))
+        h = self.dropout(h, generator)
         out = self.linear_layer(h)[..., 0]
         return torch.where(pad_mask, out.new_zeros(()), out)

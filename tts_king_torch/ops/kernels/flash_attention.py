@@ -1,0 +1,192 @@
+"""Flash attention with a key-padding mask, forward and backward: the CUDA
+kernels (``csrc/flash_attention.cu``) and their plain PyTorch versions.
+
+Port of ``flash_attention_padmask`` (tts_king_tpu/ops/pallas/attention.py),
+the training attention of the FFT blocks. The function is
+
+    softmax((q k^T) / sqrt(D), padded keys at -1e9) v
+
+with q, k, v (B, H, T, D) and key_pad_mask (B, T) bool (True = padded key).
+Padded keys are excluded exactly; padded query rows attend the valid keys and
+come out finite (the caller zeroes them); there is no query-side mask.
+
+``flash_attention`` dispatches on where its tensors lie: CPU tensors go to
+``flash_attention_plain`` (eager ops, gradients from autograd); CUDA tensors
+go through ``FlashAttention``, a ``torch.autograd.Function`` whose forward
+launches the forward kernel and saves O and the f32 log-sum-exp of each row,
+and whose backward launches the dQ and dK/dV kernels, which recompute the
+probabilities from q, k and the log-sum-exp. Anything else raises. On CUDA
+only float32 is taken (the training step is f32); bfloat16 raises
+``TypeError``. The Function also runs on CPU tensors, float32 or float64,
+through ``flash_forward_plain`` / ``flash_backward_plain``, the same
+arithmetic in eager ops, so its backward can be checked with gradcheck.
+
+``launches_fwd`` and ``launches_bwd`` count the forward kernel's launches and
+the backward's (one per backward call, which launches dQ then dK/dV).
+
+A row whose keys are all padded is not reproduced exactly by the backward
+(its log-sum-exp, -1e9 + log T, rounds to -1e9 in f32); training never has
+one, since every utterance has a phoneme and a frame.
+"""
+
+import ctypes
+import math
+
+import torch
+
+from tts_king_torch.ops.kernels import _build
+
+NEG_INF = -1e9
+launches_fwd = 0
+launches_bwd = 0
+
+
+def _scores(q, k, key_pad_mask):
+    s = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+    return s.masked_fill(key_pad_mask[:, None, None, :], NEG_INF)
+
+
+def flash_attention_plain(q, k, v, key_pad_mask):
+    """The contract in eager ops; differentiable through autograd."""
+    return torch.matmul(torch.softmax(_scores(q, k, key_pad_mask), dim=-1), v)
+
+
+def flash_forward_plain(q, k, v, key_pad_mask):
+    """The forward kernel's function: (O, log-sum-exp of each row)."""
+    s = _scores(q, k, key_pad_mask)
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.matmul(torch.exp(s - lse[..., None]), v), lse
+
+
+def flash_backward_plain(q, k, v, key_pad_mask, o, lse, do):
+    """The backward kernels' function: P recomputed from q, k and lse,
+    Delta = rowsum(dO * O), dS = P * (dO v^T - Delta)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_scores(q, k, key_pad_mask) - lse[..., None])
+    delta = (do * o).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    return dq, dk, dv
+
+
+def _check(q, k, v, key_pad_mask):
+    if q.dtype in (torch.bfloat16, torch.float16):
+        raise TypeError(f"flash_attention: dtype {q.dtype} is not supported "
+                        "yet (the training step is float32)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention: q, k, v must share one dtype")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("flash_attention: q, k, v must all be (B, H, T, D)")
+    B, H, T, D = q.shape
+    if tuple(key_pad_mask.shape) != (B, T) or key_pad_mask.dtype != torch.bool:
+        raise ValueError("flash_attention: key_pad_mask must be (B, T) bool")
+    if not (k.device == q.device == v.device == key_pad_mask.device):
+        raise ValueError("flash_attention: all inputs must be on one device")
+    if q.device.type == "cuda":
+        if q.dtype != torch.float32:
+            raise TypeError(f"flash_attention: dtype {q.dtype} on CUDA "
+                            "(float32 only)")
+        if D > 128:
+            raise ValueError(f"flash_attention: head dim {D} > 128")
+        if B * H > 65535:   # one grid row per (b, h)
+            raise ValueError(f"flash_attention: B * H = {B * H} > 65535")
+    elif q.device.type != "cpu":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def _out_like(q):
+    """A (B, H, T, D) buffer laid out as (B, T, H, D), the layout the FFT
+    block's output projection reads without a copy."""
+    B, H, T, D = q.shape
+    return torch.empty((B, T, H, D), dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
+
+
+def _fn(lib, name, n_ptr):
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_float,
+                                                ctypes.c_void_p])
+    return fn
+
+
+def _forward_cuda(q, k, v, mask_u8):
+    global launches_fwd
+    B, H, T, D = q.shape
+    o = _out_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attention")
+    err = _fn(lib, "tk_flash_fwd", 6)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), B, H, T, D, *q.stride()[:3],
+        *o.stride()[:3], 1.0 / math.sqrt(D), _build.current_stream(q.device))
+    _build.check(lib, err, "flash_attention forward")
+    launches_fwd += 1
+    return o, lse
+
+
+def _backward_cuda(q, k, v, mask_u8, o, lse, do):
+    global launches_bwd
+    B, H, T, D = q.shape
+    if do.stride() != o.stride():
+        do = _out_like(q).copy_(do)
+    dq, dk, dv = _out_like(q), _out_like(q), _out_like(q)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attention")
+    err = _fn(lib, "tk_flash_bwd", 11)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
+        o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, T, D,
+        *q.stride()[:3], *o.stride()[:3], 1.0 / math.sqrt(D),
+        _build.current_stream(q.device))
+    _build.check(lib, err, "flash_attention backward")
+    launches_bwd += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with a hand-written backward: the kernels on CUDA
+    tensors, their plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_pad_mask):
+        _check(q, k, v, key_pad_mask)
+        if q.device.type == "cuda":
+            # one layout with a unit stride over D for q, k and v
+            if (q.stride(-1) != 1 or k.stride() != q.stride()
+                    or v.stride() != q.stride()):
+                q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            mask = key_pad_mask.to(torch.uint8).contiguous()
+            o, lse = _forward_cuda(q, k, v, mask)
+        else:
+            mask = key_pad_mask
+            o, lse = flash_forward_plain(q, k, v, mask)
+        ctx.save_for_backward(q, k, v, mask, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, mask, o, lse = ctx.saved_tensors
+        if q.device.type == "cuda":
+            dq, dk, dv = _backward_cuda(q, k, v, mask, o, lse, do)
+        else:
+            dq, dk, dv = flash_backward_plain(q, k, v, mask, o, lse, do)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, key_pad_mask):
+    """Training attention; same contract as ``flash_attention_plain``.
+
+    On CUDA: float32, D <= 128; q, k, v may be strided (B, H, T, D) views
+    with a unit stride over D and one shared layout (the transposed
+    (B, T, H, D) output of a Linear is taken without a copy). The output and
+    the gradients are laid out as (B, T, H, D)."""
+    if q.device.type == "cpu":
+        _check(q, k, v, key_pad_mask)
+        return flash_attention_plain(q, k, v, key_pad_mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return FlashAttention.apply(q, k, v, key_pad_mask)

@@ -73,6 +73,18 @@ def flax_to_torch(variables):
     return sd
 
 
+def flax_adam_to_torch(count, mu, nu):
+    """optax's Adam state (``ScaleByAdamState`` count, mu, nu; mu and nu are
+    trees in the flax params layout) -> the port's Adam state
+    (train/state.AdamState), the moments keyed by state-dict name and laid
+    out as the parameters they belong to."""
+    from tts_king_torch.train.state import AdamState
+
+    return AdamState(int(np.asarray(count)),
+                     flax_to_torch({"params": mu}),
+                     flax_to_torch({"params": nu}))
+
+
 def torch_to_flax(state_dict):
     """Inverse of ``flax_to_torch``: a state dict (tensors or arrays) ->
     {"params": tree, "batch_stats": tree} of numpy arrays. Conv weights are
