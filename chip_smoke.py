@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """The PyTorch port's main paths on one CUDA card, checked end to end:
-synthesis (TTSKing.speak and batched generate + vocode) and FastSpeech2
-training (train() from a preprocessed corpus, with resume).
+synthesis (TTSKing.speak, speak_streaming, batched generate + vocode), the
+int8 vocoder (Generator(mrf_backend="fused_int8")), the other vocoder paths
+(MelGAN, upstream .pth.tar checkpoints) and FastSpeech2 training (train()
+from a preprocessed corpus, with resume).
 
 Run from the root of a checkout, with one card and no arguments:
 
@@ -11,29 +13,37 @@ Phases, one JSON line each; any failure raises and ends the run with a
 non-zero exit (nothing is caught):
 
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — the three CUDA kernel sources compiled from
+  2. build   — the four CUDA kernel sources compiled from
                tts_king_torch/csrc with nvcc for sm_90a, in parallel;
   3. kernel vs plain — each kernel against its plain PyTorch version on the
                card at main-path shapes, f32 (TF32 off) and bf16, within the
-               stated tolerance; the flash kernels forward and backward
-               against the plain version and autograd;
-  4. goldens — golden_fs2, golden_vocoder and golden_trained_vocoder
-               through the port in f32 at the CPU tests' tolerances, the
-               golden_e2e sentences through TTSKing.speak from the npz
-               export of the trained weights, and the JAX train step of
-               golden_train_step.npz replayed through the port's train step;
+               stated tolerance; the int8 MRF stage at stages 1-3's widths
+               and a small-tile case with a time-varying gain; the flash
+               kernels forward and backward against the plain version and
+               autograd;
+  4. goldens — golden_fs2, golden_vocoder, golden_trained_vocoder and the
+               JAX int8 vocoder (golden_int8_vocoder.npz) through the port
+               in f32 at the CPU tests' tolerances, the upstream MelGAN
+               oracle, a weight-normed HiFi-GAN .pth.tar through Vocoder
+               against the same weights from npz, the golden_e2e sentences
+               through TTSKing.speak from the npz export of the trained
+               weights, and the JAX train step of golden_train_step.npz
+               replayed through the port's train step;
   5. main paths — TTSConfig() at the shipped width: (a) synthesis with
                seeded weights (66 speakers) brought in through
                weights.flax_to_torch: TTSKing.speak on three Russian
-               sentences (f32), then one batched generate + vocode at the
-               bench shape B=32, L=128, T_mel=1000 (bf16); (b) training:
-               train() for 4 optimizer steps of 16 x 4 on a synthetic
-               preprocessed corpus written to a temporary directory (L = 96,
-               T = 640), with validation, objective metrics and a
-               checkpoint, then a resume for one more step. Every kernel
-               launch count is zeroed just before each path and read just
-               after, and must show the path's kernels ran (training: 40
-               flash forward and 40 flash backward launches per step);
+               sentences (f32), one batched generate + vocode at the bench
+               shape B=32, L=128, T_mel=1000 (bf16), and speak_streaming on
+               one sentence (f32); (b) the int8 Generator at config 2b of
+               bench.py (B=8, T_mel=1000, bf16) beside the fused bf16
+               Generator; (c) training: train() for 4 optimizer steps of
+               16 x 4 on a synthetic preprocessed corpus written to a
+               temporary directory (L = 96, T = 640), with validation,
+               objective metrics and a checkpoint, then a resume for one
+               more step. Every kernel launch count is zeroed just before
+               each path and read just after, and must show the path's
+               kernels ran (training: 40 flash forward and 40 flash
+               backward launches per step; int8: 3 per Generator call);
   6. train step — the sustained ms per optimizer step at the superbatch of
                bench.py:286-301 (acc 4 x B 16, L = 96, T = 640, f32);
   7. kernels — kernel time, plain time, library time and the card's bound at
@@ -209,6 +219,403 @@ def phase_kernels_vs_plain():
                 fail(f"mrf_stage {dname} C={C}: max err {err} > {tol}")
             errs["mrf_stage"][dname] = max(err, errs["mrf_stage"].get(dname, 0))
     return errs
+
+
+# int8 MRF stage, kernel vs plain: stages 1-3 of the shipped Generator (C,
+# and r as the Generator picks it), B = 2, T covering two full TPU windows
+# (TS = r * 1024 steps each) and half a third; then one case with a small
+# tile and a time-varying gain, where the windows' scales differ most.
+INT8_CHECKS = [(2, 128, 1, 2560, 1024, False), (2, 64, 2, 5120, 1024, False),
+               (2, 32, 4, 10240, 1024, False), (2, 32, 4, 4096, 64, True)]
+# Tolerances, int8 kernel vs plain on the card: both quantize the same
+# values with the same f32 operations (IEEE division, round half up, the
+# dequantization without FMA, the branch mean as an IEEE division by the
+# branch count) and sum the integer products exactly, so they agree bit for
+# bit; the bounds leave room for one ulp of the output. f32: max abs 1e-5
+# and rel L2 1e-6 of the output; bf16: max abs 2^-6 of the output's largest
+# magnitude (two ulps in its top binade) and rel L2 1e-3.
+TOL_INT8 = {"f32": (1e-5, 1e-6), "bf16": (2.0 ** -6, 1e-3)}
+# The int8 golden (tests/fixtures/torch_port/golden_int8_vocoder.npz,
+# scripts/export_int8_vocoder_golden.py) at tests/test_torch_mrf_int8.py's
+# bound: relative L2 to the JAX int8 waveform 1.25e-3, SNR to the JAX f32
+# waveform > 25 dB.
+GOLDEN_INT8 = os.path.join(FIXTURES, "torch_port", "golden_int8_vocoder.npz")
+GOLDEN_INT8_REL = 1.25e-3
+INT8_SNR_DB = 25.0
+# Config 2b of bench.py:218-240: mel -> wav, B = 8, T_mel = 1000, bf16. Its
+# waveform is held to the fused f32 Generator's at 15 dB SNR: the bf16
+# rounding of every layer adds to the int8 noise here (the f32 golden holds
+# the int8 path alone to 25 dB).
+INT8_B, INT8_T = 8, 1000
+INT8_BF16_SNR_DB = 15.0
+PEAK_INT8_OPS = 1979e12
+
+
+def int8_stage_inputs(B, C, T, dtype, seed, gain=False,
+                      kernel_sizes=(3, 7, 11), dilations=(1, 3, 5)):
+    """x as the Generator hands it over (a (B, T, C) view of a (B, C, T)
+    tensor), optionally with a gain of 10^U(-1, 1) per 64 steps, and a
+    stage quantized from f32 weights N(0, 1/(C k))."""
+    import torch
+
+    from tts_king_torch.ops.kernels.mrf import MrfStageWeights
+    from tts_king_torch.ops.kernels.mrf_int8 import quantize_mrf_stage
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, C, T), generator=g, device="cuda")
+    if gain:
+        seg = 10.0 ** (2 * torch.rand((B, 1, T // 64), generator=g,
+                                      device="cuda") - 1)
+        x = x * seg.repeat_interleave(64, dim=2)
+    ws, bs = [], []
+    for k in kernel_sizes:
+        ws.append([torch.randn((C, C, k), generator=g, device="cuda")
+                   / math.sqrt(C * k) for _ in range(2 * len(dilations))])
+        bs.append([0.05 * torch.randn((C,), generator=g, device="cuda")
+                   for _ in range(2 * len(dilations))])
+    stage = MrfStageWeights(kernel_sizes, dilations, ws, bs)
+    return x.to(dtype).transpose(1, 2), quantize_mrf_stage(stage)
+
+
+def phase_int8_vs_plain():
+    """The int8 MRF kernel against its plain version on the card."""
+    import torch
+
+    from tts_king_torch.ops.kernels import mrf_int8
+
+    worst = {}
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for B, C, r, T, tile, gain in INT8_CHECKS:
+            if mrf_int8.pack_factor(C, T) != r:
+                fail(f"mrf_stage_int8: r for C={C}, T={T} is not {r}")
+            x, q = int8_stage_inputs(B, C, T, dtype, seed=C + tile, gain=gain)
+            got = mrf_int8.mrf_stage_int8(x, q, r, tile).float()
+            ref = mrf_int8.mrf_stage_int8_plain(x, q, r, tile).float()
+            torch.cuda.synchronize()
+            scale = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            rel_l2 = float((got - ref).norm() / ref.norm())
+            tol_abs, tol_rel = TOL_INT8[dname]
+            ok = (bool(torch.isfinite(got).all()) and err <= tol_abs * scale
+                  and rel_l2 <= tol_rel)
+            emit({"phase": "kernel_vs_plain", "kernel": "mrf_stage_int8",
+                  "dtype": dname, "shape": [B, T, C], "r": r, "tile": tile,
+                  "gain": gain, "max_abs_err": err, "rel_l2": rel_l2,
+                  "max_abs_ref": scale, "tol_abs": tol_abs * scale,
+                  "tol_rel_l2": tol_rel, "ok": ok})
+            if not ok:
+                fail(f"mrf_stage_int8 {dname} C={C} tile={tile}: max err "
+                     f"{err}, rel L2 {rel_l2}")
+            worst[dname] = max(err, worst.get(dname, 0.0))
+    return worst
+
+
+def snr_db(got, ref):
+    import numpy as np
+
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return 20.0 * math.log10(np.linalg.norm(ref)
+                             / max(np.linalg.norm(got - ref), 1e-30))
+
+
+def phase_int8_golden():
+    """The JAX int8 vocoder golden replayed through the port in f32."""
+    import numpy as np
+    import torch
+
+    from tts_king_torch.config import VocoderModelConfig
+    from tts_king_torch.models.hifigan import Generator
+    from tts_king_torch.weights import flax_to_torch, load_flax_npz, load_into
+
+    z = np.load(GOLDEN_INT8)
+    cfg = VocoderModelConfig(**json.loads(str(z["meta::config"])))
+    gen = load_into(Generator(cfg, mrf_backend="fused_int8"),
+                    flax_to_torch(load_flax_npz(GOLDEN_INT8))).cuda().eval()
+    with torch.inference_mode():
+        wav = gen(torch.from_numpy(z["in::mel"]).cuda()).cpu().numpy()
+    ref = z["out::wav_int8"]
+    rel = float(np.linalg.norm(wav - ref) / np.linalg.norm(ref))
+    snr = snr_db(wav, z["out::wav_f32"])
+    ok = wav.shape == ref.shape and rel <= GOLDEN_INT8_REL and snr > INT8_SNR_DB
+    emit({"phase": "golden", "fixture": "golden_int8_vocoder",
+          "rel_l2_vs_jax_int8": rel, "snr_db_vs_jax_f32": snr,
+          "max_abs_err": float(np.abs(wav - ref).max()),
+          "tol": f"rel L2 <= {GOLDEN_INT8_REL}, SNR > {INT8_SNR_DB} dB",
+          "ok": ok})
+    if not ok:
+        fail(f"golden_int8_vocoder: rel {rel}, SNR {snr} dB")
+
+
+def shipped_generator(cfg, backend, dtype):
+    """TTSConfig()'s Generator on the card with seeded weights (seed 1, as
+    main_path_kings), loaded in f32 and then cast, as the Vocoder does."""
+    import torch
+
+    from tts_king_torch.models.hifigan import Generator
+    from tts_king_torch.weights import flax_to_torch, load_into
+
+    with torch.device("meta"):
+        gen = Generator(cfg.vocoder, mrf_backend=backend)
+    voc_vars = seeded_flax_variables(lambda: Generator(cfg.vocoder), seed=1)
+    gen = load_into(gen.to_empty(device="cuda"), flax_to_torch(voc_vars))
+    return gen.to(dtype).eval()
+
+
+def phase_int8_vocoder(cfg):
+    """Config 2b: the int8 Generator at the shipped width, bf16, on a mel of
+    B = 8, T_mel = 1000 (bench.py:218-240), beside the fused bf16 Generator
+    at the same shape and against the fused f32 Generator. The counts are
+    zeroed just before the timed int8 calls and read just after."""
+    import numpy as np
+    import torch
+
+    from tts_king_torch.ops.kernels import mrf_int8
+
+    B, T = INT8_B, INT8_T
+    hop = cfg.preprocess.stft.hop_length
+    sr = cfg.preprocess.audio.sampling_rate
+    mel = torch.from_numpy(np.random.RandomState(2).randn(B, T, 80)
+                           .astype(np.float32)).cuda()
+    gen8 = shipped_generator(cfg, "fused_int8", torch.bfloat16)
+    reps = 3
+    with torch.inference_mode():
+        gen8(mel)   # cuDNN's plans, the allocator's pools
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        int8_ms = cuda_ms(lambda: gen8(mel), warmup=0, reps=reps)
+        launches = launch_counts()   # read just after the path's run
+        wav8 = gen8(mel).float()
+        del gen8
+        gen16 = shipped_generator(cfg, "fused", torch.bfloat16)
+        bf16_ms = cuda_ms(lambda: gen16(mel), warmup=1, reps=reps)
+        wav16 = gen16(mel).float()
+        del gen16
+        gen32 = shipped_generator(cfg, "fused", torch.float32)
+        wav32 = gen32(mel)
+        del gen32
+    torch.cuda.empty_cache()
+    per_call = launches["mrf_stage_int8"] / reps
+    n_fused = len(fused_stages(cfg, T))
+    snr = snr_db(wav8.cpu().numpy(), wav32.cpu().numpy())
+    snr16 = snr_db(wav16.cpu().numpy(), wav32.cpu().numpy())
+    ok = (per_call == n_fused and launches["mrf_stage"] == 0
+          and tuple(wav8.shape) == (B, T * hop)
+          and bool(torch.isfinite(wav8).all()) and snr > INT8_BF16_SNR_DB)
+    emit({"phase": "main_path", "path": "int8 vocoder",
+          "call": "Generator(mrf_backend='fused_int8')", "dtype": "bf16",
+          "shape": {"B": B, "T_mel": T}, "wall_ms": int8_ms,
+          "rtf": int8_ms / 1e3 / (B * T * hop / sr),
+          "fused_bf16_wall_ms": bf16_ms, "snr_db_vs_fused_f32": snr,
+          "fused_bf16_snr_db_vs_fused_f32": snr16,
+          "snr_gate_db": INT8_BF16_SNR_DB,
+          "launches": launches, "int8_launches_per_call": per_call,
+          "ok": ok})
+    if not ok:
+        fail(f"int8 vocoder: launches {launches}, SNR {snr} dB, shape "
+             f"{tuple(wav8.shape)}")
+    return launches
+
+
+def int8_timing_row(cfg, launches, max_err):
+    """Row 2b: the int8 kernel at config 2b's stages (B = 8, T_mel = 1000,
+    bf16), the sum of one launch per fused stage, and the plain version;
+    the kernel's output at each stage is held against the plain version's
+    on the same inputs under TOL_INT8. The bound: 2 * 6 * sum(k) * C^2 int8
+    operations per time step over the dense int8 rate, or the bf16
+    activations in and out plus the int8 taps over the memory rate."""
+    import torch
+
+    from tts_king_torch.ops.kernels import mrf_int8
+
+    B, T = INT8_B, INT8_T
+    stages = fused_stages(cfg, T)
+    plain_ms = ops = nbytes = 0.0
+    stage_ms = []
+    tol_abs, tol_rel = TOL_INT8["bf16"]
+    for C, Tw in stages:
+        x, q = int8_stage_inputs(B, C, Tw, torch.bfloat16, seed=C)
+        r = mrf_int8.pack_factor(C, Tw)
+        stage_ms.append(cuda_ms(lambda: mrf_int8.mrf_stage_int8(x, q, r),
+                                warmup=1, reps=3))
+        plain_ms += cuda_ms(lambda: mrf_int8.mrf_stage_int8_plain(x, q, r),
+                            warmup=1, reps=1)
+        got = mrf_int8.mrf_stage_int8(x, q, r).float()
+        ref = mrf_int8.mrf_stage_int8_plain(x, q, r).float()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        rel_l2 = float((got - ref).norm() / ref.norm())
+        ok = (bool(torch.isfinite(got).all()) and err <= tol_abs * scale
+              and rel_l2 <= tol_rel)
+        emit({"phase": "kernel_vs_plain", "kernel": "mrf_stage_int8",
+              "dtype": "bf16", "shape": [B, Tw, C], "r": r,
+              "tile": mrf_int8.TILE, "gain": False, "max_abs_err": err,
+              "rel_l2": rel_l2, "max_abs_ref": scale,
+              "tol_abs": tol_abs * scale, "tol_rel_l2": tol_rel, "ok": ok})
+        if not ok:
+            fail(f"mrf_stage_int8 bf16 at config 2b's C={C}, T={Tw}: max err "
+                 f"{err}, rel L2 {rel_l2}")
+        max_err = max(max_err, err)
+        del got, ref
+        ops += 2.0 * 6 * sum(q.kernel_sizes) * C * C * Tw * B
+        n_w = q.taps.numel()
+        nbytes += 2.0 * 2 * B * Tw * C + n_w + 4.0 * 2 * q.scales.numel()
+        del x, q
+        torch.cuda.empty_cache()
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    return {
+        "name": "mrf_stage_int8", "route": "cuda",
+        "source": "tts_king_torch/csrc/mrf_stage_int8.cu",
+        "replaces": "tts_king_tpu/ops/pallas/mrf_packed.py:172",
+        "launches": launches["mrf_stage_int8"], "max_abs_err": max_err,
+        "ms": sum(stage_ms), "stage_ms": stage_ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None, "dtype": "bf16",
+        "shape": {"B": B, "T_mel": T, "stages_C_T": stages,
+                  "note": "sum of one launch per fused stage; launches "
+                          "from the int8 vocoder's run"}}
+
+
+MELGAN_ORACLE = os.path.join(FIXTURES, "oracle_cache",
+                             "melgan_d1eef7712903051ca869.npz")
+
+
+def upstream_hifigan_state(vocoder_cfg, seed):
+    """A weight-normed upstream HiFi-GAN Generator state dict (hifi/
+    models.py names: ups.{i}, resblocks.{n}.convs1.{j} or .convs.{j}, ...)
+    of the port Generator's shapes, seeded; weight_g is (out, 1, 1), torch's
+    weight_norm at dim=0."""
+    import numpy as np
+    import torch
+
+    from tts_king_torch.models.hifigan import Generator
+
+    rng = np.random.RandomState(seed)
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape) for k, v in
+                  Generator(vocoder_cfg).state_dict().items()}
+    state = {}
+    for key, shape in shapes.items():
+        mod, leaf = key.rsplit(".", 1)
+        for a, b in (("ups_", "ups."), ("resblocks_", "resblocks."),
+                     ("convs1_", "convs1."), ("convs2_", "convs2."),
+                     ("convs_", "convs.")):
+            mod = mod.replace(a, b)
+        if leaf == "bias":
+            state[f"{mod}.bias"] = 0.02 * rng.randn(*shape)
+        else:
+            state[f"{mod}.weight_v"] = 0.1 * rng.randn(*shape)
+            state[f"{mod}.weight_g"] = 1.0 + 0.1 * rng.randn(
+                shape[0], *[1] * (len(shape) - 1))
+    return {k: torch.from_numpy(v.astype(np.float32))
+            for k, v in state.items()}
+
+
+def phase_vocoders():
+    """MelGAN against the recorded upstream oracle (tests/test_melgan.py's
+    inputs and tolerance), and a weight-normed HiFi-GAN .pth.tar loaded
+    through Vocoder against the same folded weights loaded from npz."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tts_king_torch.checkpoint import (convert_hifigan_checkpoint,
+                                           convert_melgan_state)
+    from tts_king_torch.config import TTSConfig, VocoderModelConfig
+    from tts_king_torch.models.melgan import MelGANGenerator
+    from tts_king_torch.pipeline import Vocoder
+    from scripts.export_flax_variables import flatten_variables
+    from tts_king_torch.weights import load_into, torch_to_flax
+
+    z = np.load(MELGAN_ORACLE)
+    state = {k[len("state__"):]: torch.from_numpy(z[k]) for k in z.files
+             if k.startswith("state__")}
+    model = MelGANGenerator(ngf=4, n_residual_layers=2, ratios=(4, 2))
+    model = load_into(model, convert_melgan_state(state, (4, 2), 2))
+    model = model.cuda().eval()
+    mel = np.random.RandomState(0).randn(2, 80, 17).astype(np.float32)
+    with torch.inference_mode():
+        wav = model(torch.from_numpy(mel.transpose(0, 2, 1).copy()).cuda())
+    wav = wav.cpu().numpy()
+    ref = z["wav"][:, 0, :]
+    np.testing.assert_allclose(wav, ref, rtol=1e-4, atol=1e-5)
+    emit({"phase": "golden", "fixture": "melgan oracle",
+          "max_abs_err": float(np.abs(wav - ref).max()),
+          "tol": "rtol 1e-4 atol 1e-5", "ok": True})
+
+    cfg = TTSConfig(vocoder=VocoderModelConfig(
+        upsample_rates=[4, 4], upsample_kernel_sizes=[8, 8],
+        upsample_initial_channel=32))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pth_")
+    try:
+        pth = os.path.join(tmp, "g_02500000.pth.tar")
+        torch.save({"generator": upstream_hifigan_state(cfg.vocoder, 3)}, pth)
+        flat = flatten_variables(torch_to_flax(
+            convert_hifigan_checkpoint(pth, n_ups=2)))
+        npz = os.path.join(tmp, "vocoder.npz")
+        np.savez(npz, **flat)
+        mel = np.random.RandomState(4).randn(2, 50, 80).astype(np.float32)
+        wavs = {}
+        for name, path in (("pth", pth), ("npz", npz)):
+            cfg.vocoder.weights_path = path
+            wavs[name] = Vocoder(cfg, device="cuda")(mel).cpu().numpy()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    err = float(np.abs(wavs["pth"] - wavs["npz"]).max())
+    ok = wavs["pth"].shape == (2, 50 * 16) and err <= 1e-6
+    emit({"phase": "checkpoint", "file": "HiFi-GAN .pth.tar, weight norm",
+          "max_abs_err_vs_npz": err, "tol": 1e-6, "ok": ok})
+    if not ok:
+        fail(f"HiFi-GAN .pth.tar vs npz: max err {err}")
+
+
+def phase_streaming(king, n_fused, n_layers, text):
+    """TTSKing.speak_streaming on one sentence (f32): the chunks' interior
+    equals speak()'s waveform (one LSB: cuDNN may sum a window's convs in
+    another order than the whole utterance's), the total length is
+    speak()'s, and the ms to the first chunk. Counts zeroed just before,
+    read just after."""
+    import numpy as np
+    import torch
+
+    from tts_king_torch.ops.streaming import generator_receptive_field
+
+    cfg = king.cfg
+    hop = cfg.preprocess.stft.hop_length
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    chunks, first_ms = [], None
+    for chunk in king.speak_streaming(text):
+        if first_ms is None:
+            first_ms = (time.perf_counter() - t0) * 1e3
+        chunks.append(chunk)
+    total_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()   # read just after the path's run
+    torch.cuda.synchronize()
+    wav = king.speak(text)[0]
+    streamed = np.concatenate(chunks)
+    edge = generator_receptive_field(cfg.vocoder) * hop
+    diff = np.abs(streamed[edge:-edge].astype(np.int32)
+                  - wav[edge:-edge].astype(np.int32))
+    ok = (streamed.shape == wav.shape
+          and all(c.dtype == np.int16 for c in chunks)
+          and int(diff.max()) <= 1
+          and launches["mrf_stage"] == n_fused * len(chunks)
+          and launches["attention"] >= n_layers)
+    emit({"phase": "main_path", "path": "streaming",
+          "call": "TTSKing.speak_streaming", "dtype": "f32", "text": text,
+          "chunks": len(chunks), "samples": int(streamed.shape[0]),
+          "speak_samples": int(wav.shape[0]), "first_chunk_ms": first_ms,
+          "total_ms": total_ms, "interior_max_lsb": int(diff.max()),
+          "interior_frac_off": float(np.mean(diff > 0)),
+          "launches": launches, "ok": ok})
+    if not ok:
+        fail(f"speak_streaming: {len(chunks)} chunks, {streamed.shape} vs "
+             f"{wav.shape}, interior max {int(diff.max())} LSB, launches "
+             f"{launches}")
+    return launches
 
 
 def flash_inputs(B, H, T, D, seed, lens=None):
@@ -614,17 +1021,20 @@ def bench_batch(n_spk=66):
 
 def launch_counts():
     """Every kernel wrapper's launch count."""
-    from tts_king_torch.ops.kernels import attention, flash_attention, mrf
+    from tts_king_torch.ops.kernels import (attention, flash_attention, mrf,
+                                            mrf_int8)
 
     return {"attention": attention.launches, "mrf_stage": mrf.launches,
+            "mrf_stage_int8": mrf_int8.launches,
             "flash_fwd": flash_attention.launches_fwd,
             "flash_bwd": flash_attention.launches_bwd}
 
 
 def zero_launch_counts():
-    from tts_king_torch.ops.kernels import attention, flash_attention, mrf
+    from tts_king_torch.ops.kernels import (attention, flash_attention, mrf,
+                                            mrf_int8)
 
-    attention.launches = mrf.launches = 0
+    attention.launches = mrf.launches = mrf_int8.launches = 0
     flash_attention.launches_fwd = flash_attention.launches_bwd = 0
 
 
@@ -732,6 +1142,7 @@ def phase_main_path():
             fail(f"kernel {name} was not launched on the synthesis path")
     emit({"phase": "main_path", "path": "synthesis", "launches": launches,
           "ok": True})
+    phase_streaming(king, n_fused, n_layers, SENTENCES[1])
     return launches, [int(n) for n in mel_lens]
 
 
@@ -1094,8 +1505,11 @@ def main():
           "nvcc_seconds": compiled, "ptxas": regs})
 
     errs = phase_kernels_vs_plain()
+    errs["mrf_stage_int8"] = phase_int8_vs_plain()
     errs["flash_attention"] = phase_flash_vs_plain()
     phase_goldens()
+    phase_int8_golden()
+    phase_vocoders()
     t0 = time.perf_counter()
     losses, golden_errs = replay_train_step_golden(device="cuda")
     emit({"phase": "golden", "fixture": "golden_train_step",
@@ -1103,10 +1517,13 @@ def main():
           "tol": "tests/test_torch_train.py (compare_train_step)",
           "seconds": time.perf_counter() - t0, "ok": True})
     launches, mel_lens = phase_main_path()
+    int8_launches = phase_int8_vocoder(main_config())
     train_launches = phase_train_path()
     phase_train_step_time(smi)
     rows = phase_timing(main_config(), launches, train_launches, errs,
                         mel_lens)
+    rows.insert(2, int8_timing_row(main_config(), int8_launches,
+                                   errs["mrf_stage_int8"]["bf16"]))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

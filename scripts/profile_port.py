@@ -6,7 +6,10 @@ width, seeded weights, 66 speakers), warms it up, and runs one batched
 ``generate`` + vocoder at the bench shape (B=32, L=128, T_mel=1000).
 Training (``--train``): one f32 optimizer step of TTSConfig()'s
 FastSpeech2 at the superbatch of bench.py:286-301 (acc 4 x B 16, L = 96,
-T = 640), after two warm-up steps, as chip_smoke.py times it.
+T = 640), after two warm-up steps, as chip_smoke.py times it. The int8
+vocoder (``--int8``): TTSConfig()'s Generator(mrf_backend="fused_int8")
+in bf16 on a mel of B = 8, T_mel = 1000 (config 2b of bench.py:218-240),
+as chip_smoke.py times it.
 
 The run is profiled under ``torch.profiler`` with CPU and CUDA activities.
 Prints one JSON line: the wall time, the device's busy time (the sum of
@@ -14,7 +17,7 @@ kernel times: one stream, so kernels do not overlap), its idle share, and
 the device time by operator and by kernel, largest first. The full tables
 and a Chrome trace go to ``--out``.
 
-    python3 scripts/profile_port.py [--train] [--out build/profile_port]
+    python3 scripts/profile_port.py [--train | --int8] [--out DIR]
 """
 
 import argparse
@@ -43,8 +46,11 @@ def main(argv=None):
     ap.add_argument("--out", default=os.path.join(REPO, "build",
                                                   "profile_port"))
     ap.add_argument("--top", type=int, default=15)
-    ap.add_argument("--train", action="store_true",
-                    help="profile one optimizer step instead of synthesis")
+    what = ap.add_mutually_exclusive_group()
+    what.add_argument("--train", action="store_true",
+                      help="profile one optimizer step instead of synthesis")
+    what.add_argument("--int8", action="store_true",
+                      help="profile the int8 vocoder instead of synthesis")
     args = ap.parse_args(argv)
 
     import torch
@@ -71,6 +77,17 @@ def main(argv=None):
 
         def run():
             return step(state, sb, step_generator(0, state.step, "cuda"))
+    elif args.int8:
+        cfg = chip_smoke.main_config()
+        gen = chip_smoke.shipped_generator(cfg, "fused_int8", torch.bfloat16)
+        B, T = chip_smoke.INT8_B, chip_smoke.INT8_T
+        mel = torch.randn((B, T, cfg.vocoder.num_mels), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(2))
+        shape = {"B": B, "T_mel": T, "dtype": "bf16"}
+
+        @torch.inference_mode()
+        def run():
+            return gen(mel)
     else:
         cfg = chip_smoke.main_config()
         king = chip_smoke.main_path_kings(cfg)["bf16"]
@@ -113,7 +130,8 @@ def main(argv=None):
             sort_by="self_cuda_time_total", row_limit=60))
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "path": "train_step" if args.train else "synthesis",
+        "path": ("train_step" if args.train else
+                 "int8_vocoder" if args.int8 else "synthesis"),
         "shape": shape,
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),

@@ -172,12 +172,27 @@ def test_generator_matches_jax_fused_backend(resblock):
     assert rel < 1e-5, rel
 
 
-def test_generator_int8_backend_not_ported():
-    from tts_king_torch.config import VocoderModelConfig
+def test_generator_int8_backend_state_dict_and_cast():
+    """A fused_int8 Generator has the state dict of a fused one (it loads
+    the same checkpoints); its int8 taps, f32 weight scales and f32 biases
+    stay out of it and survive .to(torch.bfloat16) unchanged."""
     from tts_king_torch.models.hifigan import Generator
 
-    with pytest.raises(NotImplementedError):
-        Generator(VocoderModelConfig(), mrf_backend="fused_int8")
+    cfg = _tiny_voc_config()
+    fused = Generator(cfg, mrf_backend="fused")
+    int8 = Generator(cfg, mrf_backend="fused_int8")
+    a, b = fused.state_dict(), int8.state_dict()
+    assert a.keys() == b.keys()
+    assert all(a[k].shape == b[k].shape for k in a)
+    int8.load_state_dict(a)
+    bufs = {n: t.clone() for n, t in int8.named_buffers()}
+    assert {t.dtype for t in bufs.values()} == {torch.int8, torch.float32}
+    assert len(bufs) == 3 * len(cfg.upsample_rates)   # every stage fused
+    int8.to(torch.bfloat16)
+    for n, t in int8.named_buffers():
+        assert t.dtype == bufs[n].dtype, n
+        assert torch.equal(t, bufs[n]), n
+    assert int8.conv_pre.weight.dtype == torch.bfloat16
 
 
 def test_fs2_cwt_not_ported():

@@ -21,6 +21,7 @@ import time
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 SOURCES = {"attention": "attention.cu", "mrf_stage": "mrf_stage.cu",
+           "mrf_stage_int8": "mrf_stage_int8.cu",
            "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

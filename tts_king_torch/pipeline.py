@@ -1,13 +1,15 @@
 """End-to-end synthesis pipeline: text -> phonemes -> mel -> waveform.
 
 Port of tts_king_tpu/pipeline.py (API of the reference tts_king.py TTSKing,
-fsapi.py FSTWOapi, hifiapi.py HIFIapi), inference with HiFi-GAN:
+fsapi.py FSTWOapi, hifiapi.py HIFIapi), inference with HiFi-GAN or MelGAN:
   * phoneme lengths pad up to power-of-two buckets;
   * the mel length starts at a bucket guessed from the phoneme count and
     escalates through MEL_BUCKETS while the model's raw (unclamped) length
     overflows the bucket;
   * the waveform is scaled by max_wav_value and cast f32 -> int32 -> int16
-    on the device, which wraps at full scale as numpy's astype does.
+    on the device, which wraps at full scale as numpy's astype does;
+  * ``TTSKing.speak_streaming`` yields the int16 waveform in chunks vocoded
+    from halo'd mel windows (ops/streaming.py).
 
 Every entry point takes ``device`` (default "cuda", which raises when CUDA is
 missing; the CPU is used only when asked for) and ``dtype`` (float32 or
@@ -15,19 +17,27 @@ bfloat16: the dtype of the weights and activations, as in the JAX bench's
 ``build_fastspeech2(dtype=...)`` and ``Generator(dtype=...)``).
 
 Weights come from ``variables=`` (a flax-style tree of numpy arrays, or a
-state dict) or from an ``.npz`` weights path (``var::`` naming, see
-scripts/export_flax_variables.py); without either, seeded random weights.
+state dict) or from a weights path: an ``.npz`` export (``var::`` naming,
+see scripts/export_flax_variables.py) for either model, or an upstream
+PyTorch checkpoint (``.pth`` / ``.pth.tar``, checkpoint.py) for the
+vocoder; without either, seeded random weights.
 """
 
 import json
+import math
 import os
 
 import numpy as np
 import torch
 
+from tts_king_torch.checkpoint import (convert_hifigan_checkpoint,
+                                       convert_melgan_checkpoint)
 from tts_king_torch.config import TTSConfig
 from tts_king_torch.models.fs2 import build_fastspeech2
 from tts_king_torch.models.hifigan import Generator
+from tts_king_torch.models.melgan import MelGANGenerator
+from tts_king_torch.ops.streaming import (generator_receptive_field,
+                                          stream_vocoder)
 from tts_king_torch.weights import (flax_to_torch, load_flax_npz, load_into,
                                     seeded_state_dict)
 
@@ -95,19 +105,25 @@ def _state_dict(variables):
     return flax_to_torch(variables)
 
 
-def _weights_from_path(path, what):
+def _weights_from_path(path, what, convert_torch=None):
+    """A state dict from an npz export, or from a PyTorch checkpoint through
+    ``convert_torch`` where the model has a converter."""
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{what}: orbax checkpoint directories are not read by the port; "
             "export one to npz with scripts/export_flax_variables.py")
     if path.endswith(".npz"):
         return flax_to_torch(load_flax_npz(path))
+    if convert_torch is not None:
+        return convert_torch(path)
     raise NotImplementedError(
-        f"{what}: {os.path.basename(path)}: reference .pth.tar checkpoints "
-        "are loaded in a later slice of the port; use an .npz export")
+        f"{what}: {os.path.basename(path)}: FastSpeech2 .pth.tar checkpoints "
+        "are loaded in a later slice of the port, with the CWT branch their "
+        "converter needs; use an .npz export")
 
 
-def _materialize(build, variables, weights_path, device, dtype, seed, what):
+def _materialize(build, variables, weights_path, device, dtype, seed, what,
+                 convert_torch=None):
     """Build a module on the meta device (no init, no global RNG), allocate
     it on ``device``, fill it, cast it to ``dtype`` and set eval mode."""
     with torch.device("meta"):
@@ -115,7 +131,7 @@ def _materialize(build, variables, weights_path, device, dtype, seed, what):
     if variables is not None:
         sd = _state_dict(variables)
     elif weights_path and os.path.exists(weights_path):
-        sd = _weights_from_path(weights_path, what)
+        sd = _weights_from_path(weights_path, what, convert_torch)
     else:
         sd = seeded_state_dict(module, seed)
     module = module.to_empty(device=device)
@@ -226,7 +242,11 @@ class AcousticModel:
 
 
 class Vocoder:
-    """HiFi-GAN inference driver (HIFIapi equivalent, hifiapi.py:11-52)."""
+    """Vocoder inference wrapper (HIFIapi equivalent, hifiapi.py:11-52), for
+    both of the reference's vocoders (model_config.vocoder.model,
+    fs_two/utils/model.py:46-99): HiFi-GAN, and MelGAN (the descript
+    architecture; it consumes log10 mels, so natural-log mels are divided by
+    ln 10, vocoder_infer:87-89)."""
 
     def __init__(self, config: TTSConfig, variables=None, dtype=torch.float32,
                  device="cuda"):
@@ -234,21 +254,35 @@ class Vocoder:
         self.dtype = _check_dtype(dtype)
         self.config = config
         self.kind = config.model.vocoder_model
-        if self.kind != "HiFi-GAN":
-            raise NotImplementedError(
-                f"vocoder {self.kind!r}: only HiFi-GAN is ported so far; "
-                "MelGAN comes in a later slice")
-        self.model = _materialize(
-            lambda: Generator(config.vocoder), variables,
-            config.vocoder.weights_path, self.device, self.dtype, 1, "Vocoder")
+        v = config.vocoder
+        if self.kind == "MelGAN":
+            ratios = tuple(v.upsample_rates)
+            build = lambda: MelGANGenerator(ratios=ratios)
+            convert = lambda path: convert_melgan_checkpoint(path, ratios)
+        elif self.kind == "HiFi-GAN":
+            build = lambda: Generator(v)
+            convert = lambda path: convert_hifigan_checkpoint(
+                path, n_ups=len(v.upsample_rates),
+                n_kernels=len(v.resblock_kernel_sizes))
+        else:
+            raise ValueError(f"unknown vocoder {self.kind!r} (HiFi-GAN or "
+                             "MelGAN)")
+        self.model = _materialize(build, variables, v.weights_path,
+                                  self.device, self.dtype, 1, "Vocoder",
+                                  convert)
 
     def _mel(self, mel):
-        return torch.as_tensor(np.asarray(mel) if not isinstance(
+        mel = torch.as_tensor(np.asarray(mel) if not isinstance(
             mel, torch.Tensor) else mel).to(self.device)
+        if self.kind == "MelGAN":
+            # one IEEE division, as the JAX package divides (PyTorch's CUDA
+            # kernels divide by a Python scalar through its reciprocal)
+            mel = mel / mel.new_tensor(math.log(10.0))
+        return mel
 
     @torch.inference_mode()
     def __call__(self, mel):
-        """mel: (B, T, 80) natural-log mel -> f32 waveform (B, T*256)."""
+        """mel: (B, T, 80) natural-log mel -> f32 waveform (B, T * hop)."""
         return self.model(self._mel(mel))
 
     @torch.inference_mode()
@@ -321,6 +355,19 @@ class TTSKing:
             text, duration_control, pitch_control, energy_control, speaker)
         return self.mel_to_wav(mel, mel_lens)
 
-    def speak_streaming(self, *args, **kwargs):
-        raise NotImplementedError(
-            "speak_streaming is not ported yet; it comes in a later slice")
+    def speak_streaming(self, text, duration_control=1.0, pitch_control=1.0,
+                        energy_control=1.0, speaker=0, chunk_frames=64):
+        """Yield int16 numpy waveform chunks as they are vocoded: audio
+        starts after one small vocoder window instead of the whole
+        utterance. The halo is the HiFi-GAN generator's receptive field
+        (generator_receptive_field(cfg.vocoder)), whatever the vocoder, as
+        in the JAX package; each window is scaled and cast on the device."""
+        mel, mel_lens = self.generate_mel(
+            text, duration_control, pitch_control, energy_control, speaker)
+        n = int(mel_lens[0])
+        mel = mel[:1, :max(n, 1)].float().cpu().numpy()
+        halo = generator_receptive_field(self.cfg.vocoder)
+        yield from stream_vocoder(
+            lambda piece: self.vocoder.vocode_int16(piece).cpu().numpy(),
+            mel, chunk_frames=chunk_frames, halo_frames=halo,
+            hop=self.cfg.preprocess.stft.hop_length)

@@ -15,8 +15,8 @@ change layout as follows:
 
 The JAX package's transposed conv flips its kernel internally
 (ops/convs.py:33-59); torch's ConvTranspose1d takes the same (k, Cin, Cout)
-orientation without a flip. The transposed convs are the HiFi-GAN
-upsamplers, named ``ups_<i>``.
+orientation without a flip. The transposed convs are the upsamplers, named
+``ups_<i>`` in HiFi-GAN and ``up_<i>`` in MelGAN.
 
 No JAX here: trees are nested dicts of numpy arrays (or anything
 ``np.asarray`` takes), and ``load_flax_npz`` reads the flat
@@ -26,7 +26,7 @@ No JAX here: trees are nested dicts of numpy arrays (or anything
 import numpy as np
 import torch
 
-_TRANSPOSED_CONV_PREFIX = "ups_"
+_TRANSPOSED_CONV_PREFIXES = ("ups_", "up_")
 
 
 def _flatten(tree, prefix=()):
@@ -38,7 +38,7 @@ def _flatten(tree, prefix=()):
 
 
 def _is_transposed(path):
-    return len(path) >= 2 and path[-2].startswith(_TRANSPOSED_CONV_PREFIX)
+    return len(path) >= 2 and path[-2].startswith(_TRANSPOSED_CONV_PREFIXES)
 
 
 def flax_to_torch(variables):
@@ -189,7 +189,7 @@ def seeded_state_dict(module, seed=0):
             a = 0.3 * rng.standard_normal(shape)
         else:
             fan_in = int(np.prod(shape)) // shape[0]
-            if _TRANSPOSED_CONV_PREFIX in key:
+            if _is_transposed(tuple(key.split("."))):
                 # ConvTranspose1d (Cin, Cout, k) with k = 2 * stride: each
                 # output sees 2 taps of every input channel
                 fan_in = 2 * shape[0]
