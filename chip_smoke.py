@@ -17,7 +17,11 @@ non-zero exit (nothing is caught):
                tts_king_torch/csrc with nvcc for sm_90a, in parallel;
   3. kernel vs plain — each kernel against its plain PyTorch version on the
                card at main-path shapes, f32 (TF32 off) and bf16, within the
-               stated tolerance; the int8 MRF stage at stages 1-3's widths
+               stated tolerance (attention and flash also on masks with an
+               item of length 1, padded key tiles in the middle and at the
+               start of an item and, for attention, an item with no valid
+               key, at a T no multiple of a key tile); the int8 MRF stage
+               at stages 1-3's widths
                and a small-tile case with a time-varying gain; the flash
                kernels forward and backward against the plain version and
                autograd;
@@ -47,7 +51,9 @@ non-zero exit (nothing is caught):
   6. train step — the sustained ms per optimizer step at the superbatch of
                bench.py:286-301 (acc 4 x B 16, L = 96, T = 640, f32);
   7. kernels — kernel time, plain time, library time and the card's bound at
-               the bench shapes.
+               the bench shapes (attention also at speak's f32 call; f32
+               bounds as 3xTF32 on the tensor cores, the CUDA-core f32 bound
+               beside them).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout, it prints no result and exits 1. The JAX package is not imported.
@@ -71,8 +77,9 @@ PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 
 # Tolerances, kernel vs plain version on the card (max |kernel - plain|):
-#  * attention f32: both sum in f32 in different orders and the kernel uses
-#    an online softmax; 1e-4 on outputs of order 1.
+#  * attention f32: the kernel's products are 3xTF32 (about 2^-21 of each
+#    product), both sum in f32 in different orders and the kernel uses an
+#    online softmax; 1e-4 on outputs of order 1.
 #  * attention bf16: the kernel rounds the unnormalized probabilities to bf16
 #    where the plain version rounds the normalized ones, and the output is
 #    bf16 (one ulp of 1 is 7.8e-3); 2e-2.
@@ -83,10 +90,10 @@ PEAK_BYTES = 3.35e12
 #    other way, and that ulp is carried through the later convs of the
 #    chain; 2^-5 relative to the output's largest magnitude (8 ulps of a
 #    value in the output's top binade). Observed: 2 ulps at B=2.
-#  * flash attention f32, forward and dq/dk/dv: f32 sums of up to T = 640
-#    products in other orders, the forward with an online softmax and the
-#    backward recomputing P from the log-sum-exp; 1e-4 on values of order
-#    1. dK and dV at padded keys must be exactly 0.
+#  * flash attention f32, forward and dq/dk/dv: 3xTF32 products summed in
+#    f32 over up to T = 640 terms in other orders, the forward with an
+#    online softmax and the backward recomputing P from the log-sum-exp;
+#    1e-4 on values of order 1. dK and dV at padded keys must be exactly 0.
 TOL = {("attention", "f32"): 1e-4, ("attention", "bf16"): 2e-2,
        ("mrf_stage", "f32"): 1e-4, ("mrf_stage", "bf16"): 2.0 ** -5,
        ("flash_attention", "f32"): 1e-4}
@@ -95,14 +102,25 @@ TOL = {("attention", "f32"): 1e-4, ("attention", "bf16"): 2e-2,
 # kernels are checked at (attention: encoder- and decoder-like T, ragged;
 # MRF: stages 1-3 of the shipped Generator at T_mel = 1000, two items),
 # plus one narrow case each with a ragged edge (the goldens' widths).
+# The "edge" cases (B = 5, T no multiple of a key tile; key_mask) hold a
+# full item, an item of length 1, padded key tiles in the middle and at the
+# start of an item, and, for attention only, an item with no valid key (its
+# rows average v over T); they cover each padded head dim the kernels
+# instantiate (16, 32, 64, 128), and the flash kernels the train-step
+# golden's D = 4.
 BENCH_B, BENCH_L, BENCH_T = 32, 128, 1000
-ATTN_CHECKS = [(8, 2, 128, 128), (8, 2, 1000, 128), (3, 2, 77, 16)]
+ATTN_CHECKS = [(8, 2, 128, 128, "suffix"), (8, 2, 1000, 128, "suffix"),
+               (3, 2, 77, 16, "suffix"), (5, 2, 200, 128, "edge"),
+               (5, 2, 77, 16, "edge"), (5, 2, 100, 64, "edge"),
+               (5, 1, 50, 32, "edge")]
 MRF_CHECKS = [(2, 128, 64000), (2, 64, 128000), (2, 32, 256000),
               (3, 16, 4001)]
 # Training: the superbatch of bench.py:286-301, and the flash kernels'
 # shapes on that path (decoder T = 640, encoder L = 96) plus a ragged one.
 TRAIN_ACC, TRAIN_B, TRAIN_L, TRAIN_T = 4, 16, 96, 640
-FLASH_CHECKS = [(16, 2, 640, 128), (16, 2, 96, 128), (3, 2, 77, 16)]
+FLASH_CHECKS = [(16, 2, 640, 128, "suffix"), (16, 2, 96, 128, "suffix"),
+                (3, 2, 77, 16, "suffix"), (5, 2, 200, 128, "edge"),
+                (5, 2, 77, 16, "edge"), (5, 2, 50, 4, "edge")]
 TRAIN_STEPS = 4
 
 SENTENCES = ["Привет, мир!",
@@ -145,16 +163,37 @@ def nvidia_smi_line():
 # ---------------------------------------------------------------- phase 3
 
 
-def attention_inputs(B, H, T, D, dtype, seed):
+def key_mask(B, T, rng, kind="suffix", empty_item=True):
+    """(B, T) bool, True = padded key. "suffix": lengths in [T/2, T], the
+    first item full. "edge" (B >= 5): item 0 full; item 1 of length 1; item
+    2 a random non-suffix mask (each key padded with probability 1/2, key 0
+    and keys 32-127 padded: whole key tiles skipped in the middle); item 3
+    its first T/4 keys (up to 64) padded, then a suffix length (leading
+    tiles skipped); item 4 with no valid key if ``empty_item`` (else of
+    length T/3); later items suffix."""
+    import numpy as np
+
+    lens = rng.randint(max(T // 2, 1), T + 1, size=(B,))
+    lens[0] = T
+    if kind == "edge":
+        lens[1], lens[4] = 1, 0 if empty_item else max(T // 3, 1)
+    mask = np.arange(T)[None] >= lens[:, None]
+    if kind == "edge":
+        mask[2] = rng.rand(T) < 0.5
+        mask[2, 0] = True
+        mask[2, 32:128] = True
+        mask[3, :min(64, T // 4)] = True
+    return mask
+
+
+def attention_inputs(B, H, T, D, dtype, seed, kind="suffix"):
     import numpy as np
     import torch
 
     rng = np.random.RandomState(seed)
     qkv = [torch.from_numpy(rng.randn(B, T, H, D).astype(np.float32))
            .to("cuda", dtype).transpose(1, 2) for _ in range(3)]
-    lens = rng.randint(max(T // 2, 1), T + 1, size=(B,))
-    lens[0] = T
-    mask = torch.from_numpy(np.arange(T)[None] >= lens[:, None]).cuda()
+    mask = torch.from_numpy(key_mask(B, T, rng, kind)).cuda()
     return qkv, mask
 
 
@@ -178,16 +217,18 @@ def mrf_inputs(B, C, T, dtype, seed, kernel_sizes=(3, 7, 11),
     return x.transpose(1, 2), MrfStageWeights(kernel_sizes, dilations, ws, bs)
 
 
-def phase_kernels_vs_plain():
+def phase_attention_vs_plain():
+    """The inference attention kernel against its plain version, f32 and
+    bf16, at ATTN_CHECKS. Returns the largest error per dtype."""
     import torch
 
     from tts_king_torch.ops.kernels import attention as attn
-    from tts_king_torch.ops.kernels import mrf
 
-    errs = {"attention": {}, "mrf_stage": {}}
+    errs = {}
     for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for B, H, T, D in ATTN_CHECKS:
-            (q, k, v), mask = attention_inputs(B, H, T, D, dtype, seed=T)
+        for B, H, T, D, kind in ATTN_CHECKS:
+            (q, k, v), mask = attention_inputs(B, H, T, D, dtype, seed=T,
+                                               kind=kind)
             got = attn.attention(q, k, v, mask).float()
             ref = attn.attention_plain(q, k, v, mask).float()
             torch.cuda.synchronize()
@@ -195,12 +236,23 @@ def phase_kernels_vs_plain():
             ok = bool(torch.isfinite(got).all()) and err <= TOL[
                 ("attention", dname)]
             emit({"phase": "kernel_vs_plain", "kernel": "attention",
-                  "dtype": dname, "shape": [B, H, T, D],
+                  "dtype": dname, "shape": [B, H, T, D], "mask": kind,
                   "max_abs_err": err, "tol": TOL[("attention", dname)],
                   "ok": ok})
             if not ok:
-                fail(f"attention {dname} T={T}: max err {err}")
-            errs["attention"][dname] = max(err, errs["attention"].get(dname, 0))
+                fail(f"attention {dname} {[B, H, T, D]} {kind}: max err "
+                     f"{err}")
+            errs[dname] = max(err, errs.get(dname, 0))
+    return errs
+
+
+def phase_kernels_vs_plain():
+    import torch
+
+    from tts_king_torch.ops.kernels import mrf
+
+    errs = {"attention": phase_attention_vs_plain(), "mrf_stage": {}}
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for B, C, T in MRF_CHECKS:
             x, stage = mrf_inputs(B, C, T, dtype, seed=C)
             got = mrf.mrf_stage(x, stage).float()
@@ -618,11 +670,12 @@ def phase_streaming(king, n_fused, n_layers, text):
     return launches
 
 
-def flash_inputs(B, H, T, D, seed, lens=None):
+def flash_inputs(B, H, T, D, seed, lens=None, kind="suffix"):
     """q, k, v as the FFT block hands them over ((B, T, H, D) Linear outputs
-    viewed as (B, H, T, D)), requiring grad; a ragged key mask; an upstream
-    gradient that is 0 on padded query rows, as the block's zeroing makes
-    it."""
+    viewed as (B, H, T, D)), requiring grad; a key mask (``lens``, else
+    key_mask's ``kind``, with no item lacking a valid key: training never
+    has one); an upstream gradient that is 0 on padded query rows, as the
+    block's zeroing makes it."""
     import numpy as np
     import torch
 
@@ -630,10 +683,10 @@ def flash_inputs(B, H, T, D, seed, lens=None):
     qkv = [torch.from_numpy(rng.randn(B, T, H, D).astype(np.float32))
            .cuda().transpose(1, 2).requires_grad_(True) for _ in range(3)]
     if lens is None:
-        lens = rng.randint(max(T // 2, 1), T + 1, size=(B,))
-        lens[0] = T
-    mask = torch.from_numpy(np.arange(T)[None] >= np.asarray(lens)[:, None])
-    mask = mask.cuda()
+        mask = key_mask(B, T, rng, kind, empty_item=False)
+    else:
+        mask = np.arange(T)[None] >= np.asarray(lens)[:, None]
+    mask = torch.from_numpy(mask).cuda()
     g = torch.from_numpy(rng.randn(B, H, T, D).astype(np.float32)).cuda()
     g = g * (~mask)[:, None, :, None]
     return qkv, mask, g
@@ -648,8 +701,8 @@ def phase_flash_vs_plain():
 
     worst = 0.0
     tol = TOL[("flash_attention", "f32")]
-    for B, H, T, D in FLASH_CHECKS:
-        (q, k, v), mask, g = flash_inputs(B, H, T, D, seed=T)
+    for B, H, T, D, kind in FLASH_CHECKS:
+        (q, k, v), mask, g = flash_inputs(B, H, T, D, seed=T, kind=kind)
         out = fa.flash_attention(q, k, v, mask)
         grads = torch.autograd.grad(out, (q, k, v), g)
         ref = fa.flash_attention_plain(q, k, v, mask)
@@ -665,11 +718,12 @@ def phase_flash_vs_plain():
                      for t in (out,) + grads)
         ok = finite and pad_zero and max(errs.values()) <= tol
         emit({"phase": "kernel_vs_plain", "kernel": "flash_attention",
-              "dtype": "f32", "shape": [B, H, T, D], "max_abs_err": errs,
+              "dtype": "f32", "shape": [B, H, T, D], "mask": kind,
+              "max_abs_err": errs,
               "padded_key_grads_zero": pad_zero, "tol": tol, "ok": ok})
         if not ok:
-            fail(f"flash_attention {[B, H, T, D]}: errors {errs}, padded "
-                 f"key grads zero {pad_zero}, finite {finite}")
+            fail(f"flash_attention {[B, H, T, D]} {kind}: errors {errs}, "
+                 f"padded key grads zero {pad_zero}, finite {finite}")
         worst = max(worst, max(errs.values()))
     return worst
 
@@ -1338,41 +1392,89 @@ def phase_train_step_time(smi, device="cuda"):
 # ---------------------------------------------------------------- phase 6
 
 
-def phase_timing(cfg, launches, train_launches, errs, mel_lens):
+# f32 operations as 3xTF32 on the tensor cores: three TF32 products each.
+PEAK_TF32_OPS = 495e12
+# TTSKing.speak's decoder call for the 192-frame sentence: the 256 bucket.
+SPEAK_T, SPEAK_LEN = 256, 192
+
+
+def attention_timing_row(cfg, launches, errs, mel_lens):
+    """Row 1: the inference attention kernel at the batched decoder call
+    (bf16, B=32, H=2, T=1000, D=128, key mask from the batched run's mel
+    lengths) and at speak's decoder call (f32, B=1, T=256, 192 valid keys),
+    beside the plain version and SDPA with the same additive mask; the
+    kernel is held against the plain version on these inputs first. Bounds
+    count the valid keys only (padded key tiles are skipped): 4 D
+    operations per query row and valid key, bf16 over the bf16 peak, f32 as
+    3xTF32 (3 x operations over the TF32 peak) with the f32 CUDA-core bound
+    beside it; bytes Q and O whole, K and V at the valid keys, the mask."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from tts_king_torch.ops.kernels import attention as attn
-    from tts_king_torch.ops.kernels import mrf
 
     tc = cfg.model.transformer
-    B, H, T = BENCH_B, tc.decoder_head, BENCH_T
+    H = tc.decoder_head
     D = tc.decoder_hidden // H
-    (q, k, v), _ = attention_inputs(B, H, T, D, torch.bfloat16, seed=7)
-    # the decoder's key mask from the batched run's mel lengths
-    mask = torch.from_numpy(np.arange(T)[None] >=
-                            np.asarray(mel_lens)[:, None]).cuda()
-    additive = torch.zeros((B, 1, 1, T), dtype=torch.bfloat16, device="cuda")
-    additive.masked_fill_(mask[:, None, None, :], -1e9)
-    ms = cuda_ms(lambda: attn.attention(q, k, v, mask), warmup=2, reps=10)
-    plain_ms = cuda_ms(lambda: attn.attention_plain(q, k, v, mask), warmup=2,
-                       reps=10)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=additive), warmup=2, reps=10)
-    ops = 4.0 * B * H * T * T * D
-    nbytes = 4 * B * H * T * D * 2 + B * T
-    t_ops, t_bytes = ops / PEAK_BF16_OPS, nbytes / PEAK_BYTES
-    rows = [{
-        "name": "attention", "route": "cuda",
-        "source": "tts_king_torch/csrc/attention.cu",
-        "replaces": "tts_king_tpu/ops/pallas/attention.py:29",
-        "launches": launches["attention"],
-        "max_abs_err": errs["attention"]["bf16"],
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": lib_ms, "dtype": "bf16", "shape": [B, H, T, D]}]
+    out = {}
+    for dname, dtype, B, T, lens in (
+            ("bf16", torch.bfloat16, BENCH_B, BENCH_T, mel_lens),
+            ("f32", torch.float32, 1, SPEAK_T, [SPEAK_LEN])):
+        (q, k, v), _ = attention_inputs(B, H, T, D, dtype, seed=7)
+        mask = torch.from_numpy(np.arange(T)[None] >=
+                                np.asarray(lens)[:, None]).cuda()
+        additive = torch.zeros((B, 1, 1, T), dtype=dtype, device="cuda")
+        additive.masked_fill_(mask[:, None, None, :], -1e9)
+        got = attn.attention(q, k, v, mask).float()
+        ref = attn.attention_plain(q, k, v, mask).float()
+        err = float((got - ref).abs().max())
+        tol = TOL[("attention", dname)]
+        if not (bool(torch.isfinite(got).all()) and err <= tol):
+            fail(f"attention {dname} {[B, H, T, D]} timed inputs: max err "
+                 f"{err} > {tol}")
+        del got, ref
+        ms = cuda_ms(lambda: attn.attention(q, k, v, mask), warmup=3,
+                     reps=20)
+        plain_ms = cuda_ms(lambda: attn.attention_plain(q, k, v, mask),
+                           warmup=3, reps=20)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=additive), warmup=3, reps=20)
+        n_keys = float(np.sum(lens))
+        ops = 4.0 * H * D * T * n_keys
+        nbytes = q.element_size() * (2.0 * B * H * T * D +
+                                     2.0 * H * D * n_keys) + B * T
+        t_bytes = nbytes / PEAK_BYTES
+        t_ops = ops / PEAK_BF16_OPS if dname == "bf16" else \
+            3 * ops / PEAK_TF32_OPS
+        out[dname] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": err, "checks_max_abs_err": errs[dname],
+            "shape": [B, H, T, D], "valid_keys": int(n_keys)}
+        if dname == "f32":
+            out[dname]["bound_f32_ffma_ms"] = max(
+                ops / PEAK_F32_OPS, t_bytes) * 1e3
+        del q, k, v
+    row = {"name": "attention", "route": "cuda",
+           "source": "tts_king_torch/csrc/attention.cu",
+           "replaces": "tts_king_tpu/ops/pallas/attention.py:29",
+           "launches": launches["attention"], "dtype": "bf16",
+           **out["bf16"], "f32": out["f32"],
+           "note": "ms, plain_ms, library_ms, bound_ms, max_abs_err: bf16 at "
+                   "the batched shape; f32: speak's decoder call; "
+                   "checks_max_abs_err: the largest at ATTN_CHECKS"}
+    return row
+
+
+def phase_timing(cfg, launches, train_launches, errs, mel_lens):
+    import torch
+
+    from tts_king_torch.ops.kernels import mrf
+
+    B, T = BENCH_B, BENCH_T
+    rows = [attention_timing_row(cfg, launches, errs["attention"], mel_lens)]
 
     stages = fused_stages(cfg, T)
     ms = plain_ms = 0.0
@@ -1409,9 +1511,12 @@ def flash_timing_row(cfg, launches, max_err):
     (B=16, H=2, T=640, D=128, key mask from the bench superbatch's mel
     lengths): forward, backward (dQ then dK/dV), the plain version forward
     + autograd backward, and SDPA forward + backward with the same boolean
-    key mask. The bound counts the products against the valid keys only,
-    the work this mask needs: 4 T D per (row, valid key) forward and 10
-    backward (S and dP recomputed, dV, dQ, dK), f32 on the CUDA cores."""
+    key mask; the kernels are held against the plain version on these
+    inputs first. The bound counts the valid keys only, the work this mask
+    needs: 4 D operations per (row, valid key) forward and 10 backward (S
+    and dP recomputed, dV, dQ, dK), as 3xTF32 (3 x operations over the TF32
+    peak), with the f32 CUDA-core bound beside it; bytes: each input read
+    and each output written once, K and V read at the valid keys only."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1427,6 +1532,18 @@ def flash_timing_row(cfg, launches, max_err):
     m8 = mask.to(torch.uint8)
     o, lse = fa._forward_cuda(qd, kd, vd, m8)
     g = fa._out_like(qd).copy_(g)
+    got = (o,) + fa._backward_cuda(qd, kd, vd, m8, o, lse, g)
+    ref = fa.flash_attention_plain(q, k, v, mask)
+    ref = (ref,) + torch.autograd.grad(ref, (q, k, v), g)
+    errs = {name: float((a - b).detach().abs().max())
+            for name, a, b in zip(("o", "dq", "dk", "dv"), got, ref)}
+    pad = mask[:, None, :, None].expand_as(got[2])
+    tol = TOL[("flash_attention", "f32")]
+    if not (max(errs.values()) <= tol and all(
+            bool(torch.isfinite(t).all()) for t in got)
+            and not bool(got[2][pad].any()) and not bool(got[3][pad].any())):
+        fail(f"flash_attention {[B, H, T, D]} timed inputs: errors {errs}")
+    del got, ref
     fwd_ms = cuda_ms(lambda: fa._forward_cuda(qd, kd, vd, m8), warmup=2,
                      reps=10)
     bwd_ms = cuda_ms(lambda: fa._backward_cuda(qd, kd, vd, m8, o, lse, g),
@@ -1447,22 +1564,32 @@ def flash_timing_row(cfg, launches, max_err):
     n_keys = float(np.sum(lens))
     ops_f = 4.0 * H * D * T * n_keys
     ops_b = 10.0 * H * D * T * n_keys
-    elems = B * H * T * D
-    bytes_f = 4.0 * (4 * elems + B * H * T) + B * T
-    bytes_b = 4.0 * (8 * elems + B * H * T) + B * T
-    t_ops = (ops_f + ops_b) / PEAK_F32_OPS
+    elems, kv = B * H * T * D, 2.0 * H * D * n_keys
+    # forward: q read, o written, k and v read at the valid keys, lse
+    # written, the mask; backward: q, o and dO read, dq, dk and dv written,
+    # k and v read at the valid keys, lse read, the mask
+    bytes_f = 4.0 * (2 * elems + kv + B * H * T) + B * T
+    bytes_b = 4.0 * (6 * elems + kv + B * H * T) + B * T
+    t_ops = 3 * (ops_f + ops_b) / PEAK_TF32_OPS
     t_bytes = (bytes_f + bytes_b) / PEAK_BYTES
+
+    def bound(ops, nbytes, peak):
+        return max(ops / peak, nbytes / PEAK_BYTES) * 1e3
+
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "tts_king_torch/csrc/flash_attention.cu",
         "replaces": "tts_king_tpu/ops/pallas/attention.py:102",
         "launches": launches["flash_fwd"], "launches_fwd":
         launches["flash_fwd"], "launches_bwd": launches["flash_bwd"],
-        "max_abs_err": max_err, "ms": fwd_ms + bwd_ms,
+        "max_abs_err": max(errs.values()), "checks_max_abs_err": max_err,
+        "ms": fwd_ms + bwd_ms,
         "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "fwd_bound_ms": max(ops_f / PEAK_F32_OPS, bytes_f / PEAK_BYTES) * 1e3,
-        "bwd_bound_ms": max(ops_b / PEAK_F32_OPS, bytes_b / PEAK_BYTES) * 1e3,
+        "fwd_bound_ms": bound(3 * ops_f, bytes_f, PEAK_TF32_OPS),
+        "bwd_bound_ms": bound(3 * ops_b, bytes_b, PEAK_TF32_OPS),
+        "bound_f32_ffma_ms": bound(ops_f + ops_b, bytes_f + bytes_b,
+                                   PEAK_F32_OPS),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": lib_ms, "dtype": "f32", "shape": [B, H, T, D],
         "note": "ms, plain_ms, library_ms: forward + backward; launches "

@@ -37,7 +37,7 @@ def build(src, out, extra=()):
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}"
                            f"{proc.stderr}")
-    return ctypes.CDLL(out)
+    return _build.bind("mrf_stage_int8", out)
 
 
 def main(argv=None):

@@ -18,220 +18,62 @@
 //
 // Three kernels, as in the TPU kernel: the forward; dQ, which also computes
 // Delta once per query row and writes it out; dK/dV, which reads it. dQ and
-// dK/dV each own their output tile, so no atomics are needed.
+// dK/dV each own their output tile, so no atomics are needed and the result
+// does not depend on the order the blocks run in.
 //
 // What bounds it on an H100: at the training shape (B=16, H=2, T=640, D=128)
-// the forward does 4*T*T*D operations per (b, h) and the backward 10*T*T*D
-// (five products of T*T*D multiply-adds; the forward's two are recomputed in
-// the backward's S and dP) against about 6*T*D floats of inputs, so both
-// are bound by operations. The products run on the CUDA cores in exact f32
-// (the training step is f32, and TF32 would change it), whose data-sheet
-// peak is 67 TFLOP/s. This first version uses no mma/wgmma and no TMA: it
-// is written to be simple and right, with every tile staged in shared memory.
+// the forward does 4*D operations per (query row, valid key) and the
+// backward 10*D (five products; the forward's two are recomputed in the
+// backward's S and dP) against about 6*T*D floats of inputs per (b, h), so
+// both are bound by operations. The training step is exact f32, so the
+// products run as 3xTF32 on the tensor cores (three TF32 products per f32
+// product, attention_mma.cuh): 3 * ops over 495 TFLOP/s, against 67 TFLOP/s
+// for f32 on the CUDA cores.
 //
-// Design: one block of 256 threads per (b, h, tile of 64 rows); the forward
-// and dQ walk the key tiles with the query tile resident, dK/dV walks the
-// query tiles with the key tile resident. Within a tile product each thread
-// owns a 4x4 patch of the 64x64 score tile (rows ty*4.., columns tx + 16c)
-// or a 4x8 patch of a 64x128 output tile (rows ty*4.., columns tx + 16n).
-// Shared-memory rows of width D are padded to D + 1 floats, so the column
-// reads of the score products fall on distinct banks. Every score product
-// sums over d in the same order, so the backward recomputes the forward's S
-// bit for bit.
+// Design: the forward is attention_mma.cuh's attn_fwd_kernel with S scaled
+// in f32 after the product and lse written out. dQ: one block of 4 warps
+// per (b, h, 64 query rows), Q and dO resident in shared memory, K/V tiles
+// of 32 keys through a two-stage cp.async ring; each warp recomputes S and
+// dP for its 16 rows, forms dS in registers and adds dS K with dS as the A
+// operand straight from the accumulators. dK/dV: one block per (b, h, 64
+// keys), K and V resident, Q/dO tiles of 32 rows (with their lse and Delta)
+// through the ring; each warp owns 16 keys and computes the transposed
+// tiles S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T are A operands of
+// dV += P^T dO and dK += dS^T Q without leaving the registers. S^T sums each
+// element's terms in the forward's order (same k-steps, mma_pass<true>); the
+// tensor core is not documented to give the transposed product bit for bit,
+// and the tolerance of the checks covers it either way. Key tiles that hold
+// only padded keys are skipped by the forward and dQ, and a dK/dV block
+// whose 64 keys are all padded writes zeros and returns, when the item has
+// a valid key; an item with no valid key runs every tile.
 //
 // Layout: q, k, v are (B, H, T, D) views given by element strides (sb, sh,
 // st) with a unit stride over D, so the (B, T, H, D) output of a Linear is
 // passed without a copy; o, dO, dQ, dK and dV share a second set of strides
-// (osb, osh, ost); lse and Delta are contiguous (B, H, T).
+// (osb, osh, ost); lse and Delta are contiguous (B, H, T). Rows and (b, h)
+// bases start on 16 bytes; D is a multiple of 4, at most 128.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_mma.cuh"
 
+namespace tk_attn {
 namespace {
 
-constexpr int kBQ = 64;        // query rows per tile
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
-constexpr int kMaxD = 128;
-constexpr float kNegInf = -1e9f;
-constexpr int PP = kBK + 1;    // row stride of a 64x64 score tile
+constexpr int kBwdKeys = 32;   // keys per streamed tile in dQ
+constexpr int kBwdRows = 32;   // query rows per streamed tile in dK/dV
 
-// S tile: s[r][c] = sum_d A[ty*4+r][d] * B[tx+16c][d], A and B with row
-// stride DP in shared memory.
-__device__ __forceinline__ void tile_dot(const float* A, const float* Bm,
-                                         int D, int DP, int ty, int tx,
-                                         float s[4][4]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = A[(ty * 4 + r) * DP + d];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = Bm[(tx + 16 * c) * DP + d];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = fmaf(a[r], b[c], s[r][c]);
-  }
+template <int DP> __host__ __device__ constexpr size_t dq_tile_bytes() {
+  return sizeof(float) *
+         ((size_t)(2 * kRows + 4 * kBwdKeys) * ld<float, DP>() + 2 * kRows);
 }
 
-// Copy rows [t0, t0 + 64) of a strided (T, D) matrix into shared memory with
-// row stride DP; rows past T are zero.
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long st, int t0, int T_,
-                                          int D, int DP, int tid) {
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D;
-    const int t = t0 + r;
-    dst[r * DP + d] = t < T_ ? src[t * st + d] : 0.f;
-  }
+// Q, dO, two stages of K and V, the rows' lse and Delta, the mask and the
+// tile flags.
+template <int DP> size_t dq_smem(int T_) {
+  const int n_tiles = (T_ + kBwdKeys - 1) / kBwdKeys;
+  return dq_tile_bytes<DP>() + ((T_ + 15) / 16) * 16 + 2 * n_tiles;
 }
 
-// The score of query row i against key j, given the raw product s.
-__device__ __forceinline__ float masked_score(float s, bool padded,
-                                              float scale) {
-  return padded ? kNegInf : s * scale;
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v,
-                 const uint8_t* __restrict__ mask, float* __restrict__ o,
-                 float* __restrict__ lse, int H, int T_, int D, long long sb,
-                 long long sh, long long st, long long osb, long long osh,
-                 long long ost, float scale) {
-  extern __shared__ float smem[];
-  const int DP = D + 1;
-  float* Qs = smem;            // kBQ x DP
-  float* Ks = Qs + kBQ * DP;   // kBK x DP
-  float* Vs = Ks + kBK * DP;   // kBK x DP
-  float* Ps = Vs + kBK * DP;   // kBQ x PP
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kBQ;
-  const float* kb = k + b * sb + h * sh;
-  const float* vb = v + b * sb + h * sh;
-  const uint8_t* mb = mask + (long long)b * T_;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-
-  load_tile(Qs, q + b * sb + h * sh, st, q0, T_, D, DP, tid);
-
-  float m_i[4], l_i[4], acc[4][8];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m_i[r] = -1e30f;
-    l_i[r] = 0.f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) acc[r][n] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < T_; k0 += kBK) {
-    __syncthreads();  // the previous tile's Ks/Vs/Ps are no longer read
-    load_tile(Ks, kb, st, k0, T_, D, DP, tid);
-    load_tile(Vs, vb, st, k0, T_, D, DP, tid);
-    __syncthreads();
-
-    float s[4][4];
-    tile_dot(Qs, Ks, D, DP, ty, tx, s);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int t = k0 + tx + 16 * c;
-      const bool out = t >= T_;
-      const bool padded = !out && mb[t];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        s[r][c] = out ? __int_as_float(0xff800000)  // -inf: no part at all
-                      : masked_score(s[r][c], padded, scale);
-    }
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      // mx is finite: key k0 < T lies in this tile.
-      const float m_new = fmaxf(m_i[r], mx);
-      const float alpha = expf(m_i[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = expf(s[r][c] - m_new);
-        sum += p;
-        Ps[(ty * 4 + r) * PP + tx + 16 * c] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l_i[r] = l_i[r] * alpha + sum;
-      m_i[r] = m_new;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) acc[r][n] *= alpha;
-    }
-    __syncthreads();
-
-    const int kn = min(kBK, T_ - k0);
-    for (int j = 0; j < kn; ++j) {
-      float pv[4], vv[8];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) pv[r] = Ps[(ty * 4 + r) * PP + j];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int d = tx + 16 * n;
-        vv[n] = d < D ? Vs[j * DP + d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int n = 0; n < 8; ++n) acc[r][n] = fmaf(pv[r], vv[n], acc[r][n]);
-    }
-  }
-
-  float* ob = o + b * osb + h * osh;
-  float* lb = lse + (long long)bh * T_;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int t = q0 + ty * 4 + r;
-    if (t >= T_) continue;
-    const float inv = 1.f / l_i[r];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int d = tx + 16 * n;
-      if (d < D) ob[t * ost + d] = acc[r][n] * inv;
-    }
-    if (tx == 0) lb[t] = m_i[r] + logf(l_i[r]);
-  }
-}
-
-// P and dS of one 64x64 tile, from the raw products s = Q.K and dp = dO.V,
-// for the thread's 4x4 patch. Rows or keys past T get 0.
-__device__ __forceinline__ void tile_p_ds(const float s[4][4],
-                                          const float dp[4][4],
-                                          const float* Ls, const float* Dls,
-                                          const uint8_t* mb, int q0, int k0,
-                                          int T_, int ty, int tx, float scale,
-                                          float p[4][4], float ds[4][4]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int t = k0 + tx + 16 * c;
-    const bool key_in = t < T_;
-    const bool padded = key_in && mb[t];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = ty * 4 + r;
-      float pv = 0.f;
-      if (key_in && q0 + row < T_)
-        pv = expf(masked_score(s[r][c], padded, scale) - Ls[row]);
-      p[r][c] = pv;
-      ds[r][c] = pv * (dp[r][c] - Dls[row]);
-    }
-  }
-}
-
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
@@ -241,98 +83,220 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     float* __restrict__ dq, int H, int T_, int D, long long sb,
                     long long sh, long long st, long long osb, long long osh,
                     long long ost, float scale) {
-  extern __shared__ float smem[];
-  const int DP = D + 1;
-  float* Qs = smem;              // kBQ x DP
-  float* dOs = Qs + kBQ * DP;    // kBQ x DP
-  float* Ks = dOs + kBQ * DP;    // kBK x DP
-  float* Vs = Ks + kBK * DP;     // kBK x DP
-  float* dSs = Vs + kBK * DP;    // kBQ x PP
-  float* Ls = dSs + kBQ * PP;    // kBQ
-  float* Dls = Ls + kBQ;         // kBQ
+  constexpr int LD = ld<float, DP>();
+  constexpr int kNT = kBwdKeys / 8;
+  constexpr int kDT = DP / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = Qs + kRows * LD;
+  float* KV = dOs + kRows * LD;   // [stage][K, V][kBwdKeys][LD]
+  float* Ls = KV + 4 * kBwdKeys * LD;
+  float* Dls = Ls + kRows;
+  uint8_t* ms = smem + dq_tile_bytes<DP>();
+  const int n_tiles = (T_ + kBwdKeys - 1) / kBwdKeys;
+  uint8_t* live = ms + ((T_ + 15) / 16) * 16;
+  uint8_t* mixed = live + n_tiles;
 
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kBQ;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kRows;
   const float* kb = k + b * sb + h * sh;
   const float* vb = v + b * sb + h * sh;
   const float* ob = o + b * osb + h * osh;
   const float* dob = dO + b * osb + h * osh;
-  const uint8_t* mb = mask + (long long)b * T_;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int warp = tid / 32, lane = tid % 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  TK_PHASES
 
-  load_tile(Qs, q + b * sb + h * sh, st, q0, T_, D, DP, tid);
-  load_tile(dOs, dob, ost, q0, T_, D, DP, tid);
-  // Delta = rowsum(dO * O), one warp per row; written out for dK/dV.
-  for (int r = warp; r < kBQ; r += kThreads / 32) {
-    const int t = q0 + r;
-    float acc = 0.f;
-    if (t < T_)
-      for (int d = lane; d < D; d += 32)
-        acc = fmaf(dob[t * ost + d], ob[t * ost + d], acc);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      Dls[r] = acc;
-      Ls[r] = t < T_ ? lse[(long long)bh * T_ + t] : 0.f;
-      if (t < T_) delta[(long long)bh * T_ + t] = acc;
-    }
+  auto load_kv = [&](int j, int stage) {
+    float* Ks = KV + 2 * stage * kBwdKeys * LD;
+    load_rows<float, kBwdKeys, DP>(Ks, kb, st, j * kBwdKeys, T_, D);
+    load_rows<float, kBwdKeys, DP>(Ks + kBwdKeys * LD, vb, st, j * kBwdKeys,
+                                   T_, D);
+  };
+  load_rows<float, kRows, DP>(Qs, q + b * sb + h * sh, st, q0, T_, D);
+  load_rows<float, kRows, DP>(dOs, dob, ost, q0, T_, D);
+  cp_async_commit();
+  load_kv(0, 0);   // the first tile, before the mask says whether it runs
+  cp_async_commit();
+  const bool skip = scan_mask(mask + (long long)b * T_, T_, kBwdKeys, ms,
+                              live, mixed, n_tiles);
+  int j = next_tile(-1, skip, live, n_tiles);
+  if (j != 0) {   // tile 0 is all padded: load the first tile that runs
+    cp_async_wait<0>();
+    __syncthreads();
+    load_kv(j, 0);
+    cp_async_commit();
   }
 
-  float acc[4][8];
+  // Delta = rowsum(dO * O) while tile j loads: dO from shared memory, O
+  // from device memory; a warp's 16 rows, lane l on columns 4l..4l+3, eight
+  // rows' loads in flight. Written out for dK/dV.
+  cp_async_wait<1>();   // Q and dO have arrived
+  __syncthreads();
+  {
+    const int c = 4 * lane;
+    const bool col_in = c < D;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+    for (int r0 = 0; r0 < 16; r0 += 8) {
+      float4 ov[8];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) acc[r][n] = 0.f;
-
-  for (int k0 = 0; k0 < T_; k0 += kBK) {
-    __syncthreads();
-    load_tile(Ks, kb, st, k0, T_, D, DP, tid);
-    load_tile(Vs, vb, st, k0, T_, D, DP, tid);
-    __syncthreads();
-
-    float s[4][4], dp[4][4], p[4][4], ds[4][4];
-    tile_dot(Qs, Ks, D, DP, ty, tx, s);
-    tile_dot(dOs, Vs, D, DP, ty, tx, dp);
-    tile_p_ds(s, dp, Ls, Dls, mb, q0, k0, T_, ty, tx, scale, p, ds);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) dSs[(ty * 4 + r) * PP + tx + 16 * c] = ds[r][c];
-    __syncthreads();
-
-    const int kn = min(kBK, T_ - k0);
-    for (int j = 0; j < kn; ++j) {
-      float a[4], kk[8];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = dSs[(ty * 4 + r) * PP + j];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int d = tx + 16 * n;
-        kk[n] = d < D ? Ks[j * DP + d] : 0.f;
+      for (int u = 0; u < 8; ++u) {
+        const int t = q0 + warp * 16 + r0 + u;
+        ov[u] = col_in && t < T_
+                    ? *reinterpret_cast<const float4*>(ob + t * ost + c)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int u = 0; u < 8; ++u) {
+        const int row = warp * 16 + r0 + u, t = q0 + row;
+        const float4 dv = *reinterpret_cast<const float4*>(dOs + row * LD +
+                                                           (col_in ? c : 0));
+        float a = col_in ? dv.x * ov[u].x + dv.y * ov[u].y +
+                               dv.z * ov[u].z + dv.w * ov[u].w
+                         : 0.f;
 #pragma unroll
-        for (int n = 0; n < 8; ++n) acc[r][n] = fmaf(a[r], kk[n], acc[r][n]);
+        for (int off = 16; off > 0; off >>= 1)
+          a += __shfl_xor_sync(0xffffffffu, a, off);
+        if (lane == 0) {
+          Dls[row] = a;
+          Ls[row] = t < T_ ? lse[(long long)bh * T_ + t] : 0.f;
+          if (t < T_) delta[(long long)bh * T_ + t] = a;
+        }
+      }
     }
   }
+  __syncthreads();   // Ls and Dls are written
+
+  const float* Qw = Qs + warp * 16 * LD;
+  const float* dOw = dOs + warp * 16 * LD;
+  float l_row[2], d_row[2];
+  bool row_in[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + 8 * r;
+    l_row[r] = Ls[row];
+    d_row[r] = Dls[row];
+    row_in[r] = q0 + row < T_;
+  }
+  float acc[kDT][4];
+#pragma unroll
+  for (int n = 0; n < kDT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  TK_MARK(0);
+  for (int stage = 0; j < n_tiles; stage ^= 1) {
+    const int jn = next_tile(j, skip, live, n_tiles);
+    if (jn < n_tiles) load_kv(jn, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // Q, dO and tile j have arrived
+    __syncthreads();
+    TK_MARK(1);
+    const float* Ks = KV + 2 * stage * kBwdKeys * LD;
+    const float* Vs = Ks + kBwdKeys * LD;
+    const int k0 = j * kBwdKeys;
+
+    // S = Q K^T and dP = dO V^T for the warp's 16 rows
+    float s[kNT][4], dp[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      uint32_t af[4];
+      ldsm_x4(af, Qw + a_off<float>(lane, LD) + kk * 8);
+      const FragA aq = split_a(__uint_as_float(af[0]), __uint_as_float(af[1]),
+                               __uint_as_float(af[2]), __uint_as_float(af[3]));
+      ldsm_x4(af, dOw + a_off<float>(lane, LD) + kk * 8);
+      const FragA ado = split_a(__uint_as_float(af[0]),
+                                __uint_as_float(af[1]),
+                                __uint_as_float(af[2]),
+                                __uint_as_float(af[3]));
+      FragB bk[kNT], bv[kNT];
+#pragma unroll
+      for (int p = 0; p < kNT / 2; ++p) {
+        ldsm_b2(bk[2 * p], bk[2 * p + 1],
+                Ks + p * 16 * LD + b_off<float>(lane, LD) + kk * 8);
+        ldsm_b2(bv[2 * p], bv[2 * p + 1],
+                Vs + p * 16 * LD + b_off<float>(lane, LD) + kk * 8);
+      }
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          mma_pass(pass, s[n], aq, bk[n]);
+          mma_pass(pass, dp[n], ado, bv[n]);
+        }
+    }
+
+    TK_MARK(2);
+    // P from lse, dS = P (dP - Delta); rows or keys past T get 0
+    const bool masked = mixed[j];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + n * 8 + 2 * t4 + (e & 1);
+        const int r = e / 2;
+        float p = 0.f;
+        if (row_in[r] && (!masked || key < T_)) {
+          const float x = masked && ms[key] ? kMasked : s[n][e] * scale;
+          p = ex2((x - l_row[r]) * kLog2e);
+        }
+        s[n][e] = p * (dp[n][e] - d_row[r]);
+      }
+
+    TK_MARK(3);
+    // dQ += dS K, k = t standing for key 2t and k = t + 4 for key 2t + 1
+#pragma unroll
+    for (int kk = 0; kk < kNT; ++kk) {
+      const FragA a = split_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+      const float* k2 = Ks + (kk * 8 + 2 * t4) * LD + g;
+      constexpr int kChunk = kDT < 8 ? kDT : 8;
+#pragma unroll
+      for (int n0 = 0; n0 < kDT; n0 += kChunk) {
+        FragB bk[kChunk];
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) bk[c] = lds_b(k2 + (n0 + c) * 8, LD);
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c)
+            mma_pass(pass, acc[n0 + c], a, bk[c]);
+      }
+    }
+    TK_MARK(4);
+    __syncthreads();   // the stage is free for the load two tiles on
+    TK_MARK(5);
+    j = jn;
+  }
+  cp_async_wait<0>();
 
   float* dqb = dq + b * osb + h * osh;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int t = q0 + ty * 4 + r;
+  for (int r = 0; r < 2; ++r) {
+    const int t = q0 + warp * 16 + g + 8 * r;
     if (t >= T_) continue;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int d = tx + 16 * n;
-      if (d < D) dqb[t * ost + d] = acc[r][n] * scale;
+    for (int n = 0; n < kDT; ++n) {
+      const int d = n * 8 + 2 * t4;
+      if (d < D)
+        store2<float>(dqb + t * ost + d, acc[n][2 * r] * scale,
+                      acc[n][2 * r + 1] * scale);
     }
   }
+  TK_MARK(6);
+  TK_PHASES_END();
 }
 
+template <int DP> __host__ __device__ constexpr size_t dkdv_smem() {
+  return sizeof(float) *
+         ((size_t)(2 * kRows + 4 * kBwdRows) * ld<float, DP>() +
+          4 * kBwdRows);
+}
+
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
@@ -345,111 +309,213 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
                       int T_, int D, long long sb, long long sh, long long st,
                       long long osb, long long osh, long long ost,
                       float scale) {
-  extern __shared__ float smem[];
-  const int DP = D + 1;
-  float* Ks = smem;              // kBK x DP
-  float* Vs = Ks + kBK * DP;     // kBK x DP
-  float* Qs = Vs + kBK * DP;     // kBQ x DP
-  float* dOs = Qs + kBQ * DP;    // kBQ x DP
-  float* Ps = dOs + kBQ * DP;    // kBQ x PP
-  float* dSs = Ps + kBQ * PP;    // kBQ x PP
-  float* Ls = dSs + kBQ * PP;    // kBQ
-  float* Dls = Ls + kBQ;         // kBQ
+  constexpr int LD = ld<float, DP>();
+  constexpr int kNT = kBwdRows / 8;
+  constexpr int kDT = DP / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + kRows * LD;
+  float* ring = Vs + kRows * LD;   // [stage][Q, dO][kBwdRows][LD]
+  float* vecs = ring + 4 * kBwdRows * LD;   // [stage][lse, Delta][kBwdRows]
 
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * kBK;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * kRows;
   const float* qb = q + b * sb + h * sh;
   const float* dob = dO + b * osb + h * osh;
   const uint8_t* mb = mask + (long long)b * T_;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-
-  load_tile(Ks, k + b * sb + h * sh, st, k0, T_, D, DP, tid);
-  load_tile(Vs, v + b * sb + h * sh, st, k0, T_, D, DP, tid);
-
-  // the thread's key rows ty*4 + i, feature columns tx + 16n
-  float dk_acc[4][8], dv_acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int n = 0; n < 8; ++n) dk_acc[i][n] = dv_acc[i][n] = 0.f;
-
-  for (int q0 = 0; q0 < T_; q0 += kBQ) {
-    __syncthreads();
-    load_tile(Qs, qb, st, q0, T_, D, DP, tid);
-    load_tile(dOs, dob, ost, q0, T_, D, DP, tid);
-    for (int r = tid; r < kBQ; r += kThreads) {
-      const int t = q0 + r;
-      Ls[r] = t < T_ ? lse[(long long)bh * T_ + t] : 0.f;
-      Dls[r] = t < T_ ? delta[(long long)bh * T_ + t] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4], dp[4][4], p[4][4], ds[4][4];
-    tile_dot(Qs, Ks, D, DP, ty, tx, s);
-    tile_dot(dOs, Vs, D, DP, ty, tx, dp);
-    tile_p_ds(s, dp, Ls, Dls, mb, q0, k0, T_, ty, tx, scale, p, ds);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        Ps[(ty * 4 + r) * PP + tx + 16 * c] = p[r][c];
-        dSs[(ty * 4 + r) * PP + tx + 16 * c] = ds[r][c];
-      }
-    __syncthreads();
-
-    const int qn = min(kBQ, T_ - q0);
-    for (int r = 0; r < qn; ++r) {
-      float pv[4], dsv[4], dov[8], qv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[r * PP + ty * 4 + i];
-        dsv[i] = dSs[r * PP + ty * 4 + i];
-      }
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int d = tx + 16 * n;
-        dov[n] = d < D ? dOs[r * DP + d] : 0.f;
-        qv[n] = d < D ? Qs[r * DP + d] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          dv_acc[i][n] = fmaf(pv[i], dov[n], dv_acc[i][n]);
-          dk_acc[i][n] = fmaf(dsv[i], qv[n], dk_acc[i][n]);
-        }
-    }
-  }
-
   float* dkb = dk + b * osb + h * osh;
   float* dvb = dv + b * osb + h * osh;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  TK_PHASES
+
+  int mine = 0;   // a valid key in this block's tile
+  const bool any = scan_keys(mb, T_, [&](int t, uint8_t m) {
+    if (!m && t >= k0 && t < k0 + kRows) mine = 1;
+  });
+  if (skip_tile(any, __syncthreads_or(mine))) {
+    // P is exactly 0 on the tile, so are dK and dV
+    for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
+      const int t = k0 + i / D, d = i % D;
+      if (t < T_) dkb[t * ost + d] = dvb[t * ost + d] = 0.f;
+    }
+    TK_MARK(15);
+    TK_PHASES_END();
+    return;
+  }
+
+  load_rows<float, kRows, DP>(Ks, k + b * sb + h * sh, st, k0, T_, D);
+  load_rows<float, kRows, DP>(Vs, v + b * sb + h * sh, st, k0, T_, D);
+  auto load_q = [&](int i, int stage) {
+    float* Qs = ring + 2 * stage * kBwdRows * LD;
+    float* vs = vecs + 2 * stage * kBwdRows;
+    const int t0 = i * kBwdRows;
+    load_rows<float, kBwdRows, DP>(Qs, qb, st, t0, T_, D);
+    load_rows<float, kBwdRows, DP>(Qs + kBwdRows * LD, dob, ost, t0, T_, D);
+    load_vec(vs, lse + (long long)bh * T_, t0, kBwdRows, T_);
+    load_vec(vs + kBwdRows, delta + (long long)bh * T_, t0, kBwdRows, T_);
+  };
+  load_q(0, 0);
+  cp_async_commit();
+
+  // the warp's keys warp*16 + g and + 8: padded (keys past T are never
+  // written; they are scored as padded)
+  bool key_pad[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty * 4 + i;
+  for (int r = 0; r < 2; ++r) {
+    const int t = k0 + warp * 16 + g + 8 * r;
+    key_pad[r] = t >= T_ || mb[t];
+  }
+  const float* Kw = Ks + warp * 16 * LD;
+  const float* Vw = Vs + warp * 16 * LD;
+  float dk_acc[kDT][4], dv_acc[kDT][4];
+#pragma unroll
+  for (int n = 0; n < kDT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  const int nq = (T_ + kBwdRows - 1) / kBwdRows;
+  TK_MARK(8);
+  for (int i = 0, stage = 0; i < nq; ++i, stage ^= 1) {
+    if (i + 1 < nq) load_q(i + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // K, V and query tile i have arrived
+    __syncthreads();
+    TK_MARK(9);
+    const float* Qs = ring + 2 * stage * kBwdRows * LD;
+    const float* dOs = Qs + kBwdRows * LD;
+    const float* Lq = vecs + 2 * stage * kBwdRows;
+    const float* Dq = Lq + kBwdRows;
+    const int t0 = i * kBwdRows;
+
+    // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys
+    float s[kNT][4], dp[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      uint32_t af[4];
+      ldsm_x4(af, Kw + a_off<float>(lane, LD) + kk * 8);
+      const FragA ak = split_a(__uint_as_float(af[0]), __uint_as_float(af[1]),
+                               __uint_as_float(af[2]), __uint_as_float(af[3]));
+      ldsm_x4(af, Vw + a_off<float>(lane, LD) + kk * 8);
+      const FragA av = split_a(__uint_as_float(af[0]), __uint_as_float(af[1]),
+                               __uint_as_float(af[2]), __uint_as_float(af[3]));
+      FragB bq[kNT], bd[kNT];
+#pragma unroll
+      for (int p = 0; p < kNT / 2; ++p) {
+        ldsm_b2(bq[2 * p], bq[2 * p + 1],
+                Qs + p * 16 * LD + b_off<float>(lane, LD) + kk * 8);
+        ldsm_b2(bd[2 * p], bd[2 * p + 1],
+                dOs + p * 16 * LD + b_off<float>(lane, LD) + kk * 8);
+      }
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          mma_pass<true>(pass, s[n], ak, bq[n]);
+          mma_pass<true>(pass, dp[n], av, bd[n]);
+        }
+    }
+
+    TK_MARK(10);
+    // P^T from lse, dS^T = P^T (dP^T - Delta); queries past T get 0
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = n * 8 + 2 * t4 + (e & 1);
+        float p = 0.f;
+        if (t0 + qi < T_) {
+          const float x = key_pad[e / 2] ? kMasked : s[n][e] * scale;
+          p = ex2((x - Lq[qi]) * kLog2e);
+        }
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - Dq[qi]);
+      }
+
+    TK_MARK(11);
+    // dV += P^T dO and dK += dS^T Q, k = t standing for query 2t and k =
+    // t + 4 for query 2t + 1
+#pragma unroll
+    for (int kk = 0; kk < kNT; ++kk) {
+      const FragA ap = split_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+      const FragA ads = split_a(dp[kk][0], dp[kk][2], dp[kk][1], dp[kk][3]);
+      const float* do2 = dOs + (kk * 8 + 2 * t4) * LD + g;
+      const float* q2 = Qs + (kk * 8 + 2 * t4) * LD + g;
+      constexpr int kChunk = kDT < 4 ? kDT : 4;
+#pragma unroll
+      for (int n0 = 0; n0 < kDT; n0 += kChunk) {
+        FragB bd[kChunk], bq[kChunk];
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {
+          bd[c] = lds_b(do2 + (n0 + c) * 8, LD);
+          bq[c] = lds_b(q2 + (n0 + c) * 8, LD);
+        }
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c) {
+            mma_pass(pass, dv_acc[n0 + c], ap, bd[c]);
+            mma_pass(pass, dk_acc[n0 + c], ads, bq[c]);
+          }
+      }
+    }
+    TK_MARK(12);
+    __syncthreads();   // the stage is free for the load two tiles on
+    TK_MARK(13);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = k0 + warp * 16 + g + 8 * r;
     if (t >= T_) continue;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int d = tx + 16 * n;
+    for (int n = 0; n < kDT; ++n) {
+      const int d = n * 8 + 2 * t4;
       if (d < D) {
-        dkb[t * ost + d] = dk_acc[i][n] * scale;
-        dvb[t * ost + d] = dv_acc[i][n];
+        store2<float>(dkb + t * ost + d, dk_acc[n][2 * r] * scale,
+                      dk_acc[n][2 * r + 1] * scale);
+        store2<float>(dvb + t * ost + d, dv_acc[n][2 * r],
+                      dv_acc[n][2 * r + 1]);
       }
     }
   }
+  TK_MARK(14);
+  TK_PHASES_END();
 }
 
-template <typename K>
-cudaError_t set_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-bool bad_shape(int B, int H, int T_, int D) {
-  return D < 1 || D > kMaxD || T_ < 1 || B < 1 || H < 1 || B * H > 65535;
+template <int DP>
+cudaError_t launch_bwd(const float* q, const float* k, const float* v,
+                       const uint8_t* mask, const float* o, const float* dO,
+                       const float* lse, float* delta, float* dq, float* dk,
+                       float* dv, int B, int H, int T_, int D, long long sb,
+                       long long sh, long long st, long long osb,
+                       long long osh, long long ost, float scale,
+                       cudaStream_t s) {
+  static const cudaError_t allowed_dq =
+      allow_max_smem(flash_bwd_dq_kernel<DP>);
+  static const cudaError_t allowed_dkdv =
+      allow_max_smem(flash_bwd_dkdv_kernel<DP>);
+  if (allowed_dq != cudaSuccess) return allowed_dq;
+  if (allowed_dkdv != cudaSuccess) return allowed_dkdv;
+  dim3 grid((T_ + kRows - 1) / kRows, B * H);
+  flash_bwd_dq_kernel<DP><<<grid, kThreads, dq_smem<DP>(T_), s>>>(
+      q, k, v, mask, o, dO, lse, delta, dq, H, T_, D, sb, sh, st, osb, osh,
+      ost, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_kernel<DP><<<grid, kThreads, dkdv_smem<DP>(), s>>>(
+      q, k, v, mask, dO, lse, delta, dk, dv, H, T_, D, sb, sh, st, osb, osh,
+      ost, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
+}  // namespace tk_attn
 
 // Each entry point returns a cudaError_t value: 0 on a successful launch.
 
@@ -458,16 +524,11 @@ extern "C" int tk_flash_fwd(const float* q, const float* k, const float* v,
                             int H, int T_, int D, long long sb, long long sh,
                             long long st, long long osb, long long osh,
                             long long ost, float scale, void* stream) {
-  if (bad_shape(B, H, T_, D)) return (int)cudaErrorInvalidValue;
-  const int DP = D + 1;
-  const size_t smem = sizeof(float) * ((size_t)(kBQ + 2 * kBK) * DP +
-                                       (size_t)kBQ * PP);
-  cudaError_t err = set_smem(flash_fwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T_ + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, mask, o, lse, H, T_, D, sb, sh, st, osb, osh, ost, scale);
-  return (int)cudaGetLastError();
+  using namespace tk_attn;
+  if (bad_shape(B, H, T_, D, 4)) return (int)cudaErrorInvalidValue;
+  return (int)launch_fwd<float, true>(q, k, v, mask, o, lse, B, H, T_, D, sb,
+                                      sh, st, osb, osh, ost, scale,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 // delta is (B, H, T) scratch that the dQ kernel fills and dK/dV reads.
@@ -478,27 +539,16 @@ extern "C" int tk_flash_bwd(const float* q, const float* k, const float* v,
                             int T_, int D, long long sb, long long sh,
                             long long st, long long osb, long long osh,
                             long long ost, float scale, void* stream) {
-  if (bad_shape(B, H, T_, D)) return (int)cudaErrorInvalidValue;
+  using namespace tk_attn;
+  if (bad_shape(B, H, T_, D, 4)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int DP = D + 1;
-  const size_t smem_dq = sizeof(float) * ((size_t)(2 * kBQ + 2 * kBK) * DP +
-                                          (size_t)kBQ * PP + 2 * kBQ);
-  const size_t smem_dkdv = sizeof(float) * ((size_t)(2 * kBQ + 2 * kBK) * DP +
-                                            (size_t)2 * kBQ * PP + 2 * kBQ);
-  cudaError_t err = set_smem(flash_bwd_dq_kernel, smem_dq);
-  if (err != cudaSuccess) return (int)err;
-  err = set_smem(flash_bwd_dkdv_kernel, smem_dkdv);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T_ + kBQ - 1) / kBQ, B * H);
-  flash_bwd_dq_kernel<<<grid, kThreads, smem_dq, s>>>(
-      q, k, v, mask, o, dO, lse, delta, dq, H, T_, D, sb, sh, st, osb, osh,
-      ost, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_kernel<<<grid, kThreads, smem_dkdv, s>>>(
-      q, k, v, mask, dO, lse, delta, dk, dv, H, T_, D, sb, sh, st, osb, osh,
-      ost, scale);
-  return (int)cudaGetLastError();
+  const int DP = padded_dim(D);
+  auto launch = DP == 16   ? launch_bwd<16>
+                : DP == 32 ? launch_bwd<32>
+                : DP == 64 ? launch_bwd<64>
+                           : launch_bwd<128>;
+  return (int)launch(q, k, v, mask, o, dO, lse, delta, dq, dk, dv, B, H, T_,
+                     D, sb, sh, st, osb, osh, ost, scale, s);
 }
 
 extern "C" const char* tk_error_string(int err) {

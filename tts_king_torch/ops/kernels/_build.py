@@ -3,12 +3,14 @@
 Each source under ``tts_king_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds). The library's name carries a hash of
-the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. Libraries go to ``build/kernels/`` at the root of
-the checkout.
+the source, of every header beside it (``*.cuh``) and of the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+Libraries go to ``build/kernels/`` at the root of the checkout.
 
-Every C entry point returns a ``cudaError_t`` value; ``check`` raises on
-anything but 0. Nothing here runs when a module is imported.
+Each library's C entry points get their ctypes signatures once, when the
+library is opened (``SIGNATURES``). Every kernel entry point returns a
+``cudaError_t`` value; ``check`` raises on anything but 0. Nothing here runs
+when a module is imported.
 """
 
 import ctypes
@@ -23,6 +25,27 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 SOURCES = {"attention": "attention.cu", "mrf_stage": "mrf_stage.cu",
            "mrf_stage_int8": "mrf_stage_int8.cu",
            "flash_attention": "flash_attention.cu"}
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# name -> {entry point: (restype, argtypes)}; pointers and the stream are
+# c_void_p (a plain int would be cut to 32 bits).
+SIGNATURES = {
+    "attention": {
+        "tk_attention": (_I, [_P] * 5 + [_I] * 5 + [_LL] * 6
+                         + [ctypes.c_float, _P])},
+    "flash_attention": {
+        "tk_flash_fwd": (_I, [_P] * 6 + [_I] * 4 + [_LL] * 6
+                         + [ctypes.c_float, _P]),
+        "tk_flash_bwd": (_I, [_P] * 11 + [_I] * 4 + [_LL] * 6
+                         + [ctypes.c_float, _P])},
+    "mrf_stage": {
+        "tk_mrf_smem_bytes": (_LL, [_I] * 4),
+        "tk_mrf_stage": (_I, [_P] * 4 + [_I] * 7 + [_P, _I, _P] + [_LL] * 6
+                         + [_P])},
+    "mrf_stage_int8": {
+        "tk_mrf_int8_smem_bytes": (_LL, [_I] * 3),
+        "tk_mrf_stage_int8": (_I, [_P] * 6 + [_I] * 8 + [_P, _I, _P, _P]
+                              + [_LL] * 6 + [_P])},
+}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -49,8 +72,11 @@ def nvcc_path():
 
 
 def _lib_path(name):
-    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(build_dir(), f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -90,12 +116,24 @@ def build(names=None):
     return seconds
 
 
+def bind(name, path):
+    """Open the library at ``path`` with the entry points of kernel
+    ``name`` bound to their ctypes signatures."""
+    lib = ctypes.CDLL(path)
+    for fn_name, (restype, argtypes) in {
+            **SIGNATURES[name],
+            "tk_error_string": (ctypes.c_char_p, [ctypes.c_int])}.items():
+        fn = getattr(lib, fn_name)
+        fn.restype, fn.argtypes = restype, argtypes
+    return lib
+
+
 def load(name):
     """The ctypes library of one kernel, built first if needed."""
     lib = _libs.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(_lib_path(name))
+        lib = bind(name, _lib_path(name))
         _libs[name] = lib
     return lib
 
@@ -108,8 +146,6 @@ def build_log(name):
 def check(lib, err, what):
     """Raise if a C entry point of ``lib`` returned a CUDA error."""
     if err != 0:
-        lib.tk_error_string.argtypes = [ctypes.c_int]
-        lib.tk_error_string.restype = ctypes.c_char_p
         msg = lib.tk_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")
 

@@ -7,7 +7,6 @@ wrapper dispatches on where its tensors lie: CPU tensors go to
 counts the kernel's launches.
 """
 
-import ctypes
 import math
 
 import torch
@@ -34,12 +33,26 @@ def attention_plain(q, k, v, key_pad_mask):
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
+def check_aligned(what, *tensors):
+    """Raise unless each (B, H, T, D) tensor's (b, h) bases and rows start
+    on 16 bytes: the kernels copy rows with 16-byte cp.async."""
+    for t in tensors:
+        esz = t.element_size()
+        if t.data_ptr() % 16 or any(s * esz % 16 for s in t.stride()[:3]):
+            raise ValueError(
+                f"{what}: rows must start on 16 bytes (data_ptr "
+                f"{t.data_ptr()}, strides {tuple(t.stride())}, "
+                f"{esz}-byte elements)")
+
+
 def attention(q, k, v, key_pad_mask):
     """Masked attention; same contract as ``attention_plain``.
 
-    On CUDA: f32 or bf16, D <= 128, q/k/v with one shared layout and a unit
-    stride over D (a transposed (B, T, H, D) view is taken without a copy).
-    Padded query rows come out finite; the caller zeroes them.
+    On CUDA: f32 or bf16, D up to 128 and a multiple of 16 bytes (4 in f32,
+    8 in bf16), q/k/v with one shared layout and a unit stride over D (a
+    transposed (B, T, H, D) view is taken without a copy) whose rows start
+    on 16 bytes (the kernel's 16-byte cp.async); other inputs raise. Padded
+    query rows come out finite; the caller zeroes them.
     """
     global launches
     if q.device.type == "cpu":
@@ -53,8 +66,10 @@ def attention(q, k, v, key_pad_mask):
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError("attention: q, k, v must all be (B, H, T, D)")
     B, H, T, D = q.shape
-    if D > 128:
-        raise ValueError(f"attention: head dim {D} > 128")
+    per_chunk = 16 // q.element_size()   # the kernel copies 16-byte chunks
+    if D > 128 or D % per_chunk:
+        raise ValueError(f"attention: head dim {D} (a multiple of "
+                         f"{per_chunk} in {q.dtype}, at most 128)")
     if B * H > 65535:   # one grid row per (b, h)
         raise ValueError(f"attention: B * H = {B * H} > 65535")
     if tuple(key_pad_mask.shape) != (B, T) or key_pad_mask.dtype != torch.bool:
@@ -63,23 +78,20 @@ def attention(q, k, v, key_pad_mask):
         raise ValueError("attention: all inputs must be on one device")
     if q.stride(-1) != 1 or k.stride() != q.stride() or v.stride() != q.stride():
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    check_aligned("attention", q, k, v)
     sb, sh, st, _ = q.stride()
     out = torch.empty((B, T, H, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     osb, osh, ost, _ = out.stride()
-    mask = key_pad_mask.to(torch.uint8).contiguous()
+    mask = key_pad_mask.contiguous()   # the kernel reads bool's 0/1 bytes
 
     # The kernel runs on the current stream after this returns; the caching
     # allocator hands a freed temporary (mask) only to work queued after it.
     lib = _build.load("attention")
-    fn = lib.tk_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_void_p])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-             out.data_ptr(), int(q.dtype == torch.bfloat16), B, H, T, D,
-             sb, sh, st, osb, osh, ost, 1.0 / math.sqrt(D),
-             _build.current_stream(q.device))
+    err = lib.tk_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), int(q.dtype == torch.bfloat16), B, H, T, D, sb, sh,
+        st, osb, osh, ost, 1.0 / math.sqrt(D), _build.current_stream(q.device))
     _build.check(lib, err, "attention")
     launches += 1
     return out

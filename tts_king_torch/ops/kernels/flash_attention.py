@@ -29,12 +29,12 @@ A row whose keys are all padded is not reproduced exactly by the backward
 one, since every utterance has a phoneme and a frame.
 """
 
-import ctypes
 import math
 
 import torch
 
 from tts_king_torch.ops.kernels import _build
+from tts_king_torch.ops.kernels.attention import check_aligned
 
 NEG_INF = -1e9
 launches_fwd = 0
@@ -88,8 +88,9 @@ def _check(q, k, v, key_pad_mask):
         if q.dtype != torch.float32:
             raise TypeError(f"flash_attention: dtype {q.dtype} on CUDA "
                             "(float32 only)")
-        if D > 128:
-            raise ValueError(f"flash_attention: head dim {D} > 128")
+        if D > 128 or D % 4:   # the kernels copy 16-byte chunks
+            raise ValueError(f"flash_attention: head dim {D} (a multiple of "
+                             "4, at most 128)")
         if B * H > 65535:   # one grid row per (b, h)
             raise ValueError(f"flash_attention: B * H = {B * H} > 65535")
     elif q.device.type != "cpu":
@@ -104,23 +105,14 @@ def _out_like(q):
                        device=q.device).transpose(1, 2)
 
 
-def _fn(lib, name, n_ptr):
-    fn = getattr(lib, name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 6 + [ctypes.c_float,
-                                                ctypes.c_void_p])
-    return fn
-
-
-def _forward_cuda(q, k, v, mask_u8):
+def _forward_cuda(q, k, v, mask):
     global launches_fwd
     B, H, T, D = q.shape
     o = _out_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention")
-    err = _fn(lib, "tk_flash_fwd", 6)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
+    err = lib.tk_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         o.data_ptr(), lse.data_ptr(), B, H, T, D, *q.stride()[:3],
         *o.stride()[:3], 1.0 / math.sqrt(D), _build.current_stream(q.device))
     _build.check(lib, err, "flash_attention forward")
@@ -128,16 +120,16 @@ def _forward_cuda(q, k, v, mask_u8):
     return o, lse
 
 
-def _backward_cuda(q, k, v, mask_u8, o, lse, do):
+def _backward_cuda(q, k, v, mask, o, lse, do):
     global launches_bwd
     B, H, T, D = q.shape
-    if do.stride() != o.stride():
-        do = _out_like(q).copy_(do)
+    if do.stride() != o.stride() or do.data_ptr() % 16:
+        do = _out_like(q).copy_(do)   # autograd's gradient, in O's layout
     dq, dk, dv = _out_like(q), _out_like(q), _out_like(q)
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention")
-    err = _fn(lib, "tk_flash_bwd", 11)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
+    err = lib.tk_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, T, D,
         *q.stride()[:3], *o.stride()[:3], 1.0 / math.sqrt(D),
@@ -159,7 +151,8 @@ class FlashAttention(torch.autograd.Function):
             if (q.stride(-1) != 1 or k.stride() != q.stride()
                     or v.stride() != q.stride()):
                 q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-            mask = key_pad_mask.to(torch.uint8).contiguous()
+            check_aligned("flash_attention", q, k, v)
+            mask = key_pad_mask.contiguous()   # read as 0/1 bytes
             o, lse = _forward_cuda(q, k, v, mask)
         else:
             mask = key_pad_mask
@@ -180,10 +173,11 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, key_pad_mask):
     """Training attention; same contract as ``flash_attention_plain``.
 
-    On CUDA: float32, D <= 128; q, k, v may be strided (B, H, T, D) views
-    with a unit stride over D and one shared layout (the transposed
-    (B, T, H, D) output of a Linear is taken without a copy). The output and
-    the gradients are laid out as (B, T, H, D)."""
+    On CUDA: float32, D a multiple of 4 up to 128; q, k, v may be strided
+    (B, H, T, D) views with a unit stride over D and one shared layout (the
+    transposed (B, T, H, D) output of a Linear is taken without a copy),
+    whose rows start on 16 bytes; other inputs raise. The output and the
+    gradients are laid out as (B, T, H, D)."""
     if q.device.type == "cpu":
         _check(q, k, v, key_pad_mask)
         return flash_attention_plain(q, k, v, key_pad_mask)

@@ -97,8 +97,6 @@ def _tile(lib, is_bf16, T, hmax, Cp):
     """Largest tile of time steps (a multiple of 8, at most 512) whose two
     activation buffers and weight buffer fit one block's shared memory."""
     fn = lib.tk_mrf_smem_bytes
-    fn.restype = ctypes.c_longlong
-    fn.argtypes = [ctypes.c_int] * 4
     tt = min(_MAX_TILE, (T + 7) // 8 * 8)
     while tt > 8 and fn(is_bf16, tt, hmax, Cp) > _SMEM_LIMIT:
         tt -= 8
@@ -154,10 +152,6 @@ def mrf_stage(x, stage: MrfStageWeights):
     lib = _build.load("mrf_stage")
     tt = _tile(lib, is_bf16, T, _halo(ks, dil), Cp)
     fn = lib.tk_mrf_stage
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
     ks_arr = (ctypes.c_int * len(ks))(*ks)
     dil_arr = (ctypes.c_int * len(dil))(*dil)
     err = fn(x.data_ptr(), y.data_ptr(), taps.data_ptr(), biases.data_ptr(),

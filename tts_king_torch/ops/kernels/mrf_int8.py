@@ -305,18 +305,11 @@ def mrf_stage_int8(x, q: MrfStageInt8, r, tile=TILE):
                           device=x.device)
     lib = _build.load("mrf_stage_int8")
     smem = lib.tk_mrf_int8_smem_bytes
-    smem.restype = ctypes.c_longlong
-    smem.argtypes = [ctypes.c_int] * 3
     cdmax = max((k - 1) // 2 * d for k in ks for d in dil)
     if smem(max(ks), cdmax, Cp) > _SMEM_LIMIT:
         raise ValueError("mrf_stage_int8: a conv's taps do not fit shared "
                          "memory")
     fn = lib.tk_mrf_stage_int8
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p]
-                   + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
     ks_arr = (ctypes.c_int * len(ks))(*ks)
     dil_arr = (ctypes.c_int * len(dil))(*dil)
     hal_arr = (ctypes.c_int * len(hal))(*hal)
