@@ -51,9 +51,13 @@ non-zero exit (nothing is caught):
   6. train step — the sustained ms per optimizer step at the superbatch of
                bench.py:286-301 (acc 4 x B 16, L = 96, T = 640, f32);
   7. kernels — kernel time, plain time, library time and the card's bound at
-               the bench shapes (attention also at speak's f32 call; f32
+               the bench shapes (attention also at speak's f32 call, the
+               MRF kernel's f32 route at speak's 192-frame sentence; f32
                bounds as 3xTF32 on the tensor cores, the CUDA-core f32 bound
-               beside them).
+               beside them), each kernel first held against its plain
+               version on the very inputs it is timed on; the MRF rows also
+               give the same convs through cuDNN at its fastest algorithms
+               (cudnn_chain_ms) and each stage's grid.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout, it prints no result and exits 1. The JAX package is not imported.
@@ -1132,6 +1136,7 @@ def phase_main_path():
         results.append((text, wavs, start.elapsed_time(end), before, after))
 
     n_fused = len(fused_stages(cfg, T))
+    mrf_runs = {"f32": 0, "bf16": 0}   # MRF launches by route
     # one attention launch per FFT block and generate pass (more after a
     # mel-bucket escalation)
     n_layers = (cfg.model.transformer.encoder_layer
@@ -1165,6 +1170,7 @@ def phase_main_path():
         if d_att < n_layers or d_mrf != n_fused:
             fail(f"speak: attention launches {d_att} (>= {n_layers}), mrf "
                  f"{d_mrf} (== {n_fused})")
+        mrf_runs["f32"] += d_mrf
         emit({"phase": "main_path", "call": "TTSKing.speak", "dtype": "f32",
               "text": text, "mel_len": n, "samples": int(w.shape[0]),
               "wall_ms": ms, "rtf": ms / 1e3 / (w.shape[0] / sr),
@@ -1186,6 +1192,7 @@ def phase_main_path():
     if d_att != n_layers or d_mrf != n_fused:
         fail(f"batched: attention launches {d_att} (== {n_layers}), mrf "
              f"{d_mrf} (== {n_fused})")
+    mrf_runs["bf16"] = d_mrf
     emit({"phase": "main_path", "call": "generate+vocode", "dtype": "bf16",
           "shape": {"B": B, "L": L, "T_mel": T}, "wall_ms": batch_ms,
           "rtf": batch_ms / 1e3 / (B * T * hop / sr),
@@ -1197,7 +1204,7 @@ def phase_main_path():
     emit({"phase": "main_path", "path": "synthesis", "launches": launches,
           "ok": True})
     phase_streaming(king, n_fused, n_layers, SENTENCES[1])
-    return launches, [int(n) for n in mel_lens]
+    return launches, [int(n) for n in mel_lens], mrf_runs
 
 
 def bench_train_superbatch():
@@ -1468,41 +1475,94 @@ def attention_timing_row(cfg, launches, errs, mel_lens):
     return row
 
 
-def phase_timing(cfg, launches, train_launches, errs, mel_lens):
+def mrf_timing_row(cfg, launches, mrf_runs, check_errs):
+    """Row 2: the MRF kernel's bf16 route at the bench shape's fused stages
+    (B = 32, T_mel = 1000), and row 2f: its f32 route at speak's 192-frame
+    sentence (B = 1, T_mel = 192), each the sum of one launch per stage on
+    the stage packed once, as the Generator runs it. The kernel is held
+    against mrf_stage_plain on these very inputs first, at TOL. Beside it:
+    the plain version (cuDNN's default algorithms) and cudnn_chain_ms, the
+    same 18 convs and elementwise ops with cudnn.benchmark on (cuDNN's
+    fastest algorithm for each conv; TF32 off): a yardstick, not library_ms,
+    since it is not one call. Bounds: 2 * 6 * sum(k) * C^2 operations per
+    time step, bf16 over the bf16 peak; f32 as 3xTF32 (3 x operations over
+    the TF32 peak) with the f32 CUDA-core bound beside it; bytes: x and y
+    once, the packed taps and biases once."""
     import torch
 
     from tts_king_torch.ops.kernels import mrf
 
-    B, T = BENCH_B, BENCH_T
-    rows = [attention_timing_row(cfg, launches, errs["attention"], mel_lens)]
+    out = {}
+    for dname, dtype, B, t_mel in (
+            ("bf16", torch.bfloat16, BENCH_B, BENCH_T),
+            ("f32", torch.float32, 1, SPEAK_LEN)):
+        stages = fused_stages(cfg, t_mel)
+        stage_ms, plain_ms, chain_ms, grid = [], 0.0, 0.0, []
+        ops = nbytes = err = 0.0
+        for C, Tw in stages:
+            x, stage = mrf_inputs(B, C, Tw, dtype, seed=C)
+            packed = mrf.pack_stage(stage)
+            got = mrf.mrf_stage(x, packed).float()
+            ref = mrf.mrf_stage_plain(x, stage).float()
+            scale = max(1.0, float(ref.abs().max()))
+            e = float((got - ref).abs().max())
+            tol = TOL[("mrf_stage", dname)] * scale
+            if not (bool(torch.isfinite(got).all()) and e <= tol):
+                fail(f"mrf_stage {dname} {[B, Tw, C]} timed inputs: max err "
+                     f"{e} > {tol}")
+            err = max(err, e)
+            del got, ref
+            stage_ms.append(cuda_ms(lambda: mrf.mrf_stage(x, packed),
+                                    warmup=1, reps=3))
+            plain_ms += cuda_ms(lambda: mrf.mrf_stage_plain(x, stage),
+                                warmup=1, reps=2)
+            torch.backends.cudnn.benchmark = True
+            chain_ms += cuda_ms(lambda: mrf.mrf_stage_plain(x, stage),
+                                warmup=2, reps=2)
+            torch.backends.cudnn.benchmark = False
+            plan = mrf.tile_plan(Tw, C, dtype, stage.kernel_sizes,
+                                 stage.dilations)
+            grid.append({"C": C, "T": Tw, "tt": plan.tt,
+                         "blocks": plan.blocks(B, Tw), "slots": plan.slots,
+                         "work_factor": plan.work_factor})
+            ops += 2.0 * 6 * sum(stage.kernel_sizes) * C * C * Tw * B
+            nbytes += (2 * B * Tw * C * x.element_size()
+                       + (packed.taps.numel() + packed.biases.numel())
+                       * packed.taps.element_size())
+            del x, stage, packed
+            torch.cuda.empty_cache()
+        t_bytes = nbytes / PEAK_BYTES
+        t_ops = (ops / PEAK_BF16_OPS if dname == "bf16"
+                 else 3 * ops / PEAK_TF32_OPS)
+        out[dname] = {
+            "ms": sum(stage_ms), "stage_ms": stage_ms, "plain_ms": plain_ms,
+            "cudnn_chain_ms": chain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": err, "checks_max_abs_err": check_errs[dname],
+            "launches": mrf_runs[dname], "grid": grid,
+            "shape": {"B": B, "T_mel": t_mel, "stages_C_T": stages}}
+        if dname == "f32":
+            out[dname]["bound_f32_ffma_ms"] = max(ops / PEAK_F32_OPS,
+                                                  t_bytes) * 1e3
+    return {"name": "mrf_stage", "route": "cuda",
+            "source": "tts_king_torch/csrc/mrf_stage.cu",
+            "replaces": "tts_king_tpu/ops/pallas/mrf_packed.py:172",
+            "dtype": "bf16", **out["bf16"],
+            "launches": launches["mrf_stage"],
+            "launches_bf16": out["bf16"]["launches"],
+            "library_ms": None, "f32": out["f32"],
+            "note": "ms, plain_ms, cudnn_chain_ms, bound_ms, max_abs_err: "
+                    "bf16 at the bench shape, the sum of one launch per "
+                    "fused stage; launches: the main path's (speak f32 + "
+                    "batched bf16); f32: row 2f at speak's 192-frame "
+                    "sentence; checks_max_abs_err: the largest at "
+                    "MRF_CHECKS"}
 
-    stages = fused_stages(cfg, T)
-    ms = plain_ms = 0.0
-    ops = nbytes = 0.0
-    for C, Tw in stages:
-        x, stage = mrf_inputs(B, C, Tw, torch.bfloat16, seed=C)
-        ms += cuda_ms(lambda: mrf.mrf_stage(x, stage), warmup=1, reps=2)
-        plain_ms += cuda_ms(lambda: mrf.mrf_stage_plain(x, stage), warmup=1,
-                            reps=2)
-        ops += 2.0 * 6 * sum(stage.kernel_sizes) * C * C * Tw * B
-        n_w = sum(w.numel() + C for ws in stage.weights for w in ws)
-        nbytes += 2.0 * (2 * B * Tw * C + n_w)
-        del x, stage
-        torch.cuda.empty_cache()
-    t_ops, t_bytes = ops / PEAK_BF16_OPS, nbytes / PEAK_BYTES
-    rows.append({
-        "name": "mrf_stage", "route": "cuda",
-        "source": "tts_king_torch/csrc/mrf_stage.cu",
-        "replaces": "tts_king_tpu/ops/pallas/mrf_packed.py:172",
-        "launches": launches["mrf_stage"],
-        "max_abs_err": errs["mrf_stage"]["bf16"],
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None, "dtype": "bf16",
-        "shape": {"B": B, "T_mel": T, "stages_C_T": stages,
-                  "note": "sum of one launch per fused stage"}})
-    rows.append(flash_timing_row(cfg, train_launches, errs["flash_attention"]))
+
+def phase_timing(cfg, launches, train_launches, errs, mel_lens, mrf_runs):
+    rows = [attention_timing_row(cfg, launches, errs["attention"], mel_lens),
+            mrf_timing_row(cfg, launches, mrf_runs, errs["mrf_stage"]),
+            flash_timing_row(cfg, train_launches, errs["flash_attention"])]
     return rows
 
 
@@ -1643,12 +1703,12 @@ def main():
           "loss_total": losses["total"], "max_err": golden_errs,
           "tol": "tests/test_torch_train.py (compare_train_step)",
           "seconds": time.perf_counter() - t0, "ok": True})
-    launches, mel_lens = phase_main_path()
+    launches, mel_lens, mrf_runs = phase_main_path()
     int8_launches = phase_int8_vocoder(main_config())
     train_launches = phase_train_path()
     phase_train_step_time(smi)
     rows = phase_timing(main_config(), launches, train_launches, errs,
-                        mel_lens)
+                        mel_lens, mrf_runs)
     rows.insert(2, int8_timing_row(main_config(), int8_launches,
                                    errs["mrf_stage_int8"]["bf16"]))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -152,9 +152,10 @@ def test_mrf_halo_matches_the_branch_reach():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mrf_pack_layout(dtype):
-    """Packed taps are (k, Cp, Cp) blocks in chain order, zero past C:
-    [tap][c_in][c_out] for the f32 (CUDA-core) path, [tap][c_out][c_in] for
-    the bf16 (tensor-core) path."""
+    """Packed taps are blocks of k (Cp x Cp) taps in chain order, zero past
+    C: [tap][c_in][c_out] for the f32 (CUDA-core) path; for the bf16
+    (tensor-core) path each tap in the swizzled K-major layout of the wgmma
+    B operand, element (c_out, c_in) at byte tap_byte_offset(c_out, c_in)."""
     C = 5
     Cp = mrf_mod._padded_channels(C, dtype)
     assert Cp == (16 if dtype == torch.bfloat16 else 8)
@@ -166,9 +167,14 @@ def test_mrf_pack_layout(dtype):
     stage = mrf_mod.MrfStageWeights((3,), (1,), ws, bs)
     taps, biases = mrf_mod._pack(stage, C, Cp, dtype, "cpu")
     assert taps.shape == (2 * 3 * Cp * Cp,) and taps.dtype == dtype
-    blk = taps[3 * Cp * Cp:].reshape(3, Cp, Cp)     # second conv
+    blk = taps[3 * Cp * Cp:].reshape(3, Cp * Cp)     # second conv
+    if dtype == torch.bfloat16:
+        n, k = np.meshgrid(np.arange(Cp), np.arange(Cp), indexing="ij")
+        blk = blk[:, torch.from_numpy(
+            mrf_mod.tap_byte_offset(n, k, Cp).reshape(-1) // 2)]
     want = ws[0][1].permute(2, 0, 1) if dtype == torch.bfloat16 \
         else ws[0][1].permute(2, 1, 0)
+    blk = blk.reshape(3, Cp, Cp)
     assert torch.equal(blk[:, :C, :C], want)
     assert float(blk[:, C:, :].float().abs().sum()) == 0.0
     assert float(blk[:, :, C:].float().abs().sum()) == 0.0

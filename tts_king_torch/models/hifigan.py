@@ -12,7 +12,11 @@ function. Every ResBlock1 stage of at most 128 channels (with one dilation
 schedule shared by its branches) runs as one fused MRF stage
 (ops/kernels/mrf.py): the CUDA kernel on the card, its plain version on the
 CPU. Wider stages run their ResBlocks as plain nn.Conv1d, as the JAX package
-leaves them to XLA convs.
+leaves them to XLA convs. The fused stages' taps and biases are packed once
+into the kernel's layout (buffers ``mrf_<i>_{taps,biases}``, out of the
+state dict): when the Generator is built, after every load_state_dict and
+after every move or cast (the layout depends on the dtype); after changing
+the weights in place, call ``repack()``.
 
 mrf_backend="fused_int8" runs the same stages through the int8 MRF stage
 (ops/kernels/mrf_int8.py) instead. Its taps, weight scales and biases are
@@ -33,8 +37,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from tts_king_torch.config import VocoderModelConfig
-from tts_king_torch.ops.kernels.mrf import (MAX_CHANNELS, MrfStageWeights,
-                                            mrf_stage)
+from tts_king_torch.ops.kernels.mrf import (MAX_CHANNELS, MrfStagePacked,
+                                            MrfStageWeights, mrf_stage,
+                                            pack_stage)
 from tts_king_torch.ops.kernels.mrf_int8 import (MrfStageInt8, mrf_stage_int8,
                                                  pack_factor,
                                                  quantize_mrf_stage)
@@ -127,6 +132,10 @@ class Generator(nn.Module):
             self.register_load_state_dict_post_hook(
                 lambda module, _: module.requantize())
             self.requantize()
+        else:
+            self.register_load_state_dict_post_hook(
+                lambda module, _: module.repack())
+            self.repack()
 
     def _stage_blocks(self, i):
         return [getattr(self, f"resblocks_{i * self.num_kernels + j}")
@@ -157,6 +166,29 @@ class Generator(nn.Module):
                 self.register_buffer(f"mrf_int8_{i}_{name}", getattr(q, name),
                                      persistent=False)
 
+    @torch.no_grad()
+    def repack(self):
+        """Pack every fused stage's weights, in their dtype and on their
+        device, into the buffers ``mrf_<i>_{taps,biases}`` that the fused
+        forward reads (not part of the state dict). Weights on the meta
+        device are packed once they are materialized."""
+        for i in range(len(self.config.upsample_rates)):
+            stage = self._fused_stage(self._stage_blocks(i),
+                                      self._stage_channels(i))
+            if stage is None or stage.weights[0][0].is_meta:
+                continue
+            p = pack_stage(stage)
+            self.register_buffer(f"mrf_{i}_taps", p.taps, persistent=False)
+            self.register_buffer(f"mrf_{i}_biases", p.biases,
+                                 persistent=False)
+
+    def _packed_stage(self, i, stage: MrfStageWeights):
+        """Stage i's packed buffers as an MrfStagePacked."""
+        return MrfStagePacked(stage.kernel_sizes, stage.dilations,
+                              self._stage_channels(i),
+                              getattr(self, f"mrf_{i}_taps"),
+                              getattr(self, f"mrf_{i}_biases"))
+
     def _int8_stage(self, i, stage: MrfStageWeights):
         """Stage i's int8 buffers as an MrfStageInt8."""
         return MrfStageInt8(stage.kernel_sizes, stage.dilations,
@@ -175,6 +207,8 @@ class Generator(nn.Module):
             new = getattr(self, n)
             if new.dtype != b.dtype:
                 setattr(self, n, b.to(new.device))
+        if self.mrf_backend == "fused":
+            self.repack()   # the packed layout depends on the dtype
         return self
 
     def _fused_stage(self, blocks, channels):
@@ -202,7 +236,8 @@ class Generator(nn.Module):
                                    self._int8_stage(i, stage),
                                    r).transpose(1, 2)
             elif stage is not None:
-                x = mrf_stage(x.transpose(1, 2), stage).transpose(1, 2)
+                x = mrf_stage(x.transpose(1, 2),
+                              self._packed_stage(i, stage)).transpose(1, 2)
             else:
                 acc = None
                 for b in blocks:

@@ -38,8 +38,7 @@ SIGNATURES = {
         "tk_flash_bwd": (_I, [_P] * 11 + [_I] * 4 + [_LL] * 6
                          + [ctypes.c_float, _P])},
     "mrf_stage": {
-        "tk_mrf_smem_bytes": (_LL, [_I] * 4),
-        "tk_mrf_stage": (_I, [_P] * 4 + [_I] * 7 + [_P, _I, _P] + [_LL] * 6
+        "tk_mrf_stage": (_I, [_P] * 4 + [_I] * 8 + [_P, _I, _P] + [_LL] * 6
                          + [_P])},
     "mrf_stage_int8": {
         "tk_mrf_int8_smem_bytes": (_LL, [_I] * 3),

@@ -6,11 +6,19 @@ Port of ``fused_mrf_packed`` / ``mrf_stage_apply``
 (B, T, C) layout. The wrapper dispatches on where its tensors lie: CPU
 tensors go to ``mrf_stage_plain``; CUDA tensors launch the kernel, or raise.
 ``launches`` counts the kernel's launches.
+
+The kernel reads a stage's taps packed once (``pack_stage``, an
+``MrfStagePacked``): bf16 taps in the layout that the tensor cores' B
+operand reads from shared memory (``tap_byte_offset``), f32 taps as
+[tap][c_in][c_out]. ``tile_plan`` fixes the kernel's time tile, each conv's
+row window, the m64 tiles that cover it and the ring of tap slots;
+``mrf_stage_tiles_plain`` runs the plain arithmetic window by window on
+that plan.
 """
 
 import ctypes
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,8 +28,15 @@ from tts_king_torch.ops.kernels import _build
 LRELU_SLOPE = 0.1
 MAX_CHANNELS = 128
 # Dynamic shared memory one block may use on an H100 (227 KB).
-_SMEM_LIMIT = 232448
+SMEM_LIMIT = 232448
 _MAX_TILE = 512
+# bf16 route: consumer warpgroups a block runs, slack that aligns the tap
+# ring to the swizzle atom, and the ring's depth in slots.
+_CONSUMER_WGS = 2
+_RING_ALIGN = 1024
+_MIN_SLOTS, _MAX_SLOTS = 3, 32
+# f32 route: input channels per shared weight chunk
+_F32_WCH = 32
 launches = 0
 
 
@@ -39,12 +54,43 @@ class MrfStageWeights:
     biases: List[List[torch.Tensor]]
 
 
-def mrf_stage_plain(x, stage: MrfStageWeights):
+@dataclass
+class MrfStagePacked:
+    """One stage packed once in the kernel's layout (``pack_stage``).
+
+    taps: flat, one block of k * Cp * Cp elements per conv, branch-major, in
+    chain order; bf16 taps in the B-operand layout of ``tap_byte_offset``,
+    f32 taps [tap][c_in][c_out]. biases: (n_convs, Cp). Zero past C;
+    Cp = _padded_channels(channels, dtype).
+    """
+    kernel_sizes: Sequence[int]
+    dilations: Sequence[int]
+    channels: int
+    taps: torch.Tensor
+    biases: torch.Tensor
+
+    def unpack(self) -> MrfStageWeights:
+        """The stage's weights as Conv1d tensors (exact)."""
+        return MrfStageWeights(
+            list(self.kernel_sizes), list(self.dilations),
+            unpack_taps(self.taps, self.kernel_sizes, self.dilations,
+                        self.channels),
+            _unpack_biases(self.biases, len(self.kernel_sizes),
+                           len(self.dilations), self.channels))
+
+
+def _as_weights(stage):
+    return stage.unpack() if isinstance(stage, MrfStagePacked) else stage
+
+
+def mrf_stage_plain(x, stage):
     """Mean over branches of ResBlock1(x), with per-conv zero padding.
 
-    x: (B, T, C). Each conv adds its bias after the product, as the JAX
-    package does, so in bf16 the sum is rounded once before the bias.
+    x: (B, T, C); stage: MrfStageWeights or MrfStagePacked. Each conv adds
+    its bias after the product, as the JAX package does, so in bf16 the sum
+    is rounded once before the bias.
     """
+    stage = _as_weights(stage)
     h0 = x.transpose(1, 2)
     acc = None
     for k, ws, bs in zip(stage.kernel_sizes, stage.weights, stage.biases):
@@ -69,48 +115,301 @@ def _halo(kernel_sizes, dilations):
 
 def _padded_channels(C, dtype):
     """Channels the kernel works on: a multiple of 8 in f32 (CUDA cores);
-    16, 32, 64 or 128 in bf16 (tensor-core n-tiles of 8, k-steps of 16)."""
+    16, 32, 64 or 128 in bf16 (the tensor cores' N, a multiple of 16 in K
+    and one swizzle atom of 32, 64 or 128 bytes a row)."""
     if dtype == torch.bfloat16:
         return max(16, 1 << (C - 1).bit_length())
     return (C + 7) // 8 * 8
 
 
-def _pack(stage, C, Cp, dtype, device):
-    """Taps as (k, Cp, Cp) blocks, branch-major, chain order, zero past C:
-    [tap][c_in][c_out] in f32 (CUDA-core path), [tap][c_out][c_in] in bf16
-    (the tensor-core B operand). Biases (n_convs, Cp)."""
-    perm = (2, 0, 1) if dtype == torch.bfloat16 else (2, 1, 0)
+# ------------------------------------------------------------ tap layout
+
+
+def swizzle_bytes(Cp):
+    """Bytes of one row of a bf16 tap's swizzle atom: 128 for Cp >= 64
+    (64 input channels), else the whole row (64 or 32)."""
+    return min(128, 2 * Cp)
+
+
+def chunk_bytes(Cp):
+    """Bytes of one bulk copy of a bf16 tap: Cp rows of one swizzle width
+    (a K-half of the tap at Cp = 128, the whole tap below)."""
+    return Cp * swizzle_bytes(Cp)
+
+
+def tap_byte_offset(n, k, Cp):
+    """Byte offset of element (output channel n, input channel k) within a
+    packed bf16 tap: the canonical K-major layout that a wgmma B descriptor
+    reads with a swizzle of swizzle_bytes(Cp) (128B, 64B or 32B mode).
+
+    The tap is split along k into chunks of swizzle_bytes(Cp) / 2 input
+    channels, each a block of Cp rows (one per n) of swizzle_bytes(Cp)
+    bytes. Within a block the 16-byte group of a row is XORed with bits 7
+    and up of the row's byte offset (CUTLASS's Swizzle<3,4,3>, <2,4,3>,
+    <1,4,3>). Works elementwise on ints and integer tensors or arrays."""
+    swb = swizzle_bytes(Cp)
+    per = swb // 2
+    kh, kk = k // per, k % per
+    o = n * swb + (kk // 8) * 16 + (kk % 8) * 2
+    mask = {128: 7, 64: 3, 32: 1}[swb]
+    o = o ^ (((o >> 7) & mask) << 4)
+    return kh * (Cp * swb) + o
+
+
+def _tap_index(C, Cp, dtype):
+    """(C_out, C_in) element offsets within one packed (Cp x Cp) tap."""
+    n = torch.arange(C, device="cpu").view(C, 1)
+    k = torch.arange(C, device="cpu").view(1, C)
+    if dtype == torch.bfloat16:
+        return tap_byte_offset(n, k, Cp) // 2
+    return k * Cp + n                       # [c_in][c_out]
+
+
+def _conv_index(C, Cp, dtype, k):
+    """(k * C * C,) element offsets of a conv's (C, C, k) weights, read in
+    [tap][c_out][c_in] order, within its packed block."""
+    tap = _tap_index(C, Cp, dtype)
+    return (torch.arange(k, device="cpu").view(k, 1, 1) * Cp * Cp
+            + tap.view(1, C, C)).reshape(-1)
+
+
+def _pack(stage: MrfStageWeights, C, Cp, dtype, device):
+    """Taps as one (k * Cp * Cp) block per conv, branch-major, chain order,
+    zero past C: bf16 in the B-operand layout (tap_byte_offset), f32
+    [tap][c_in][c_out]. Biases (n_convs, Cp)."""
     taps, biases = [], []
     for ws, bs in zip(stage.weights, stage.biases):
         for w, b in zip(ws, bs):
             k = w.shape[-1]
-            t = torch.zeros((k, Cp, Cp), dtype=dtype, device=device)
-            t[:, :C, :C] = w.permute(*perm)
-            taps.append(t.reshape(-1))
+            t = torch.zeros((k * Cp * Cp,), dtype=dtype, device=device)
+            idx = _conv_index(C, Cp, dtype, k).to(device)
+            t[idx] = w.to(dtype).permute(2, 0, 1).reshape(-1)
+            taps.append(t)
             bp = torch.zeros((Cp,), dtype=dtype, device=device)
             bp[:C] = b
             biases.append(bp)
     return torch.cat(taps), torch.stack(biases)
 
 
-def _tile(lib, is_bf16, T, hmax, Cp):
-    """Largest tile of time steps (a multiple of 8, at most 512) whose two
-    activation buffers and weight buffer fit one block's shared memory."""
-    fn = lib.tk_mrf_smem_bytes
+def pack_stage(stage: MrfStageWeights, dtype=None) -> MrfStagePacked:
+    """Pack a stage once for the kernel, in ``dtype`` (default: the
+    weights'), on the weights' device."""
+    w0 = stage.weights[0][0]
+    dtype = w0.dtype if dtype is None else dtype
+    C = w0.shape[0]
+    taps, biases = _pack(stage, C, _padded_channels(C, dtype), dtype,
+                         w0.device)
+    return MrfStagePacked(list(stage.kernel_sizes), list(stage.dilations), C,
+                          taps, biases)
+
+
+def unpack_taps(taps, kernel_sizes, dilations, C):
+    """Each conv's (C, C, k) weights from packed taps, branch-major, chain
+    order: the inverse of ``_pack``'s taps."""
+    Cp = _padded_channels(C, taps.dtype)
+    out, pos = [], 0
+    for k in kernel_sizes:
+        row = []
+        idx = _conv_index(C, Cp, taps.dtype, k).to(taps.device)
+        for _ in range(2 * len(dilations)):
+            blk = taps[pos:pos + k * Cp * Cp]
+            row.append(blk[idx].view(k, C, C).permute(1, 2, 0).contiguous())
+            pos += k * Cp * Cp
+        out.append(row)
+    return out
+
+
+def _unpack_biases(biases, n_branch, n_dil, C):
+    n = 2 * n_dil
+    return [[biases[b * n + i, :C] for i in range(n)]
+            for b in range(n_branch)]
+
+
+# ------------------------------------------------------------- tile plan
+
+
+@dataclass
+class TilePlan:
+    """How the kernel cuts a stage of T steps into blocks.
+
+    Buffer row 0 of a block is time step t0 - hmax (t0 = the block's first
+    output step); the block writes rows [hmax, hmax + tt). windows[b][n] is
+    the (lo, hi) buffer rows conv n of branch b writes (chain order);
+    m_tiles[b][n] the 64-row tiles that cover it (bf16). rows: rows of each
+    activation buffer; slots: tap chunks the ring holds (bf16; 0 in f32);
+    smem_bytes: the block's dynamic shared memory; work_factor: the rows
+    the convs compute, weighted by taps, over those of an untiled stage.
+    """
+    Cp: int
+    tt: int
+    hmax: int
+    rows: int
+    slots: int
+    smem_bytes: int
+    rows_per_pass: int
+    windows: List[List[Tuple[int, int]]]
+    m_tiles: List[List[int]]
+    work_factor: float
+
+    def blocks(self, B, T):
+        return B * -(-T // self.tt)
+
+
+def m_tiles_per_warpgroup(Cp):
+    """64-row tiles each consumer warpgroup holds in its accumulators
+    (Cp / 2 f32 registers each): 3 at Cp = 128, 5 below."""
+    return 3 if Cp == 128 else 5
+
+
+def _windows(tt, hmax, kernel_sizes, dilations):
+    out = []
+    for k in kernel_sizes:
+        c = (k - 1) // 2
+        halo = c * (sum(dilations) + len(dilations))
+        lo, hi = hmax - halo, hmax + tt + halo
+        convs = []
+        for d in dilations:
+            for reach in (c * d, c):
+                lo, hi = lo + reach, hi - reach
+                convs.append((lo, hi))
+        out.append(convs)
+    return out
+
+
+def _smem_bf16(tt, hmax, Cp, slots):
+    return (_RING_ALIGN + slots * (chunk_bytes(Cp) + 16)
+            + 2 * (tt + 2 * hmax) * (Cp + 8) * 2)
+
+
+def _smem_f32(tt, hmax, Cp):
+    return 4 * (_F32_WCH * Cp + 2 * (tt + 2 * hmax) * (Cp + 1))
+
+
+def tile_plan(T, C, dtype, kernel_sizes, dilations) -> TilePlan:
+    """The largest time tile (a multiple of 8, at most 512) that fits one
+    block. bf16: each conv's window within the consumers' m64 tiles (so
+    each tap is read once per conv) and two activation buffers beside a
+    ring of at least _MIN_SLOTS tap chunks, the rest of shared memory
+    given to more slots (up to _MAX_SLOTS). f32: two activation buffers and
+    a chunk of 32 input channels of a tap."""
+    ks, dil = list(kernel_sizes), list(dilations)
+    Cp = _padded_channels(C, dtype)
+    hmax = _halo(ks, dil)
+    bf16 = dtype == torch.bfloat16
+    per_pass = 64 * _CONSUMER_WGS * m_tiles_per_warpgroup(Cp) if bf16 else 0
+
+    def fits(tt):
+        if not bf16:
+            return _smem_f32(tt, hmax, Cp) <= SMEM_LIMIT
+        widest = max(hi - lo for w in _windows(tt, hmax, ks, dil)
+                     for lo, hi in w)
+        return (widest <= per_pass
+                and _smem_bf16(tt, hmax, Cp, _MIN_SLOTS) <= SMEM_LIMIT)
+
     tt = min(_MAX_TILE, (T + 7) // 8 * 8)
-    while tt > 8 and fn(is_bf16, tt, hmax, Cp) > _SMEM_LIMIT:
+    while tt > 8 and not fits(tt):
         tt -= 8
-    if fn(is_bf16, tt, hmax, Cp) > _SMEM_LIMIT:
-        raise ValueError("mrf_stage: stage does not fit shared memory")
-    return tt
+    if not fits(tt):
+        raise ValueError("mrf_stage: stage does not fit one block")
+    slots = 0
+    if bf16:
+        free = SMEM_LIMIT - _smem_bf16(tt, hmax, Cp, 0)
+        slots = min(_MAX_SLOTS, free // (chunk_bytes(Cp) + 16))
+    # bf16: at least half an SM's shared memory, one block per SM (its
+    # consumers take the registers its producer frees)
+    smem = (max(_smem_bf16(tt, hmax, Cp, slots), SMEM_LIMIT // 2) if bf16
+            else _smem_f32(tt, hmax, Cp))
+    windows = _windows(tt, hmax, ks, dil)
+    m_tiles = [[-(-(hi - lo) // 64) for lo, hi in w] for w in windows]
+    work = sum(k * (hi - lo) for k, w in zip(ks, windows) for lo, hi in w)
+    useful = tt * 2 * len(dil) * sum(ks)
+    return TilePlan(Cp, tt, hmax, tt + 2 * hmax, slots, smem, per_pass,
+                    windows, m_tiles, work / useful)
 
 
-def mrf_stage(x, stage: MrfStageWeights):
+def mrf_stage_tiles_plain(x, stage, plan: TilePlan):
+    """The stage as the kernel computes it, in plain PyTorch: the tiles of
+    ``plan``, each conv over its window only (no padding), rows outside
+    [0, T) zeroed after every conv and residual add, the branch mean over
+    the tile's rows. x: (B, T, C)."""
+    stage = _as_weights(stage)
+    B, T, C = x.shape
+    tt, hmax = plan.tt, plan.hmax
+    n_tiles = -(-T // tt)
+    R = plan.rows
+    # xp index i is time step i - hmax; windows (B * n_tiles, C, R)
+    xp = F.pad(x.transpose(1, 2), (hmax, n_tiles * tt - T + hmax))
+    win = xp.unfold(2, R, tt).permute(0, 2, 1, 3).reshape(-1, C, R)
+    t0 = torch.arange(n_tiles, device=x.device) * tt - hmax
+
+    def mask(h, lo):
+        g = t0[:, None] + lo + torch.arange(h.shape[-1], device=x.device)
+        valid = ((g >= 0) & (g < T)).to(h.dtype)[None, :, None, :]
+        return (h.view(B, n_tiles, C, -1) * valid).view(h.shape)
+
+    acc = None
+    for k, ws, bs, wins in zip(stage.kernel_sizes, stage.weights,
+                               stage.biases, plan.windows):
+        c = (k - 1) // 2
+        lo0 = wins[0][0] - c * stage.dilations[0]
+        h = mask(win[:, :, lo0:wins[0][1] + c * stage.dilations[0]], lo0)
+        for p, d in enumerate(stage.dilations):
+            (lo1, _), (lo2, hi2) = wins[2 * p], wins[2 * p + 1]
+            t = F.conv1d(F.leaky_relu(h, LRELU_SLOPE), ws[2 * p], None,
+                         dilation=d)
+            t = mask(F.leaky_relu(t + bs[2 * p][:, None], LRELU_SLOPE), lo1)
+            t = F.conv1d(t, ws[2 * p + 1], None)
+            t = mask(t + bs[2 * p + 1][:, None], lo2)
+            cut = lo2 - (lo1 - c * d)
+            h = mask(t + h[:, :, cut:cut + hi2 - lo2], lo2)
+        acc = h if acc is None else acc + h
+    out = (acc / len(stage.kernel_sizes)).view(B, n_tiles, C, tt)
+    out = out.permute(0, 2, 1, 3).reshape(B, C, n_tiles * tt)[:, :, :T]
+    return out.transpose(1, 2)
+
+
+# ----------------------------------------------------------------- wrapper
+
+
+def _check_weights(x, stage: MrfStageWeights):
+    C = x.shape[2]
+    for k, ws, bs in zip(stage.kernel_sizes, stage.weights, stage.biases):
+        if len(ws) != 2 * len(stage.dilations) or len(bs) != len(ws):
+            raise ValueError("mrf_stage: 2 convs per dilation and branch")
+        for w, b in zip(ws, bs):
+            if tuple(w.shape) != (C, C, k) or tuple(b.shape) != (C,):
+                raise ValueError("mrf_stage: weight shapes do not match x")
+            if w.device != x.device or w.dtype != x.dtype or b.dtype != x.dtype:
+                raise ValueError("mrf_stage: weights must match x's device "
+                                 "and dtype")
+
+
+def _check_packed(x, stage: MrfStagePacked, ks, dil):
+    C = x.shape[2]
+    Cp = _padded_channels(C, x.dtype)
+    n = len(ks) * 2 * len(dil)
+    if stage.channels != C:
+        raise ValueError(f"mrf_stage: a stage of {stage.channels} channels "
+                         f"for x of {C}")
+    if (stage.taps.dim() != 1
+            or stage.taps.numel() != 2 * len(dil) * sum(ks) * Cp * Cp
+            or tuple(stage.biases.shape) != (n, Cp)):
+        raise ValueError("mrf_stage: packed taps/biases do not match x")
+    for t in (stage.taps, stage.biases):
+        if (t.device != x.device or t.dtype != x.dtype
+                or not t.is_contiguous()):
+            raise ValueError("mrf_stage: packed taps and biases must be "
+                             "contiguous, on x's device and dtype")
+
+
+def mrf_stage(x, stage):
     """One MRF stage; same contract as ``mrf_stage_plain``.
 
     x: (B, T, C), any strides (a transposed (B, C, T) tensor is read in
-    place). Returns (B, T, C) with x's memory layout. On CUDA: f32 or bf16,
-    C <= 128, odd kernel sizes, weights on x's device and dtype.
+    place). Returns (B, T, C) with x's memory layout. stage: an
+    MrfStagePacked (the Generator's, packed once) or MrfStageWeights
+    (packed on every call). On CUDA: f32 or bf16, C <= 128, odd kernel
+    sizes, weights on x's device and dtype.
     """
     global launches
     if x.device.type == "cpu":
@@ -132,31 +431,23 @@ def mrf_stage(x, stage: MrfStageWeights):
         raise ValueError("mrf_stage: 1-4 branches of 1-4 dilations")
     if any(k % 2 == 0 for k in ks):
         raise ValueError("mrf_stage: kernel sizes must be odd")
-    for k, ws, bs in zip(ks, stage.weights, stage.biases):
-        if len(ws) != 2 * len(dil) or len(bs) != 2 * len(dil):
-            raise ValueError("mrf_stage: 2 convs per dilation and branch")
-        for w, b in zip(ws, bs):
-            if tuple(w.shape) != (C, C, k) or tuple(b.shape) != (C,):
-                raise ValueError("mrf_stage: weight shapes do not match x")
-            if w.device != x.device or w.dtype != x.dtype or b.dtype != x.dtype:
-                raise ValueError("mrf_stage: weights must match x's device "
-                                 "and dtype")
-    Cp = _padded_channels(C, x.dtype)
-    taps, biases = _pack(stage, C, Cp, x.dtype, x.device)
+    if isinstance(stage, MrfStageWeights):
+        _check_weights(x, stage)
+        stage = pack_stage(stage)
+    _check_packed(x, stage, ks, dil)
+    plan = tile_plan(T, C, x.dtype, ks, dil)
     y = torch.empty_like(x)
-    is_bf16 = int(x.dtype == torch.bfloat16)
 
-    # The kernel runs on the current stream after this returns; the caching
-    # allocator hands freed temporaries (taps, biases) only to work queued
-    # after it.
     lib = _build.load("mrf_stage")
-    tt = _tile(lib, is_bf16, T, _halo(ks, dil), Cp)
-    fn = lib.tk_mrf_stage
     ks_arr = (ctypes.c_int * len(ks))(*ks)
     dil_arr = (ctypes.c_int * len(dil))(*dil)
-    err = fn(x.data_ptr(), y.data_ptr(), taps.data_ptr(), biases.data_ptr(),
-             is_bf16, B, T, C, Cp, tt, len(ks), ks_arr, len(dil), dil_arr,
-             *x.stride(), *y.stride(), _build.current_stream(x.device))
+    # The kernel runs on the current stream after this returns; the caching
+    # allocator hands taps packed for this call only to work queued after it.
+    err = lib.tk_mrf_stage(
+        x.data_ptr(), y.data_ptr(), stage.taps.data_ptr(),
+        stage.biases.data_ptr(), int(x.dtype == torch.bfloat16), B, T, C,
+        plan.Cp, plan.tt, plan.slots, len(ks), ks_arr, len(dil), dil_arr,
+        *x.stride(), *y.stride(), _build.current_stream(x.device))
     _build.check(lib, err, "mrf_stage")
     launches += 1
     return y
