@@ -52,12 +52,13 @@ non-zero exit (nothing is caught):
                bench.py:286-301 (acc 4 x B 16, L = 96, T = 640, f32);
   7. kernels — kernel time, plain time, library time and the card's bound at
                the bench shapes (attention also at speak's f32 call, the
-               MRF kernel's f32 route at speak's 192-frame sentence; f32
-               bounds as 3xTF32 on the tensor cores, the CUDA-core f32 bound
-               beside them), each kernel first held against its plain
-               version on the very inputs it is timed on; the MRF rows also
-               give the same convs through cuDNN at its fastest algorithms
-               (cudnn_chain_ms) and each stage's grid.
+               MRF kernel's f32 route, 3xTF32 passes of (tile, branch)
+               blocks, at speak's 192-frame sentence; f32 bounds as 3xTF32
+               on the tensor cores, the CUDA-core f32 bound beside them),
+               each kernel first held against its plain version on the very
+               inputs it is timed on; the MRF rows also give the same convs
+               through cuDNN at its fastest algorithms (cudnn_chain_ms) and
+               each stage's grid (f32: blocks per pass, launches per stage).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout, it prints no result and exits 1. The JAX package is not imported.
@@ -1478,8 +1479,9 @@ def attention_timing_row(cfg, launches, errs, mel_lens):
 def mrf_timing_row(cfg, launches, mrf_runs, check_errs):
     """Row 2: the MRF kernel's bf16 route at the bench shape's fused stages
     (B = 32, T_mel = 1000), and row 2f: its f32 route at speak's 192-frame
-    sentence (B = 1, T_mel = 192), each the sum of one launch per stage on
-    the stage packed once, as the Generator runs it. The kernel is held
+    sentence (B = 1, T_mel = 192), each the sum of one call per stage on
+    the stage packed once, as the Generator runs it (in f32 a call launches
+    a pass per dilation pair and the branch mean). The kernel is held
     against mrf_stage_plain on these very inputs first, at TOL. Beside it:
     the plain version (cuDNN's default algorithms) and cudnn_chain_ms, the
     same 18 convs and elementwise ops with cudnn.benchmark on (cuDNN's
@@ -1525,6 +1527,8 @@ def mrf_timing_row(cfg, launches, mrf_runs, check_errs):
             grid.append({"C": C, "T": Tw, "tt": plan.tt,
                          "blocks": plan.blocks(B, Tw), "slots": plan.slots,
                          "work_factor": plan.work_factor})
+            if dname == "f32":
+                grid[-1]["launches_per_call"] = plan.n_launches
             ops += 2.0 * 6 * sum(stage.kernel_sizes) * C * C * Tw * B
             nbytes += (2 * B * Tw * C * x.element_size()
                        + (packed.taps.numel() + packed.biases.numel())

@@ -9,15 +9,20 @@ FastSpeech2 at the superbatch of bench.py:286-301 (acc 4 x B 16, L = 96,
 T = 640), after two warm-up steps, as chip_smoke.py times it. The int8
 vocoder (``--int8``): TTSConfig()'s Generator(mrf_backend="fused_int8")
 in bf16 on a mel of B = 8, T_mel = 1000 (config 2b of bench.py:218-240),
-as chip_smoke.py times it.
+as chip_smoke.py times it. A sentence (``--speak``): the f32 TTSKing's
+``speak`` on chip_smoke.py's 192-frame sentence (TF32 off), as chip_smoke.py
+drives it.
 
-The run is profiled under ``torch.profiler`` with CPU and CUDA activities.
-Prints one JSON line: the wall time, the device's busy time (the sum of
-kernel times: one stream, so kernels do not overlap), its idle share, and
-the device time by operator and by kernel, largest first. The full tables
-and a Chrome trace go to ``--out``.
+After two warm-up runs, ``--reps`` runs are timed without the profiler
+(host clock, synchronized), then one run is profiled under
+``torch.profiler`` with CPU and CUDA activities. Prints one JSON line: the
+timed runs' wall times and median, the profiled run's wall time, the
+device's busy time (the sum of kernel times: one stream, so kernels do not
+overlap), its idle share, and the device time by operator and by kernel,
+largest first. The full tables and a Chrome trace go to ``--out``.
 
-    python3 scripts/profile_port.py [--train | --int8] [--out DIR]
+    python3 scripts/profile_port.py [--train | --int8 | --speak]
+        [--reps N] [--out DIR]
 """
 
 import argparse
@@ -46,11 +51,14 @@ def main(argv=None):
     ap.add_argument("--out", default=os.path.join(REPO, "build",
                                                   "profile_port"))
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--reps", type=int, default=5)
     what = ap.add_mutually_exclusive_group()
     what.add_argument("--train", action="store_true",
                       help="profile one optimizer step instead of synthesis")
     what.add_argument("--int8", action="store_true",
                       help="profile the int8 vocoder instead of synthesis")
+    what.add_argument("--speak", action="store_true",
+                      help="profile TTSKing.speak on one sentence (f32)")
     args = ap.parse_args(argv)
 
     import torch
@@ -88,6 +96,18 @@ def main(argv=None):
         @torch.inference_mode()
         def run():
             return gen(mel)
+    elif args.speak:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = chip_smoke.main_config()
+        cfg.preprocess.lexicon_path = os.path.join(chip_smoke.E2E_DIR,
+                                                   "lexicon.dict")
+        king = chip_smoke.main_path_kings(cfg)["f32"]
+        text = chip_smoke.SENTENCES[1]
+        shape = {"text": text, "dtype": "f32"}
+
+        def run():
+            return king.speak(text)
     else:
         cfg = chip_smoke.main_config()
         king = chip_smoke.main_path_kings(cfg)["bf16"]
@@ -104,6 +124,12 @@ def main(argv=None):
     for _ in range(2):
         run()
     torch.cuda.synchronize()
+    runs_ms = []
+    for _ in range(args.reps):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        runs_ms.append((time.perf_counter() - t0) * 1e3)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -131,8 +157,12 @@ def main(argv=None):
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "path": ("train_step" if args.train else
-                 "int8_vocoder" if args.int8 else "synthesis"),
+                 "int8_vocoder" if args.int8 else
+                 "speak" if args.speak else "synthesis"),
         "shape": shape,
+        "wall_ms_runs": runs_ms,
+        "wall_ms_median": sorted(runs_ms)[len(runs_ms) // 2] if runs_ms
+        else None,
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "n_kernels": len(kernels),

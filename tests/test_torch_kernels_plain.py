@@ -152,13 +152,15 @@ def test_mrf_halo_matches_the_branch_reach():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mrf_pack_layout(dtype):
-    """Packed taps are blocks of k (Cp x Cp) taps in chain order, zero past
-    C: [tap][c_in][c_out] for the f32 (CUDA-core) path; for the bf16
-    (tensor-core) path each tap in the swizzled K-major layout of the wgmma
-    B operand, element (c_out, c_in) at byte tap_byte_offset(c_out, c_in)."""
+    """Packed taps are blocks of k taps in chain order, zero past C: for the
+    f32 path (3xTF32 mma.sync) each tap in chunks of 16 input channels of
+    padded (c_out) rows, element (c_out, c_in) at f32_tap_offset(c_out,
+    c_in); for the bf16 (wgmma) path each tap in the swizzled K-major
+    layout of the B operand, element (c_out, c_in) at byte
+    tap_byte_offset(c_out, c_in)."""
     C = 5
-    Cp = mrf_mod._padded_channels(C, dtype)
-    assert Cp == (16 if dtype == torch.bfloat16 else 8)
+    Cp = mrf_mod._padded_channels(C)
+    assert Cp == 16
     rng = np.random.RandomState(0)
     ws = [[torch.from_numpy(rng.randn(C, C, 3).astype(np.float32)).to(dtype)
            for _ in range(2)]]
@@ -166,14 +168,15 @@ def test_mrf_pack_layout(dtype):
            for _ in range(2)]]
     stage = mrf_mod.MrfStageWeights((3,), (1,), ws, bs)
     taps, biases = mrf_mod._pack(stage, C, Cp, dtype, "cpu")
-    assert taps.shape == (2 * 3 * Cp * Cp,) and taps.dtype == dtype
-    blk = taps[3 * Cp * Cp:].reshape(3, Cp * Cp)     # second conv
-    if dtype == torch.bfloat16:
-        n, k = np.meshgrid(np.arange(Cp), np.arange(Cp), indexing="ij")
-        blk = blk[:, torch.from_numpy(
-            mrf_mod.tap_byte_offset(n, k, Cp).reshape(-1) // 2)]
-    want = ws[0][1].permute(2, 0, 1) if dtype == torch.bfloat16 \
-        else ws[0][1].permute(2, 1, 0)
+    per = mrf_mod.tap_elems(Cp, dtype)
+    assert per == (Cp * Cp if dtype == torch.bfloat16 else Cp * Cp * 5 // 4)
+    assert taps.shape == (2 * 3 * per,) and taps.dtype == dtype
+    blk = taps[3 * per:].reshape(3, per)     # second conv
+    n, k = np.meshgrid(np.arange(Cp), np.arange(Cp), indexing="ij")
+    off = (mrf_mod.tap_byte_offset(n, k, Cp) // 2 if dtype == torch.bfloat16
+           else mrf_mod.f32_tap_offset(n, k, Cp))
+    blk = blk[:, torch.from_numpy(off.reshape(-1))]
+    want = ws[0][1].permute(2, 0, 1)           # [tap][c_out][c_in]
     blk = blk.reshape(3, Cp, Cp)
     assert torch.equal(blk[:, :C, :C], want)
     assert float(blk[:, C:, :].float().abs().sum()) == 0.0
@@ -185,5 +188,5 @@ def test_mrf_pack_layout(dtype):
 @pytest.mark.parametrize("C,want", [(1, 16), (16, 16), (17, 32), (32, 32),
                                     (64, 64), (100, 128), (128, 128)])
 def test_mrf_padded_channels_bf16(C, want):
-    assert mrf_mod._padded_channels(C, torch.bfloat16) == want
-    assert mrf_mod._padded_channels(C, torch.float32) == (C + 7) // 8 * 8
+    """One rule for both dtypes (the bf16 and the f32 route)."""
+    assert mrf_mod._padded_channels(C) == want

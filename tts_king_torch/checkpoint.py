@@ -1,7 +1,15 @@
-"""Upstream PyTorch vocoder checkpoints (``.pth`` / ``.pth.tar``) -> the
-port's state dicts.
+"""Upstream PyTorch checkpoints (``.pth`` / ``.pth.tar``) -> the port's
+state dicts.
 
-The port's own copy of the vocoder half of tts_king_tpu/checkpoint.py:
+The port's own copy of the converters of tts_king_tpu/checkpoint.py:
+
+  * FastSpeech2 ``.pth.tar``: ``{"model": state_dict without speaker_emb,
+    "embedding": speaker_emb.weight, "optimizer": ...}`` (fsapi.py:26-30),
+    the split speaker embedding put back; FFT blocks at
+    ``{encoder,decoder}.layer_stack.{i}``, variance predictors'
+    ``conv_layer.{conv1d_1.conv, layer_norm_1, ...}``, the postnet's
+    ``convolutions.{i}.{0.conv, 1}``. The CWT heads (``use_cwt=True``) wait
+    for the port's CWT branch;
 
   * HiFi-GAN: ``{"generator": state_dict}`` (hifiapi.py:21-22) with
     weight-norm ``weight_g`` / ``weight_v`` pairs, folded to plain weights
@@ -13,8 +21,7 @@ The port's own copy of the vocoder half of tts_king_tpu/checkpoint.py:
     ``model.{idx}`` Sequential.
 
 The upstream weights are already in torch's layouts, so only the names
-change. FastSpeech2 ``.pth.tar`` files wait with the CWT branch their
-converter needs.
+change.
 """
 
 import pickle
@@ -50,6 +57,77 @@ def _conv(state, key, name, out):
 
 def _has(state, key):
     return key + ".weight" in state or key + ".weight_v" in state
+
+
+def _copy(state, src, dst, out, names=("weight", "bias")):
+    for n in names:
+        out[f"{dst}.{n}"] = torch.as_tensor(state[f"{src}.{n}"]).float()
+
+
+def _fft_block(state, src, dst, out):
+    for m in ("w_qs", "w_ks", "w_vs", "fc", "layer_norm"):
+        _copy(state, f"{src}.slf_attn.{m}", f"{dst}.slf_attn.{m}", out)
+    for m in ("w_1", "w_2", "layer_norm"):
+        _copy(state, f"{src}.pos_ffn.{m}", f"{dst}.pos_ffn.{m}", out)
+
+
+def _variance_predictor(state, src, dst, out):
+    for i in (1, 2):
+        _copy(state, f"{src}.conv_layer.conv1d_{i}.conv", f"{dst}.conv1d_{i}",
+              out)
+        _copy(state, f"{src}.conv_layer.layer_norm_{i}",
+              f"{dst}.layer_norm_{i}", out)
+    _copy(state, f"{src}.linear_layer", f"{dst}.linear_layer", out)
+
+
+def convert_fs2_state(state, n_encoder_layers=4, n_decoder_layers=6,
+                      use_cwt=False):
+    """An upstream FastSpeech2 state dict (speaker_emb.weight included
+    where the model has one) -> the port's FastSpeech2 state dict
+    (models/fs2.py names), the keys that tts_king_tpu/checkpoint.py's
+    convert_fs2_state reads. ``use_cwt=True`` raises: the port has no CWT
+    branch yet."""
+    if use_cwt:
+        raise NotImplementedError(
+            "FastSpeech2 checkpoint with use_cwt=True: the CWT pitch branch "
+            "(pitch_mean / pitch_std heads) is not ported yet")
+    out = {}
+    _copy(state, "encoder.src_word_emb", "encoder.src_word_emb", out,
+          ("weight",))
+    for i in range(n_encoder_layers):
+        _fft_block(state, f"encoder.layer_stack.{i}", f"encoder.layer_{i}",
+                   out)
+    for i in range(n_decoder_layers):
+        _fft_block(state, f"decoder.layer_stack.{i}", f"decoder.layer_{i}",
+                   out)
+    va = "variance_adaptor"
+    for name in ("duration", "pitch", "energy"):
+        _variance_predictor(state, f"{va}.{name}_predictor",
+                            f"{va}.{name}_predictor", out)
+    for name in ("pitch_embedding", "energy_embedding"):
+        _copy(state, f"{va}.{name}", f"{va}.{name}", out, ("weight",))
+    if "speaker_emb.weight" in state:
+        _copy(state, "speaker_emb", "speaker_emb", out, ("weight",))
+    _copy(state, "mel_linear", "mel_linear", out)
+    for i in range(5):
+        src = f"postnet.convolutions.{i}"
+        _copy(state, f"{src}.0.conv", f"postnet.conv_{i}", out)
+        _copy(state, f"{src}.1", f"postnet.bn_{i}", out,
+              ("weight", "bias", "running_mean", "running_var"))
+    return out
+
+
+def convert_fs2_checkpoint(path, n_encoder_layers=4, n_decoder_layers=6,
+                           use_cwt=False):
+    """An upstream FastSpeech2 ``.pth.tar`` -> the port's state dict, the
+    split speaker embedding (``ckpt["embedding"]``) put back as
+    ``speaker_emb.weight`` (fsapi.py:27-30)."""
+    ckpt = load_torch_checkpoint(path)
+    state = dict(ckpt["model"])
+    if ckpt.get("embedding") is not None:
+        state["speaker_emb.weight"] = ckpt["embedding"]
+    return convert_fs2_state(state, n_encoder_layers, n_decoder_layers,
+                             use_cwt)
 
 
 def convert_hifigan_generator(state, n_ups=4, n_kernels=3, n_res_convs=3):

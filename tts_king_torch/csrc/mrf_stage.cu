@@ -11,26 +11,54 @@
 // What bounds it on an H100: at the shipped width (k = 3, 7, 11; dilations
 // 1, 3, 5) a stage is 2 * 21 * 6 * C^2 operations per time step against
 // 2 * C elements in and out, thousands of operations per byte, so the
-// stage is bound by arithmetic: the bf16 tensor cores (989 TFLOP/s) in
-// bf16; in f32 the CUDA cores, since TF32 would change the f32 results.
+// stage is bound by arithmetic on the tensor cores: bf16 (989 TFLOP/s) in
+// bf16; in f32 3xTF32 (each f32 product as three TF32 products, 495 / 3
+// TFLOP/s), which keeps f32's accuracy to a few ulps (attention_mma.cuh).
 //
-// Both routes: one block per (batch item, tile of TT time steps). All 18
-// convs of the stage run on the tile in shared memory, so x is read and y
-// written once per branch instead of once per conv. Each branch reads x with
-// its own halo (k=11: 60 rows a side, k=7: 36, k=3: 12); every conv shrinks
-// the live rows by its reach. Two buffers of (TT + 2 * max halo) rows
-// suffice: A holds the residual stream h; conv1 reads lrelu(A) and writes
-// lrelu(conv1) into B; conv2 reads B and adds into A in place (each element
-// of A is read and then written by one thread). Rows outside [0, T) are
-// zeroed after every conv and after every residual add, which reproduces
-// per-conv zero padding at the sequence edges, and a tile's halo never reads
-// a neighbouring batch item. The tile TT (and in bf16 the ring's slots) come
-// from the wrapper's tile_plan (ops/kernels/mrf.py); the entry point checks
-// that they fit.
+// bf16 (mrf_stage_tc): one block per (batch item, tile of TT time steps).
+// All 18 convs of the stage run on the tile in shared memory, so x is read
+// and y written once per branch instead of once per conv. Each branch reads
+// x with its own halo (k=11: 60 rows a side, k=7: 36, k=3: 12); every conv
+// shrinks the live rows by its reach. Two buffers of (TT + 2 * max halo)
+// rows suffice: A holds the residual stream h; conv1 reads lrelu(A) and
+// writes lrelu(conv1) into B; conv2 reads B and adds into A in place (each
+// element of A is read and then written by one thread). Rows outside
+// [0, T) are zeroed after every conv and after every residual add, which
+// reproduces per-conv zero padding at the sequence edges, and a tile's halo
+// never reads a neighbouring batch item. The tile TT and the ring's slots
+// come from the wrapper's tile_plan (ops/kernels/mrf.py); the entry point
+// checks that they fit.
 //
-// f32 (conv_rows, mrf_stage_f32): taps stream from L2 through shared memory
-// in chunks of 32 input channels; each thread owns 8 rows x 8 channels and
-// sums on the CUDA cores.
+// f32 (mrf_pass_f32, mrf_mean_f32), sized for speak's batch of one, where
+// a stage's tiles alone give too few blocks and f32 activations (4 bytes a
+// channel) leave little shared memory beside a halo:
+//   * a pass per dilation pair, each a grid of blocks per (tile of TT
+//     steps, branch, batch item): three times the blocks of a grid over
+//     tiles, and a reach of c (d + 1) rows a side instead of the branch's
+//     whole halo. A block reads its branch's h (x in the first pass) over
+//     TT + 2 c (d + 1) rows, runs conv1 over TT + 2 c rows and conv2 over TT
+//     rows, and writes h + conv2 to a scratch buffer in L2 that the next
+//     pass reads; then a last pass averages the branches' buffers in branch
+//     order, ((h0 + h1) + h2) / 3, with no atomics. The widest branch's
+//     blocks come first in the grid, so the lighter ones fill the tail;
+//   * products on mma.sync.m16n8k8.tf32 as 3xTF32 (attention_mma.cuh's
+//     split and passes): M = time rows, N = output channels, K = input
+//     channels per tap; the 8 consumer warps share the conv's window as
+//     up to 2 m16 tiles each (two warps across the channels at Cp = 128);
+//     A fragments by ldmatrix.x4 from the shifted rows (one row address a
+//     lane, so any tap shift is free; conv1's leaky ReLU applied before the
+//     split), B fragments by ldmatrix.x4 from the tap chunk, both split to
+//     hi / lo in registers; each 16-channel chunk's products summed from
+//     zero and added to the conv's sums on the CUDA cores (products_f32);
+//   * taps packed once in chunks of 16 input channels (Cp rows of 20
+//     floats; mrf.py's f32_tap_offset), which a producer warp streams with
+//     cp.async.bulk into a ring of slots on mbarriers while the consumers
+//     multiply; the consumer warps release each slot once their products
+//     that read it are issued;
+//   * rows are Cp + 4 floats apart (4 times an odd number of words), so the
+//     8 rows of an ldmatrix fall in distinct banks. Conv1's rows outside
+//     [0, T) are zeroed, the input's are loaded as zeros, and h + conv2 is
+//     written on [0, T) only: per-conv zero padding at the sequence edges.
 //
 // bf16 (conv_tc, mrf_stage_tc), a warp-specialised Hopper kernel:
 //   * products: a conv over a window is a sum of shifted GEMMs,
@@ -63,20 +91,22 @@
 // Rounding, as in the TPU kernel and the plain version: f32 accumulation, the
 // sum rounded to the working type once, then the bias added in that type; the
 // leaky ReLU, the residual add and each step of the branch mean round to the
-// working type. The branch mean is accumulated in y itself (each block owns
+// working type. bf16 accumulates the branch mean in y itself (each block owns
 // its rows of y).
 //
 // Layout: x and y are (B, T, C) views given by element strides, so a
 // (B, C, T) tensor from nn.ConvTranspose1d can be passed without a copy.
 // Weights are packed once by the wrapper: for branch b (branch-major), conv
-// n in chain order [convs1_0, convs2_0, convs1_1, ...], a block of k_b taps
-// of Cp x Cp elements, [tap][c_in][c_out] in f32 (Cp = C rounded up to 8),
-// in bf16 the swizzled K-major B layout (Cp = 16, 32, 64 or 128); zero past
-// C. Biases (Cp,) per conv in the same order.
+// n in chain order [convs1_0, convs2_0, convs1_1, ...], a block of k_b taps,
+// in bf16 the swizzled K-major B layout, in f32 chunks of 16 input channels
+// of Cp rows (c_out) of 20 floats; Cp = 16, 32, 64 or 128, zero past C.
+// Biases (Cp,) per conv in the same order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_mma.cuh"   // the 3xTF32 split and mma.sync passes
 
 namespace {
 
@@ -87,10 +117,11 @@ constexpr float kSlope = 0.1f;
 constexpr long long kSmemLimit = 232448;
 
 #ifdef TK_PROFILE_PHASES
-// Phase marks of the bf16 kernel, for scripts/probe_mrf_int8.py --kernel
-// bf16 --phases: thread 0 (a consumer) adds the cycles since its previous
-// mark to the phase the mark closes: x load, tap wait, products, epilogue,
-// branch mean (each with the barrier that ends it).
+// Phase marks, for scripts/probe_mrf_int8.py --kernel bf16|f32 --phases:
+// thread 0 (a consumer) adds the cycles since its previous mark to the
+// phase the mark closes, each with the barrier that ends it. bf16: x load,
+// tap wait, products, epilogue, branch mean; f32 (the passes): h load, tap
+// wait, products, conv1's epilogue, conv2's epilogue with the store of h.
 __device__ unsigned long long g_phase_cycles[5];
 __shared__ long long s_phase[6];   // 5 sums, then the last mark
 #define TK_PHASE_START()                                              \
@@ -127,213 +158,13 @@ struct Plan {
   int dil[kMaxDil];                  // dilation of each conv1
   int halo[kMaxBranch];              // rows of reach per branch and side
   int hmax;
+  int cmax, rmax;                    // f32: widest c and pass reach c (d + 1)
   long long woff[kMaxBranch][2 * kMaxDil];  // element offset of each conv's taps
 };
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f<T>(from_f<T>(v));
-}
-
-template <typename T> __device__ __forceinline__ float lrelu(float v) {
-  return v >= 0.f ? v : round_to<T>(v * kSlope);
-}
-
-// ---------------------------------------------------------------- f32
-
-constexpr int kThreads = 256;
-constexpr int kRM = 8;    // output rows per thread
-constexpr int kCN = 8;    // output channels per thread
-constexpr int kWCH = 32;  // input channels per shared weight chunk
-
-// Rows are padded by one 32-bit word, so neighbouring rows start in
-// neighbouring banks.
-__host__ __device__ inline long long smem_bytes_f32(int TT, int hmax, int Cp) {
-  return 4LL * ((long long)kWCH * Cp + 2LL * (TT + 2 * hmax) * (Cp + 1));
-}
-
-// Eight consecutive floats of shared memory (16-byte aligned).
-__device__ __forceinline__ void load8(const float* p, float out[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
-// One conv over rows [olo, ohi) of the tile (buffer rows; buffer row 0 is
-// time step g0; RS elements between rows). CONV1: out = lrelu(mask(conv(
-// lrelu(in)) + bias)). Otherwise (conv2): out = mask(out + mask(conv(in) +
-// bias)), in place. A thread owns rows p0 + rg + r * nrg (r < kRM), so the
-// row groups of a warp read neighbouring rows, which the padded row stride
-// puts in distinct banks, and kCN neighbouring output channels.
-template <typename T, bool CONV1>
-__device__ void conv_rows(const T* __restrict__ in, T* __restrict__ out,
-                          T* __restrict__ wsm, const T* __restrict__ wg,
-                          const T* __restrict__ bg, int k, int d, int olo,
-                          int ohi, int Cp, int RS, int g0, int Tlen) {
-  const int tid = threadIdx.x;
-  const int ngc = Cp / kCN;         // channel groups
-  const int nrg = kThreads / ngc;   // row groups
-  const int cg = tid % ngc;
-  const int rg = tid / ngc;
-  const bool active = rg < nrg;     // Cp / 8 need not divide 256
-  const int rows_per_pass = nrg * kRM;
-  const int c = (k - 1) / 2;
-  const int co0 = cg * kCN;
-
-  for (int p0 = olo; p0 < ohi; p0 += rows_per_pass) {
-    const int r0 = p0 + rg;
-    const bool live = active && r0 < ohi;
-    float acc[kRM][kCN];
-#pragma unroll
-    for (int r = 0; r < kRM; ++r)
-#pragma unroll
-      for (int n = 0; n < kCN; ++n) acc[r][n] = 0.f;
-
-    for (int j = 0; j < k; ++j) {
-      const int off = (j - c) * d;
-      // rows past ohi repeat the last live row; their results are dropped
-      int rowoff[kRM];
-#pragma unroll
-      for (int r = 0; r < kRM; ++r)
-        rowoff[r] = (min(r0 + r * nrg, ohi - 1) + off) * RS;
-      for (int ci0 = 0; ci0 < Cp; ci0 += kWCH) {
-        const int nci = min(kWCH, Cp - ci0);
-        __syncthreads();
-        {
-          const uint4* src = reinterpret_cast<const uint4*>(
-              wg + ((long long)j * Cp + ci0) * Cp);
-          uint4* dst = reinterpret_cast<uint4*>(wsm);
-          const int nvec = nci * Cp * (int)sizeof(T) / 16;
-          for (int e = tid; e < nvec; e += kThreads) dst[e] = src[e];
-        }
-        __syncthreads();
-        if (live) {
-          for (int i = 0; i < nci; ++i) {
-            float w[kCN];
-            load8(wsm + i * Cp + co0, w);
-#pragma unroll
-            for (int r = 0; r < kRM; ++r) {
-              float a = to_f<T>(in[rowoff[r] + ci0 + i]);
-              if (CONV1) a = lrelu<T>(a);
-#pragma unroll
-              for (int n = 0; n < kCN; ++n) acc[r][n] = fmaf(a, w[n], acc[r][n]);
-            }
-          }
-        }
-      }
-    }
-
-    if (live) {
-      float bias[kCN];
-#pragma unroll
-      for (int n = 0; n < kCN; ++n) bias[n] = to_f<T>(bg[co0 + n]);
-#pragma unroll
-      for (int r = 0; r < kRM; ++r) {
-        const int row = r0 + r * nrg;
-        if (row >= ohi) break;
-        const int g = g0 + row;
-        const bool valid = g >= 0 && g < Tlen;
-        T* o = out + row * RS + co0;
-#pragma unroll
-        for (int n = 0; n < kCN; ++n) {
-          const float y = round_to<T>(round_to<T>(acc[r][n]) + bias[n]);
-          if (CONV1) {
-            o[n] = from_f<T>(valid ? lrelu<T>(y) : 0.f);
-          } else {
-            o[n] = from_f<T>(valid ? to_f<T>(o[n]) + y : 0.f);
-          }
-        }
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-mrf_stage_f32(const float* __restrict__ x, float* __restrict__ y,
-              const float* __restrict__ w, const float* __restrict__ bias,
-              Plan plan, int Tlen, int C, int Cp, int TT, long long xsb,
-              long long xst, long long xsc, long long ysb, long long yst,
-              long long ysc) {
-  using T = float;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int R = TT + 2 * plan.hmax;
-  const int RS = Cp + 1;
-  T* wsm = reinterpret_cast<T*>(smem_raw);   // weights, 16-byte aligned rows
-  T* A = wsm + kWCH * Cp;
-  T* Bf = A + (size_t)R * RS;
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TT;
-  const int g0 = t0 - plan.hmax;   // time step of buffer row 0
-  const T* xb = x + b * xsb;
-  T* yb = y + b * ysb;
-  const int tid = threadIdx.x;
-  const int nconv = 2 * plan.nd;
-
-  for (int br = 0; br < plan.nb; ++br) {
-    const int k = plan.ks[br];
-    const int c = (k - 1) / 2;
-    int lo = plan.hmax - plan.halo[br];
-    int hi = plan.hmax + TT + plan.halo[br];
-
-    // x rows [lo, hi) into A; zeros outside [0, T) and past C
-    __syncthreads();
-    const int nrows = hi - lo;
-    for (int idx = tid; idx < nrows * Cp; idx += kThreads) {
-      int r, ch;
-      if (xst == 1) { r = idx % nrows; ch = idx / nrows; }   // (B, C, T) memory
-      else { r = idx / Cp; ch = idx % Cp; }
-      const int g = g0 + lo + r;
-      float v = 0.f;
-      if (g >= 0 && g < Tlen && ch < C) v = to_f<T>(xb[g * xst + ch * xsc]);
-      A[(lo + r) * RS + ch] = from_f<T>(v);
-    }
-
-    for (int p = 0; p < plan.nd; ++p) {
-      const int n1 = 2 * p, n2 = 2 * p + 1;
-      const int d = plan.dil[p];
-      const int bidx = br * nconv;
-      const T* w1 = w + plan.woff[br][n1];
-      const T* w2 = w + plan.woff[br][n2];
-      const T* b1 = bias + (size_t)(bidx + n1) * Cp;
-      const T* b2 = bias + (size_t)(bidx + n2) * Cp;
-      conv_rows<T, true>(A, Bf, wsm, w1, b1, k, d, lo + c * d, hi - c * d,
-                         Cp, RS, g0, Tlen);
-      lo += c * d;
-      hi -= c * d;
-      conv_rows<T, false>(Bf, A, wsm, w2, b2, k, 1, lo + c, hi - c, Cp, RS,
-                          g0, Tlen);
-      lo += c;
-      hi -= c;
-    }
-    __syncthreads();
-
-    // branch mean, accumulated in y: y = h0; y = y + h1; ...; y = (y + hn) / n
-    const bool first = br == 0, last = br == plan.nb - 1;
-    const int tt = min(TT, Tlen - t0);
-    for (int idx = tid; idx < tt * C; idx += kThreads) {
-      int r, ch;
-      if (yst == 1) { r = idx % tt; ch = idx / tt; }
-      else { r = idx / C; ch = idx % C; }
-      T* dst = yb + (t0 + r) * yst + ch * ysc;
-      float v = to_f<T>(A[(plan.hmax + r) * RS + ch]);
-      if (!first) v = round_to<T>(to_f<T>(*dst) + v);
-      if (last) v = v / (float)plan.nb;
-      *dst = from_f<T>(v);
-    }
-  }
+// v rounded to bf16, as a float.
+__device__ __forceinline__ float round_bf(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // ------------------------------------------------- bf16: wgmma + bulk copies
@@ -821,7 +652,7 @@ __device__ void branch_mean(const BF* __restrict__ A, BF* __restrict__ yb,
   constexpr int RS = TC<CP>::RS;
   const int tid = threadIdx.x;
   auto mean = [&](float v, float prev) {
-    if (!first) v = round_to<BF>(prev + v);
+    if (!first) v = round_bf(prev + v);
     if (last) v = v / (float)nb;
     return v;
   };
@@ -940,6 +771,346 @@ mrf_stage_tc(const BF* __restrict__ x, BF* __restrict__ y,
   TK_PHASE_END();
 }
 
+// ---------------------------------------- f32: 3xTF32 mma.sync, a pass per pair
+
+constexpr int kF32KC = 16;                    // input channels per tap chunk
+constexpr int kF32Row = kF32KC + 4;           // floats per chunk row
+constexpr int kF32Warps = 8;                  // consumer warps
+constexpr int kF32Consumers = 32 * kF32Warps;
+constexpr int kThreadsF32 = kF32Consumers + 32;   // + the producer warp
+constexpr int kF32MT = 2;                     // m16 tiles a warp holds
+
+template <int CP> struct F32 {
+  static constexpr int WN = CP == 128 ? 2 : 1;   // warps across the channels
+  static constexpr int WM = kF32Warps / WN;      // warps across the rows
+  static constexpr int NT = CP / 8 / WN;         // n8 tiles a warp holds
+  static constexpr int RS = CP + 4;              // floats between rows
+  static constexpr int NCH = CP / kF32KC;        // chunks per tap
+  static constexpr int CHUNK = CP * kF32Row * 4; // bytes per chunk
+};
+
+// The ring (a chunk and two mbarriers a slot), then the input rows (TT + 2
+// rmax) and conv1's rows (TT + 2 cmax). mrf.py's _smem_f32 is the same sum.
+__host__ __device__ inline long long smem_bytes_f32(int Cp, int TT, int rmax,
+                                                    int cmax, int slots) {
+  return (long long)slots * (Cp * kF32Row * 4 + 16) +
+         (2LL * TT + 2 * rmax + 2 * cmax) * (Cp + 4) * 4;
+}
+
+// d = a * b on mma.sync.m16n8k8.tf32 with a zero accumulator in.
+__device__ __forceinline__ void mma_tf32_zero(float d[4], const uint32_t a[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+__device__ __forceinline__ void f32_consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kF32Consumers) : "memory");
+}
+
+// The producer: one thread copies a pass's chunks, conv1's k taps then
+// conv2's, each tap's chunks in K order, into the ring.
+template <int CP>
+__device__ __forceinline__ void produce_f32(const float* __restrict__ w1,
+                                            const float* __restrict__ w2,
+                                            int k, Ring ring) {
+  constexpr int CHUNK = F32<CP>::CHUNK;
+  const int n = k * F32<CP>::NCH;
+  for (int q = 0; q < 2 * n; ++q) {
+    const char* src = reinterpret_cast<const char*>(q < n ? w1 : w2) +
+                      (long long)(q % n) * CHUNK;
+    const uint32_t full = ring.full + 8 * ring.slot;
+    if (q >= ring.slots) mbar_wait(ring.empty + 8 * ring.slot, ring.phase ^ 1);
+    mbar_expect_tx(full, CHUNK);
+    bulk_load(ring.base + ring.slot * CHUNK, src, CHUNK, full);
+    ring.advance();
+  }
+}
+
+// Rows [g0, g0 + nrows) of one item's h (strides st, sc; channels [0, cin)
+// readable) into A (rows of RS floats, CP channels); zeros outside [0, T)
+// and past cin. Channel-contiguous rows of CP floats (the scratch buffers)
+// go by 16-byte loads; a (C, T) view along time, lanes on neighbouring
+// steps.
+template <int CP>
+__device__ void load_rows_f32(const float* __restrict__ h,
+                              float* __restrict__ A, int g0, int nrows,
+                              int Tlen, int cin, long long st, long long sc) {
+  constexpr int RS = F32<CP>::RS;
+  const int tid = threadIdx.x;
+  if (sc == 1 && cin == CP && st % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(h) % 16 == 0) {
+    constexpr int V = CP / 4;
+    for (int idx = tid; idx < nrows * V; idx += kF32Consumers) {
+      const int r = idx / V, q = idx % V, g = g0 + r;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (g >= 0 && g < Tlen)
+        v = __ldg(reinterpret_cast<const float4*>(h + g * st) + q);
+      *reinterpret_cast<float4*>(A + r * RS + 4 * q) = v;
+    }
+  } else {
+    for (int idx = tid; idx < nrows * CP; idx += kF32Consumers) {
+      int r, ch;
+      if (st == 1) { r = idx % nrows; ch = idx / nrows; }
+      else { r = idx / CP; ch = idx % CP; }
+      const int g = g0 + r;
+      float v = 0.f;
+      if (g >= 0 && g < Tlen && ch < cin) v = h[g * st + ch * sc];
+      A[r * RS + ch] = v;
+    }
+  }
+}
+
+// One conv's products over output rows [0, m) of a window: out[i] = sum_j
+// in[i + j d] . W_j, every 16-channel chunk of every tap from the ring in
+// turn. Warp (wm, wn) holds the window's m16 tiles wm, wm + WM, ... (na <=
+// kF32MT of them) for output channels wn * NT * 8 + [0, NT * 8). Rows past
+// m repeat row m - 1 (their results are dropped), so no read leaves the
+// input window. Each k8 step: A fragments by ldmatrix.x4 (conv1's leaky
+// ReLU applied) and split; then per pair of n8 tiles one ldmatrix.x4 of B,
+// split, and the three passes of 3xTF32 on the pair (holding one pair's B
+// keeps the fold below within 168 registers). A chunk's products go into
+// partial sums that start from zero and are added to the conv's sums on
+// the CUDA cores (rounded to nearest): the tensor core's f32 accumulation
+// does not round to nearest, and summed in one accumulator over a whole
+// conv (3 x 176 mma at k = 11, C = 128) its error grew with C, to 14 times
+// this fold's at C = 128 (PERF.md, section 6).
+template <int CP, bool CONV1>
+__device__ __forceinline__ void products_f32(
+    float (&acc)[kF32MT][F32<CP>::NT][4], Ring& ring,
+    const float* __restrict__ in, int m, int k, int d, int wm, int wn,
+    int lane) {
+  using Cfg = F32<CP>;
+  constexpr int NT = Cfg::NT, RS = Cfg::RS;
+  const int ntiles = (m + 15) / 16;
+  const int na = ntiles > wm ? (ntiles - wm + Cfg::WM - 1) / Cfg::WM : 0;
+#pragma unroll
+  for (int i = 0; i < kF32MT; ++i)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.f;
+  uint32_t arow[kF32MT];
+  const uint32_t in_s = smem_u32(in);
+#pragma unroll
+  for (int i = 0; i < kF32MT; ++i) {
+    const int r = min(16 * (wm + Cfg::WM * i) + (lane & 15), m - 1);
+    arow[i] = in_s + (uint32_t)(r * RS + (lane >> 4) * 4) * 4;
+  }
+  const uint32_t brow =
+      (uint32_t)((wn * NT * 8 + (lane & 7) + ((lane >> 4) << 3)) * kF32Row +
+                 ((lane >> 3) & 1) * 4) * 4;
+  float part[kF32MT][NT][4];   // the chunk's products, from zero
+  for (int j = 0; j < k; ++j) {
+    const uint32_t shift = (uint32_t)(j * d * RS * 4);
+    for (int h = 0; h < Cfg::NCH; ++h) {
+      mbar_wait(ring.full + 8 * ring.slot, ring.phase);
+      TK_PHASE(1);
+      const uint32_t chunk = ring.base + ring.slot * Cfg::CHUNK + brow;
+      ring.advance();
+#pragma unroll
+      for (int s = 0; s < kF32KC / 8; ++s) {
+        tk_attn::FragA a[kF32MT];
+#pragma unroll
+        for (int i = 0; i < kF32MT; ++i) {
+          if (i < na) {
+            uint32_t r[4];
+            ldmatrix_x4(r, arow[i] + shift + (uint32_t)((h * kF32KC + s * 8) * 4));
+            float v[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              v[e] = __uint_as_float(r[e]);
+              if (CONV1) v[e] = v[e] >= 0.f ? v[e] : v[e] * kSlope;
+            }
+            a[i] = tk_attn::split_a(v[0], v[1], v[2], v[3]);
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          uint32_t r[4];
+          ldmatrix_x4(r, chunk + (uint32_t)((p * 16 * kF32Row + s * 8) * 4));
+          const tk_attn::FragB b[2] = {
+              {tk_attn::split(r[0]), tk_attn::split(r[1])},
+              {tk_attn::split(r[2]), tk_attn::split(r[3])}};
+#pragma unroll
+          for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+            for (int i = 0; i < kF32MT; ++i)
+              if (i < na) {
+#pragma unroll
+                for (int q = 0; q < 2; ++q) {
+                  if (s == 0 && pass == 0)
+                    mma_tf32_zero(part[i][2 * p + q], a[i].lo, b[q].b0.hi,
+                                  b[q].b1.hi);
+                  else
+                    tk_attn::mma_pass(pass, part[i][2 * p + q], a[i], b[q]);
+                }
+              }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kF32MT; ++i)
+        if (i < na) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][nt][e] += part[i][nt][e];
+        }
+      __syncwarp();
+      ring.release(lane);
+      TK_PHASE(2);
+    }
+  }
+}
+
+// One pass of dilation pair p: a block per (tile of TT steps, branch, batch
+// item), blockIdx.y = (nb - 1 - branch) * B + item. in: the branch's h
+// (x for the first pass: stride isbr 0 between branches); out: the scratch
+// buffer of h + conv2, [branch][item][t][CP]. Buffer A holds times
+// t0 - r + [0, TT + 2r) of h, B conv1's times t0 - c + [0, TT + 2c).
+// Two blocks an SM at Cp <= 32, where a block's buffers take at most half
+// the shared memory (f32_plan's tiles at Cp = 32 need under 100 KB).
+template <int CP>
+__global__ void __launch_bounds__(kThreadsF32, CP <= 32 ? 2 : 1)
+mrf_pass_f32(const float* __restrict__ in, float* __restrict__ out,
+             const float* __restrict__ w, const float* __restrict__ bias,
+             Plan plan, int p, int B, int Tlen, int cin, int TT, int slots,
+             long long isbr, long long isb, long long ist, long long isc) {
+  using Cfg = F32<CP>;
+  constexpr int NT = Cfg::NT, RS = Cfg::RS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Ring ring;
+  ring.base = smem_u32(smem_raw);
+  ring.full = ring.base + slots * Cfg::CHUNK;
+  ring.empty = ring.full + 8 * slots;
+  ring.slots = slots;
+  ring.slot = 0;
+  ring.rslot = 0;
+  ring.phase = 0;
+  float* A = reinterpret_cast<float*>(smem_raw + slots * (Cfg::CHUNK + 16));
+  float* Bm = A + (size_t)(TT + 2 * plan.rmax) * RS;
+
+  const int br = plan.nb - 1 - (int)blockIdx.y / B;   // widest branch first
+  const int b = blockIdx.y % B;
+  const int t0 = blockIdx.x * TT;
+  const int k = plan.ks[br], c = (k - 1) / 2, d = plan.dil[p];
+  const int r = c * (d + 1);
+  const int m1 = TT + 2 * c;
+  const int n1 = br * 2 * plan.nd + 2 * p;   // conv1's index; conv2's n1 + 1
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, kF32Warps);   // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+  if (warp == kF32Warps) {
+    if (lane == 0)
+      produce_f32<CP>(w + plan.woff[br][2 * p], w + plan.woff[br][2 * p + 1],
+                      k, ring);
+    return;
+  }
+  TK_PHASE_START();
+  const int wm = warp % Cfg::WM, wn = warp / Cfg::WM;
+  const int g = lane >> 2, t = lane & 3;
+  const int nbase = wn * NT * 8 + 2 * t;
+
+  load_rows_f32<CP>(in + br * isbr + b * isb, A, t0 - r, TT + 2 * r, Tlen,
+                    cin, ist, isc);
+  f32_consumers_sync();
+  TK_PHASE(0);
+
+  float acc[kF32MT][NT][4];
+  // conv1: Bm[i] = mask(lrelu(conv(lrelu(A))[i] + bias)), time t0 - c + i
+  products_f32<CP, true>(acc, ring, A, m1, k, d, wm, wn, lane);
+  {
+    const float* bg = bias + (size_t)n1 * CP + nbase;
+#pragma unroll
+    for (int i = 0; i < kF32MT; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = 16 * (wm + Cfg::WM * i) + g + 8 * hh;
+        if (row >= m1) continue;
+        const int gt = t0 - c + row;
+        const bool valid = gt >= 0 && gt < Tlen;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float2 bv = __ldg(reinterpret_cast<const float2*>(bg + nt * 8));
+          float v0 = acc[i][nt][2 * hh] + bv.x, v1 = acc[i][nt][2 * hh + 1] + bv.y;
+          v0 = v0 >= 0.f ? v0 : v0 * kSlope;
+          v1 = v1 >= 0.f ? v1 : v1 * kSlope;
+          *reinterpret_cast<float2*>(Bm + row * RS + nbase + nt * 8) =
+              valid ? make_float2(v0, v1) : make_float2(0.f, 0.f);
+        }
+      }
+  }
+  f32_consumers_sync();
+  TK_PHASE(3);
+
+  // conv2: out[t0 + i] = A[i + r] + (conv(Bm)[i] + bias), on [0, T) only
+  products_f32<CP, false>(acc, ring, Bm, TT, k, 1, wm, wn, lane);
+  {
+    const float* bg = bias + (size_t)(n1 + 1) * CP + nbase;
+    float* ob = out + ((size_t)br * B + b) * Tlen * CP + nbase;
+#pragma unroll
+    for (int i = 0; i < kF32MT; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = 16 * (wm + Cfg::WM * i) + g + 8 * hh;
+        if (row >= TT || t0 + row >= Tlen) continue;
+        const float* res = A + (row + r) * RS + nbase;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float2 bv = __ldg(reinterpret_cast<const float2*>(bg + nt * 8));
+          const float2 hv = *reinterpret_cast<const float2*>(res + nt * 8);
+          *reinterpret_cast<float2*>(ob + (size_t)(t0 + row) * CP + nt * 8) =
+              make_float2(hv.x + (acc[i][nt][2 * hh] + bv.x),
+                          hv.y + (acc[i][nt][2 * hh + 1] + bv.y));
+        }
+      }
+  }
+  TK_PHASE(4);
+  TK_PHASE_END();
+}
+
+// The branch mean: y = ((h0 + h1) + h2) / nb over the last pass's buffers
+// s ([branch][item][t][CP]), a 32 x 32 (time, channel) tile a block, read
+// along channels and written along y's contiguous axis.
+__global__ void __launch_bounds__(256)
+mrf_mean_f32(const float* __restrict__ s, float* __restrict__ y, int nb,
+             int B, int Tlen, int C, int CP, long long ysb, long long yst,
+             long long ysc) {
+  __shared__ float tile[32][33];
+  const int b = blockIdx.z, t0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const long long plane = (long long)B * Tlen * CP;   // one branch's h
+  for (int i = ty; i < 32; i += 8) {
+    const int t = t0 + i, ch = c0 + tx;
+    if (t < Tlen && ch < C) {
+      const float* q = s + ((long long)b * Tlen + t) * CP + ch;
+      float v = q[0];
+      for (int br = 1; br < nb; ++br) v = v + q[br * plane];
+      tile[i][tx] = v / (float)nb;
+    }
+  }
+  __syncthreads();
+  const bool along_t = yst == 1;
+  for (int i = ty; i < 32; i += 8) {
+    const int t = t0 + (along_t ? tx : i), ch = c0 + (along_t ? i : tx);
+    if (t < Tlen && ch < C)
+      y[b * ysb + t * yst + ch * ysc] = along_t ? tile[tx][i] : tile[i][tx];
+  }
+}
+
 // The widest row window a conv of the plan writes.
 int widest_window(const Plan& plan, int TT) {
   int widest = 0;
@@ -984,28 +1155,91 @@ cudaError_t launch_tc(const void* x, void* y, const void* w, const void* bias,
   return cudaGetLastError();
 }
 
+template <int CP>
 cudaError_t launch_f32(const void* x, void* y, const void* w, const void* bias,
-                       const Plan& plan, int B, int Tlen, int C, int Cp,
-                       int TT, long long xsb, long long xst, long long xsc,
-                       long long ysb, long long yst, long long ysc,
-                       cudaStream_t stream) {
-  const long long smem = smem_bytes_f32(TT, plan.hmax, Cp);
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+                       float* scratch, const Plan& plan, int B, int Tlen,
+                       int C, int TT, int slots, long long xsb, long long xst,
+                       long long xsc, long long ysb, long long yst,
+                       long long ysc, cudaStream_t stream) {
+  const long long smem = smem_bytes_f32(CP, TT, plan.rmax, plan.cmax, slots);
+  if (slots < 1 || smem > kSmemLimit || TT % 16 != 0 ||
+      TT + 2 * plan.cmax > 16 * F32<CP>::WM * kF32MT ||
+      (long long)B * plan.nb > 65535)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      mrf_stage_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mrf_pass_f32<CP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Tlen + TT - 1) / TT, B);
-  mrf_stage_f32<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<float*>(y),
-      static_cast<const float*>(w), static_cast<const float*>(bias), plan,
-      Tlen, C, Cp, TT, xsb, xst, xsc, ysb, yst, ysc);
+  const long long plane = (long long)B * Tlen * CP;
+  float* bufs[2] = {scratch, scratch + plan.nb * plane};
+  const dim3 grid((Tlen + TT - 1) / TT, B * plan.nb);
+  for (int p = 0; p < plan.nd; ++p) {
+    const bool first = p == 0;
+    mrf_pass_f32<CP><<<grid, kThreadsF32, smem, stream>>>(
+        first ? static_cast<const float*>(x) : bufs[(p + 1) % 2], bufs[p % 2],
+        static_cast<const float*>(w), static_cast<const float*>(bias), plan,
+        p, B, Tlen, first ? C : CP, TT, slots, first ? 0 : plane,
+        first ? xsb : (long long)Tlen * CP, first ? xst : CP,
+        first ? xsc : 1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 mgrid((Tlen + 31) / 32, (C + 31) / 32, B);
+  mrf_mean_f32<<<mgrid, 256, 0, stream>>>(bufs[(plan.nd - 1) % 2],
+                                          static_cast<float*>(y), plan.nb, B,
+                                          Tlen, C, CP, ysb, yst, ysc);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns a cudaError_t value: 0 on a successful launch. TT and (bf16) slots
+namespace {
+
+// The stage's Plan from the wrapper's arguments; false if they are out of
+// range. A packed tap holds tap_elems elements (mrf.py's tap_elems).
+bool make_plan(Plan& plan, int B, int Tlen, int C, int Cp, int TT, int nb,
+               const int* ks, int nd, const int* dil, long long tap_elems) {
+  if (nb < 1 || nb > kMaxBranch || nd < 1 || nd > kMaxDil || C < 1 ||
+      C > kMaxC || Cp < C || !(Cp == 16 || Cp == 32 || Cp == 64 || Cp == 128) ||
+      TT < 1 || Tlen < 1 || B < 1)
+    return false;
+  plan = Plan{};
+  plan.nb = nb;
+  plan.nd = nd;
+  int dmax = 0;
+  for (int p = 0; p < nd; ++p) {
+    if (dil[p] < 1) return false;
+    plan.dil[p] = dil[p];
+    dmax = dil[p] > dmax ? dil[p] : dmax;
+  }
+  long long off = 0;
+  for (int br = 0; br < nb; ++br) {
+    if (ks[br] < 1 || ks[br] % 2 == 0) return false;
+    plan.ks[br] = ks[br];
+    const int c = (ks[br] - 1) / 2;
+    int halo = 0;
+    for (int p = 0; p < nd; ++p) {
+      halo += c * dil[p] + c;
+      plan.woff[br][2 * p] = off;
+      off += ks[br] * tap_elems;
+      plan.woff[br][2 * p + 1] = off;
+      off += ks[br] * tap_elems;
+    }
+    plan.halo[br] = halo;
+    plan.hmax = halo > plan.hmax ? halo : plan.hmax;
+    plan.cmax = c > plan.cmax ? c : plan.cmax;
+  }
+  plan.rmax = plan.cmax * (dmax + 1);
+  return true;
+}
+
+}  // namespace
+
+// bf16. Returns a cudaError_t value: 0 on a successful launch. TT and slots
 // come from the wrapper's tile_plan; a plan that does not fit is refused.
+// is_bf16 must be 1 (f32 goes through tk_mrf_stage_f32); the argument keeps
+// the interface of earlier sources, so scripts/probe_mrf_int8.py can time
+// one against another without an adapter.
 extern "C" int tk_mrf_stage(const void* x, void* y, const void* w,
                             const void* bias, int is_bf16, int B, int Tlen,
                             int C, int Cp, int TT, int slots, int nb,
@@ -1013,39 +1247,13 @@ extern "C" int tk_mrf_stage(const void* x, void* y, const void* w,
                             long long xsb, long long xst, long long xsc,
                             long long ysb, long long yst, long long ysc,
                             void* stream) {
-  // f32: Cp a multiple of 8; bf16: Cp one of 16, 32, 64, 128
-  const bool cp_ok = is_bf16 ? (Cp == 16 || Cp == 32 || Cp == 64 || Cp == 128)
-                             : Cp % 8 == 0;
-  if (nb < 1 || nb > kMaxBranch || nd < 1 || nd > kMaxDil || C < 1 ||
-      C > kMaxC || !cp_ok || Cp < C || Cp > kMaxC || TT < 1 || Tlen < 1 ||
-      B < 1)
+  Plan plan;
+  if (!is_bf16 || !make_plan(plan, B, Tlen, C, Cp, TT, nb, ks, nd, dil,
+                             (long long)Cp * Cp))
     return (int)cudaErrorInvalidValue;
-  Plan plan = {};
-  plan.nb = nb;
-  plan.nd = nd;
-  for (int p = 0; p < nd; ++p) plan.dil[p] = dil[p];
-  long long off = 0;
-  for (int br = 0; br < nb; ++br) {
-    if (ks[br] < 1 || ks[br] % 2 == 0) return (int)cudaErrorInvalidValue;
-    plan.ks[br] = ks[br];
-    const int c = (ks[br] - 1) / 2;
-    int halo = 0;
-    for (int p = 0; p < nd; ++p) {
-      halo += c * dil[p] + c;
-      plan.woff[br][2 * p] = off;
-      off += (long long)ks[br] * Cp * Cp;
-      plan.woff[br][2 * p + 1] = off;
-      off += (long long)ks[br] * Cp * Cp;
-    }
-    plan.halo[br] = halo;
-    plan.hmax = halo > plan.hmax ? halo : plan.hmax;
-  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (!is_bf16)
-    err = launch_f32(x, y, w, bias, plan, B, Tlen, C, Cp, TT, xsb, xst, xsc,
-                     ysb, yst, ysc, s);
-  else if (Cp == 16)
+  if (Cp == 16)
     err = launch_tc<16>(x, y, w, bias, plan, B, Tlen, C, TT, slots, xsb, xst,
                         xsc, ysb, yst, ysc, s);
   else if (Cp == 32)
@@ -1057,6 +1265,39 @@ extern "C" int tk_mrf_stage(const void* x, void* y, const void* w,
   else
     err = launch_tc<128>(x, y, w, bias, plan, B, Tlen, C, TT, slots, xsb,
                          xst, xsc, ysb, yst, ysc, s);
+  return (int)err;
+}
+
+// f32: the passes and the branch mean, launched in order on the stream.
+// scratch holds 2 * nb * B * Tlen * Cp floats (two buffers of each branch's
+// h). TT and slots come from the wrapper's tile_plan (an F32Plan); a plan
+// that does not fit is refused. Returns a cudaError_t value.
+extern "C" int tk_mrf_stage_f32(const void* x, void* y, const void* w,
+                                const void* bias, void* scratch, int B,
+                                int Tlen, int C, int Cp, int TT, int slots,
+                                int nb, const int* ks, int nd, const int* dil,
+                                long long xsb, long long xst, long long xsc,
+                                long long ysb, long long yst, long long ysc,
+                                void* stream) {
+  Plan plan;
+  if (!make_plan(plan, B, Tlen, C, Cp, TT, nb, ks, nd, dil,
+                 (long long)Cp / kF32KC * Cp * kF32Row))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scratch);
+  cudaError_t err;
+  if (Cp == 16)
+    err = launch_f32<16>(x, y, w, bias, sc, plan, B, Tlen, C, TT, slots, xsb,
+                         xst, xsc, ysb, yst, ysc, s);
+  else if (Cp == 32)
+    err = launch_f32<32>(x, y, w, bias, sc, plan, B, Tlen, C, TT, slots, xsb,
+                         xst, xsc, ysb, yst, ysc, s);
+  else if (Cp == 64)
+    err = launch_f32<64>(x, y, w, bias, sc, plan, B, Tlen, C, TT, slots, xsb,
+                         xst, xsc, ysb, yst, ysc, s);
+  else
+    err = launch_f32<128>(x, y, w, bias, sc, plan, B, Tlen, C, TT, slots,
+                          xsb, xst, xsc, ysb, yst, ysc, s);
   return (int)err;
 }
 

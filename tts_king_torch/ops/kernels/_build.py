@@ -39,7 +39,9 @@ SIGNATURES = {
                          + [ctypes.c_float, _P])},
     "mrf_stage": {
         "tk_mrf_stage": (_I, [_P] * 4 + [_I] * 8 + [_P, _I, _P] + [_LL] * 6
-                         + [_P])},
+                         + [_P]),
+        "tk_mrf_stage_f32": (_I, [_P] * 5 + [_I] * 7 + [_P, _I, _P]
+                             + [_LL] * 6 + [_P])},
     "mrf_stage_int8": {
         "tk_mrf_int8_smem_bytes": (_LL, [_I] * 3),
         "tk_mrf_stage_int8": (_I, [_P] * 6 + [_I] * 8 + [_P, _I, _P, _P]

@@ -20,7 +20,8 @@ Weights come from ``variables=`` (a flax-style tree of numpy arrays, or a
 state dict) or from a weights path: an ``.npz`` export (``var::`` naming,
 see scripts/export_flax_variables.py) for either model, or an upstream
 PyTorch checkpoint (``.pth`` / ``.pth.tar``, checkpoint.py) for the
-vocoder; without either, seeded random weights.
+vocoder and FastSpeech2 (``use_cwt=False``); without either, seeded
+random weights.
 """
 
 import json
@@ -30,7 +31,8 @@ import os
 import numpy as np
 import torch
 
-from tts_king_torch.checkpoint import (convert_hifigan_checkpoint,
+from tts_king_torch.checkpoint import (convert_fs2_checkpoint,
+                                       convert_hifigan_checkpoint,
                                        convert_melgan_checkpoint)
 from tts_king_torch.config import TTSConfig
 from tts_king_torch.models.fs2 import build_fastspeech2
@@ -105,25 +107,20 @@ def _state_dict(variables):
     return flax_to_torch(variables)
 
 
-def _weights_from_path(path, what, convert_torch=None):
+def _weights_from_path(path, what, convert_torch):
     """A state dict from an npz export, or from a PyTorch checkpoint through
-    ``convert_torch`` where the model has a converter."""
+    the model's converter ``convert_torch``."""
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{what}: orbax checkpoint directories are not read by the port; "
             "export one to npz with scripts/export_flax_variables.py")
     if path.endswith(".npz"):
         return flax_to_torch(load_flax_npz(path))
-    if convert_torch is not None:
-        return convert_torch(path)
-    raise NotImplementedError(
-        f"{what}: {os.path.basename(path)}: FastSpeech2 .pth.tar checkpoints "
-        "are loaded in a later slice of the port, with the CWT branch their "
-        "converter needs; use an .npz export")
+    return convert_torch(path)
 
 
 def _materialize(build, variables, weights_path, device, dtype, seed, what,
-                 convert_torch=None):
+                 convert_torch):
     """Build a module on the meta device (no init, no global RNG), allocate
     it on ``device``, fill it, cast it to ``dtype`` and set eval mode."""
     with torch.device("meta"):
@@ -168,10 +165,13 @@ class AcousticModel:
                 stats = {"pitch": [-3.0, 9.5], "energy": [-1.5, 6.1]}
 
         n_spk = n_speakers or len(self.speaker_names)
+        tc = config.model.transformer
         self.model = _materialize(
             lambda: build_fastspeech2(config.model, stats, n_spk),
             variables, weights_path, self.device, self.dtype, 0,
-            "AcousticModel")
+            "AcousticModel", lambda path: convert_fs2_checkpoint(
+                path, tc.encoder_layer, tc.decoder_layer,
+                config.model.use_cwt))
 
     @torch.inference_mode()
     def generate(self, phonemes, duration_control=1.0, pitch_control=1.0,
