@@ -21,8 +21,8 @@ non-zero exit (nothing is caught):
                item of length 1, padded key tiles in the middle and at the
                start of an item and, for attention, an item with no valid
                key, at a T no multiple of a key tile); the int8 MRF stage
-               at stages 1-3's widths
-               and a small-tile case with a time-varying gain; the flash
+               at stages 1-3's widths, a small-tile case with a
+               time-varying gain and the edges of its cluster plan; the flash
                kernels forward and backward against the plain version and
                autograd;
   4. goldens — golden_fs2, golden_vocoder, golden_trained_vocoder and the
@@ -58,7 +58,9 @@ non-zero exit (nothing is caught):
                each kernel first held against its plain version on the very
                inputs it is timed on; the MRF rows also give the same convs
                through cuDNN at its fastest algorithms (cudnn_chain_ms) and
-               each stage's grid (f32: blocks per pass, launches per stage).
+               each stage's grid (f32: blocks per pass, launches per stage);
+               the int8 row its cluster plan per stage and the fused bf16
+               kernel at the same stages (bf16_kernel_ms).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout, it prints no result and exits 1. The JAX package is not imported.
@@ -284,6 +286,18 @@ def phase_kernels_vs_plain():
 # tile and a time-varying gain, where the windows' scales differ most.
 INT8_CHECKS = [(2, 128, 1, 2560, 1024, False), (2, 64, 2, 5120, 1024, False),
                (2, 32, 4, 10240, 1024, False), (2, 32, 4, 4096, 64, True)]
+# The int8 kernel's cluster edges (mrf_int8.int8_plan): a T shorter than
+# one CTA's rows (a cluster of one); a cluster of 2 whose second CTA holds
+# rows outside [0, T) only; a last TPU tile of half length (6 CTAs);
+# fewer channels than the padded width (C = 16, 4 CTAs, the int8 golden's
+# stage 0); two passes a CTA over two tiles (C = 8, its stage 1). The
+# tile = 64 gain case above runs on a cluster of one; in f32 the C = 128
+# and C = 64 stages keep the branch sum in y, bf16 in shared memory.
+INT8_EDGE_CHECKS = [(1, 128, 1, 32, 1024, False),
+                    (1, 64, 2, 256, 1024, False),
+                    (2, 64, 2, 3072, 1024, False),
+                    (2, 16, 8, 2400, 1024, False),
+                    (2, 8, 8, 9600, 1024, True)]
 # Tolerances, int8 kernel vs plain on the card: both quantize the same
 # values with the same f32 operations (IEEE division, round half up, the
 # dequantization without FMA, the branch mean as an IEEE division by the
@@ -334,6 +348,14 @@ def int8_stage_inputs(B, C, T, dtype, seed, gain=False,
     return x.to(dtype).transpose(1, 2), quantize_mrf_stage(stage)
 
 
+def int8_plan_fields(plan):
+    """The int8 kernel's launch, as the kernels line and the checks give
+    it: cluster size, rows a CTA, passes, ring slots, shared bytes, grid."""
+    return {"cluster": plan.cluster, "rows_per_cta": plan.rows,
+            "passes": plan.passes, "slots": plan.slots, "smem": plan.smem,
+            "grid": list(plan.grid)}
+
+
 def phase_int8_vs_plain():
     """The int8 MRF kernel against its plain version on the card."""
     import torch
@@ -342,7 +364,7 @@ def phase_int8_vs_plain():
 
     worst = {}
     for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for B, C, r, T, tile, gain in INT8_CHECKS:
+        for B, C, r, T, tile, gain in INT8_CHECKS + INT8_EDGE_CHECKS:
             if mrf_int8.pack_factor(C, T) != r:
                 fail(f"mrf_stage_int8: r for C={C}, T={T} is not {r}")
             x, q = int8_stage_inputs(B, C, T, dtype, seed=C + tile, gain=gain)
@@ -355,9 +377,12 @@ def phase_int8_vs_plain():
             tol_abs, tol_rel = TOL_INT8[dname]
             ok = (bool(torch.isfinite(got).all()) and err <= tol_abs * scale
                   and rel_l2 <= tol_rel)
+            plan = mrf_int8.int8_plan(T, C, r, q.kernel_sizes, q.dilations,
+                                      B, dtype, tile)
             emit({"phase": "kernel_vs_plain", "kernel": "mrf_stage_int8",
                   "dtype": dname, "shape": [B, T, C], "r": r, "tile": tile,
-                  "gain": gain, "max_abs_err": err, "rel_l2": rel_l2,
+                  "gain": gain, "plan": int8_plan_fields(plan),
+                  "max_abs_err": err, "rel_l2": rel_l2,
                   "max_abs_ref": scale, "tol_abs": tol_abs * scale,
                   "tol_rel_l2": tol_rel, "ok": ok})
             if not ok:
@@ -479,19 +504,31 @@ def int8_timing_row(cfg, launches, max_err):
     the kernel's output at each stage is held against the plain version's
     on the same inputs under TOL_INT8. The bound: 2 * 6 * sum(k) * C^2 int8
     operations per time step over the dense int8 rate, or the bf16
-    activations in and out plus the int8 taps over the memory rate."""
+    activations in and out plus the int8 taps over the memory rate.
+    bf16_kernel_ms: the fused bf16 kernel (mrf_stage) at the same stages
+    and batch, the time the int8 kernel has to beat (not a library time);
+    plan: each stage's cluster plan."""
     import torch
 
-    from tts_king_torch.ops.kernels import mrf_int8
+    from tts_king_torch.ops.kernels import mrf, mrf_int8
 
     B, T = INT8_B, INT8_T
     stages = fused_stages(cfg, T)
     plain_ms = ops = nbytes = 0.0
-    stage_ms = []
+    stage_ms, bf16_ms, plans = [], [], []
+    for C, Tw in stages:
+        xb, stage = mrf_inputs(B, C, Tw, torch.bfloat16, seed=C)
+        packed = mrf.pack_stage(stage)
+        bf16_ms.append(cuda_ms(lambda: mrf.mrf_stage(xb, packed), warmup=1,
+                               reps=3))
+        del xb, stage, packed
+    torch.cuda.empty_cache()
     tol_abs, tol_rel = TOL_INT8["bf16"]
     for C, Tw in stages:
         x, q = int8_stage_inputs(B, C, Tw, torch.bfloat16, seed=C)
         r = mrf_int8.pack_factor(C, Tw)
+        plans.append(int8_plan_fields(mrf_int8.int8_plan(
+            Tw, C, r, q.kernel_sizes, q.dilations, B, torch.bfloat16)))
         stage_ms.append(cuda_ms(lambda: mrf_int8.mrf_stage_int8(x, q, r),
                                 warmup=1, reps=3))
         plain_ms += cuda_ms(lambda: mrf_int8.mrf_stage_int8_plain(x, q, r),
@@ -527,7 +564,8 @@ def int8_timing_row(cfg, launches, max_err):
         "ms": sum(stage_ms), "stage_ms": stage_ms, "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None, "dtype": "bf16",
+        "library_ms": None, "bf16_kernel_ms": sum(bf16_ms),
+        "bf16_kernel_stage_ms": bf16_ms, "plan": plans, "dtype": "bf16",
         "shape": {"B": B, "T_mel": T, "stages_C_T": stages,
                   "note": "sum of one launch per fused stage; launches "
                           "from the int8 vocoder's run"}}

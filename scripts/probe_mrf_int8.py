@@ -22,12 +22,18 @@ exports tk_mrf_smem_bytes has the interface from before the packed-tap
 layout (taps [tap][c_out][c_in], its own tile rule) and is called so; in
 f32, a source without tk_mrf_stage_f32 has the CUDA-core route from before
 3xTF32 (taps [tap][c_in][c_out], Cp a multiple of 8, the largest tile whose
-two buffers fit) and is called so. The f32 checks are chip_smoke.py's
-MRF_CHECKS and speak's three stages.
+two buffers fit) and is called so; an int8 source without
+tk_mrf_int8_cluster_stage has the interface from before the cluster design
+(one block a window, a device-memory scratch, taps in the plain layout) and
+is called so. The f32 checks are chip_smoke.py's MRF_CHECKS and speak's
+three stages; the int8 checks chip_smoke.py's INT8_CHECKS and
+INT8_EDGE_CHECKS; the int8 mode prints each stage's cluster plan.
 ``--phases`` also builds the repo's source with ``-DTK_PROFILE_PHASES``,
-whose marks add cycles per phase (int8: x load and max, taps and scales
-staged, quantization, warp 0's products, warp 0's epilogue, the block max,
-the branch mean, summed over blocks; bf16: thread 0's x load, tap wait,
+whose marks add cycles per phase (int8: thread 0's x load and max,
+quantization of the next conv's input (its CTA's rows), the reach
+exchanged with the neighbours (with the wait for the CTA's slowest warp),
+tap wait, products, epilogue, the cluster max and its round, the branch
+mean, summed over CTAs; bf16: thread 0's x load, tap wait,
 products, epilogue and branch mean, summed over blocks; f32: thread 0's
 h load, tap wait, products, conv1's epilogue, conv2's epilogue and store,
 over the passes' blocks), and prints each
@@ -46,13 +52,19 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[0] = REPO
 
-PHASES = {"mrf_stage_int8": ["x_load", "taps", "quantize", "products_w0",
-                             "epilogue_w0", "block_max", "branch_mean"],
+PHASES = {"mrf_stage_int8": ["x_load", "quantize", "reach", "tap_wait",
+                             "products", "epilogue", "cluster_max",
+                             "branch_mean"],
           "mrf_stage": ["x_load", "tap_wait", "products", "epilogue",
                         "branch_mean"],
           "mrf_stage_f32": ["h_load", "tap_wait", "products",
                             "epilogue_conv1", "epilogue_conv2_store"]}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the int8 kernel's interface before the cluster design (a device-memory
+# scratch buffer, taps [tap][c_out][c_in])
+_OLD_INT8 = {"tk_mrf_int8_smem_bytes": (_LL, [_I] * 3),
+             "tk_mrf_stage_int8": (_I, [_P] * 6 + [_I] * 8 + [_P, _I, _P, _P]
+                                   + [_LL] * 6 + [_P])}
 # the bf16 kernel's interface before the packed-tap layout
 _OLD_MRF = {"tk_mrf_smem_bytes": (_LL, [_I] * 4),
             "tk_mrf_stage": (_I, [_P] * 4 + [_I] * 7 + [_P, _I, _P]
@@ -88,9 +100,11 @@ def build(name, src, out, extra=()):
     print(json.dumps({"built": src, "ptxas": ptxas_summary(
         proc.stdout + proc.stderr)}), flush=True)
     lib = ctypes.CDLL(out)
-    if name != "mrf_stage":
-        return _build.bind(name, out), False
-    if hasattr(lib, "tk_mrf_smem_bytes"):
+    if name == "mrf_stage_int8":
+        if hasattr(lib, "tk_mrf_int8_cluster_stage"):
+            return _build.bind(name, out), False
+        old, sigs = "int8", _OLD_INT8
+    elif hasattr(lib, "tk_mrf_smem_bytes"):
         old, sigs = "bf16", _OLD_MRF
     elif not hasattr(lib, "tk_mrf_stage_f32"):
         # the bf16 entry point as today, the f32 route on the CUDA cores
@@ -104,6 +118,39 @@ def build(name, src, out, extra=()):
     lib.tk_error_string.restype = ctypes.c_char_p
     lib.tk_error_string.argtypes = [ctypes.c_int]
     return lib, old
+
+
+def old_int8_call(lib, x, q, r, tile=None):
+    """One launch through the int8 kernel's interface from before the
+    cluster design, as its wrapper called it: one block per TPU window, a
+    device-memory scratch of two stage-dtype windows a block, taps in the
+    plain layout."""
+    import torch
+
+    from tts_king_torch.ops.kernels import _build, mrf_int8
+
+    tile = mrf_int8.TILE if tile is None else tile
+    B, T, C = x.shape
+    Cp = mrf_int8.padded_channels(C)
+    ts = r * mrf_int8.tile_rows(T, r, tile)
+    n_tiles = -(-T // ts)
+    ks = [int(k) for k in q.kernel_sizes]
+    dil = [int(d) for d in q.dilations]
+    hal = [h for k in ks for h in mrf_int8.conv_halos(k, dil, r)]
+    lmax = max(sum(mrf_int8.conv_halos(k, dil, r)) for k in ks)
+    rows = ts + 2 * lmax
+    scratch = torch.empty((B * n_tiles * 2 * rows * Cp,), dtype=x.dtype,
+                          device=x.device)
+    y = torch.empty_like(x)
+    err = lib.tk_mrf_stage_int8(
+        x.data_ptr(), y.data_ptr(), scratch.data_ptr(), q.taps.data_ptr(),
+        q.scales.data_ptr(), q.biases.data_ptr(),
+        int(x.dtype == torch.bfloat16), B, T, C, Cp, ts, n_tiles, len(ks),
+        (ctypes.c_int * len(ks))(*ks), len(dil),
+        (ctypes.c_int * len(dil))(*dil), (ctypes.c_int * len(hal))(*hal),
+        *x.stride(), *y.stride(), _build.current_stream(x.device))
+    _build.check(lib, err, "mrf_stage_int8 (earlier interface)")
+    return y
 
 
 _OLD_F32_PACKED = {}   # id(stage) -> (stage, taps, biases)
@@ -279,6 +326,8 @@ def main(argv=None):
         """The adapter for an earlier interface of the kernel that
         ``args.kernel`` runs in library ``key``, or None."""
         lib, old = libs[key]
+        if old == "int8":
+            return lambda x, stage: old_int8_call(lib, x, *stage)
         if old == "bf16" and args.kernel == "bf16":
             return lambda x, stage: old_mrf_call(lib, x, stage)
         if old == "f32" and args.kernel == "f32":
@@ -301,7 +350,14 @@ def main(argv=None):
     for key in libs:
         if args.kernel == "int8":
             use(libs[key][0])
+            kernel = mrf_int8.mrf_stage_int8
+            if libs[key][1] == "int8":   # checks through the old interface
+                lib = libs[key][0]
+                mrf_int8.mrf_stage_int8 = (
+                    lambda x, q, r, tile=mrf_int8.TILE, lib=lib:
+                    old_int8_call(lib, x, q, r, tile))
             err = cs.phase_int8_vs_plain()
+            mrf_int8.mrf_stage_int8 = kernel
         else:
             err = mrf_checks(caller(key), args.kernel)
         print(json.dumps({"source": key, "max_abs_err_vs_plain": err}),
@@ -342,6 +398,11 @@ def main(argv=None):
             ms.setdefault(key, []).append(cs.cuda_ms(
                 lambda: call(x, stages[key]), warmup=1, reps=args.reps))
         line = {"stage": {"C": C, "T": T}, "ms": ms}
+        if args.kernel == "int8":
+            q, r = repo_stage
+            line["plan"] = cs.int8_plan_fields(mrf_int8.int8_plan(
+                T, C, r, q.kernel_sizes, q.dilations, cs.INT8_B,
+                torch.bfloat16))
         if args.kernel == "f32":
             plan = mrf.tile_plan(T, C, torch.float32, repo_stage.kernel_sizes,
                                  repo_stage.dilations)

@@ -174,8 +174,9 @@ def test_generator_matches_jax_fused_backend(resblock):
 
 def test_generator_int8_backend_state_dict_and_cast():
     """A fused_int8 Generator has the state dict of a fused one (it loads
-    the same checkpoints); its int8 taps, f32 weight scales and f32 biases
-    stay out of it and survive .to(torch.bfloat16) unchanged."""
+    the same checkpoints); its int8 taps (in the plain version's layout and
+    the CUDA kernel's), f32 weight scales and f32 biases stay out of it and
+    survive .to(torch.bfloat16) unchanged."""
     from tts_king_torch.models.hifigan import Generator
 
     cfg = _tiny_voc_config()
@@ -187,7 +188,7 @@ def test_generator_int8_backend_state_dict_and_cast():
     int8.load_state_dict(a)
     bufs = {n: t.clone() for n, t in int8.named_buffers()}
     assert {t.dtype for t in bufs.values()} == {torch.int8, torch.float32}
-    assert len(bufs) == 3 * len(cfg.upsample_rates)   # every stage fused
+    assert len(bufs) == 4 * len(cfg.upsample_rates)   # every stage fused
     int8.to(torch.bfloat16)
     for n, t in int8.named_buffers():
         assert t.dtype == bufs[n].dtype, n

@@ -47,6 +47,10 @@ from tts_king_torch.ops.kernels.mrf_int8 import (MrfStageInt8, mrf_stage_int8,
 LRELU_SLOPE = 0.1
 
 
+# An int8 stage's buffers, in MrfStageInt8's field order.
+_INT8_BUFFERS = ("taps", "scales", "biases", "kernel_taps")
+
+
 def get_padding(kernel_size, dilation=1):
     """Same-padding helper (hifi/vocoder/utils.py:33-36)."""
     return (kernel_size * dilation - dilation) // 2
@@ -147,10 +151,11 @@ class Generator(nn.Module):
     @torch.no_grad()
     def requantize(self):
         """Quantize every fused stage's f32 weights into the int8 buffers
-        ``mrf_int8_<i>_{taps,scales,biases}`` (the kernel's layout), not
-        part of the state dict. Raises for weights of another dtype: the
-        quantization is defined on the f32 weights, so load them before
-        casting the Generator."""
+        ``mrf_int8_<i>_{taps,scales,biases,kernel_taps}`` (the taps in the
+        plain version's layout and in the CUDA kernel's), not part of the
+        state dict. Raises for weights of another dtype: the quantization is
+        defined on the f32 weights, so load them before casting the
+        Generator."""
         for i in range(len(self.config.upsample_rates)):
             stage = self._fused_stage(self._stage_blocks(i),
                                       self._stage_channels(i))
@@ -162,7 +167,7 @@ class Generator(nn.Module):
                                 "quantizes f32 weights: load the weights "
                                 "before casting it")
             q = quantize_mrf_stage(stage)
-            for name in ("taps", "scales", "biases"):
+            for name in _INT8_BUFFERS:
                 self.register_buffer(f"mrf_int8_{i}_{name}", getattr(q, name),
                                      persistent=False)
 
@@ -194,7 +199,7 @@ class Generator(nn.Module):
         return MrfStageInt8(stage.kernel_sizes, stage.dilations,
                             self._stage_channels(i),
                             *(getattr(self, f"mrf_int8_{i}_{name}")
-                              for name in ("taps", "scales", "biases")))
+                              for name in _INT8_BUFFERS))
 
     def _apply(self, fn, recurse=True):
         # nn.Module.to(dtype) casts every floating-point buffer; the int8

@@ -43,9 +43,11 @@ SIGNATURES = {
         "tk_mrf_stage_f32": (_I, [_P] * 5 + [_I] * 7 + [_P, _I, _P]
                              + [_LL] * 6 + [_P])},
     "mrf_stage_int8": {
-        "tk_mrf_int8_smem_bytes": (_LL, [_I] * 3),
-        "tk_mrf_stage_int8": (_I, [_P] * 6 + [_I] * 8 + [_P, _I, _P, _P]
-                              + [_LL] * 6 + [_P])},
+        "tk_mrf_int8_cluster_smem": (_LL, [_I] * 7),
+        "tk_mrf_int8_pass_rows": (_I, [_I]),
+        "tk_mrf_int8_cluster_stage": (_I, [_P] * 5 + [_I] * 8
+                                      + [_P, _I, _P, _P] + [_I] * 4
+                                      + [_LL] * 6 + [_P])},
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -25,6 +25,12 @@ conv multiplies are those of the unpacked conv, so the port works unpacked
 with the packed windows; a tile's output steps use that tile's scales, and
 halo rows two tiles share are recomputed by each with its own.
 
+The kernel runs each window on a thread-block cluster; ``int8_plan`` fixes
+its size, the rows of each CTA, the ring of taps and the shared bytes, and
+the C entry point recomputes and checks them. It reads the taps in its own
+layout (``pack_kernel_taps``), which ``quantize_mrf_stage`` packs once
+beside the plain layout.
+
 The wrapper dispatches on where its tensors lie: CPU tensors go to
 ``mrf_stage_int8_plain``; CUDA tensors launch the kernel, or raise.
 ``launches`` counts the kernel's launches.
@@ -44,6 +50,13 @@ from tts_king_torch.ops.kernels.mrf import (LRELU_SLOPE, MAX_CHANNELS,
 # The TPU kernel's tile in packed rows; the Generator never passes another.
 TILE = 1024
 _SMEM_LIMIT = 232448
+# The kernel's geometry (csrc/mrf_stage_int8.cu): rows a CTA covers in one
+# pass at each Cp, the largest (portable) cluster, the deepest tap ring, the
+# shared header.
+PASS_ROWS = {128: 192, 64: 384, 32: 768}
+MAX_CLUSTER = 8
+MAX_SLOTS = 4
+_HEADER = 512
 launches = 0
 
 
@@ -60,7 +73,8 @@ class MrfStageInt8:
 
     taps: int8, flat, one (k, Cp, Cp) block [tap][c_out][c_in] per conv;
     scales, biases: f32 (n_convs, Cp), the per-output-channel weight scales
-    and the biases. All zero past C.
+    and the biases. All zero past C. kernel_taps: the same taps in the
+    CUDA kernel's layout (``pack_kernel_taps``).
     """
     kernel_sizes: Sequence[int]
     dilations: Sequence[int]
@@ -68,6 +82,7 @@ class MrfStageInt8:
     taps: torch.Tensor
     scales: torch.Tensor
     biases: torch.Tensor
+    kernel_taps: torch.Tensor
 
     def conv_taps(self):
         """Each conv's taps as an int8 (C, C, k) Conv1d-layout view,
@@ -82,6 +97,22 @@ class MrfStageInt8:
                 pos += k * Cp * Cp
             out.append(row)
         return out
+
+
+def pack_kernel_taps(taps, Cp):
+    """Flat int8 taps of (k, Cp, Cp) blocks [tap][c_out][c_in] -> the CUDA
+    kernel's layout: per tap [c_in / 16][c_out][16 c_in], K-major 8-row core
+    matrices of 16 bytes without swizzle."""
+    n = taps.numel() // (Cp * Cp)
+    return (taps.view(n, Cp, Cp // 16, 16).permute(0, 2, 1, 3).contiguous()
+            .reshape(-1))
+
+
+def unpack_kernel_taps(packed, Cp):
+    """The inverse of ``pack_kernel_taps``."""
+    n = packed.numel() // (Cp * Cp)
+    return (packed.view(n, Cp // 16, Cp, 16).permute(0, 2, 1, 3).contiguous()
+            .reshape(-1))
 
 
 def _round_half_up(v):
@@ -125,8 +156,9 @@ def quantize_mrf_stage(stage: MrfStageWeights) -> MrfStageInt8:
             t[:, :C, :C] = q.permute(2, 0, 1)
             taps.append(t.reshape(-1))
             i += 1
+    taps = torch.cat(taps)
     return MrfStageInt8(list(stage.kernel_sizes), list(stage.dilations), C,
-                        torch.cat(taps), scales, biases)
+                        taps, scales, biases, pack_kernel_taps(taps, Cp))
 
 
 def pack_factor(channels, T):
@@ -161,6 +193,75 @@ def tile_rows(T, r, tile=TILE):
     (mrf_packed.py:161): min(tile, max(8, Mp rounded up to 8))."""
     mp = T // r
     return min(tile, max(8, (mp + 7) // 8 * 8))
+
+
+@dataclass(frozen=True)
+class Int8Plan:
+    """The int8 kernel's launch for one stage. Each window (batch item, TPU
+    tile) runs on a cluster of ``cluster`` CTAs; CTA s owns the window rows
+    [s rows, (s + 1) rows) (row 0 is time step t0 - lmax), covered in
+    ``passes`` passes of PASS_ROWS[Cp] rows; the taps stream through a
+    ring of ``slots``; with ``msum`` the branch sum stays in shared memory
+    and y is written once; ``smem`` is a CTA's dynamic shared bytes."""
+    ts: int          # time steps of a TPU tile
+    n_tiles: int
+    lmax: int        # the widest branch's half-extension
+    window: int      # the widest window's rows, ts + 2 lmax
+    cdmax: int       # the widest reach c d of one conv
+    cluster: int
+    rows: int
+    passes: int
+    slots: int
+    msum: bool
+    smem: int
+    batch: int
+
+    @property
+    def grid(self):
+        return (self.cluster, self.n_tiles, self.batch)
+
+
+def _smem_int8(Cp, C, rows, cdmax, slots, msum, esize):
+    """csrc/mrf_stage_int8.cu's smem_bytes: header, tap ring, the int8
+    window with the reach, h in the stage dtype (C rounded up to 8 channels
+    by rows + 8), and as much again for conv 1's output when the rows take
+    more than one pass and for the branch sum when msum."""
+    cb = (C + 7) // 8 * 8
+    bufs = 1 + (rows > PASS_ROWS[Cp]) + bool(msum)
+    return (_HEADER + slots * Cp * Cp + Cp * (rows + 2 * cdmax)
+            + bufs * cb * (rows + 8) * esize)
+
+
+def int8_plan(T, C, r, kernel_sizes, dilations, batch=1,
+              dtype=torch.bfloat16, tile=TILE):
+    """The cluster plan for a stage of C channels at T time steps, packing
+    factor r: the fewest passes a CTA that let at most MAX_CLUSTER CTAs
+    cover the widest window, the fewest CTAs of that many rows, then the
+    branch sum in shared memory with the deepest ring (at most MAX_SLOTS)
+    that fits beside it, or else without it. Raises when no plan fits."""
+    Cp = padded_channels(C)
+    ts = r * tile_rows(T, r, tile)
+    n_tiles = -(-T // ts)
+    lmax = max(sum(conv_halos(k, dilations, r)) for k in kernel_sizes)
+    window = ts + 2 * lmax
+    cdmax = max((k - 1) // 2 * d for k in kernel_sizes for d in dilations)
+    pr = PASS_ROWS[Cp]
+    passes = -(-window // (MAX_CLUSTER * pr))
+    rows = passes * pr
+    cluster = -(-window // rows)
+    if cluster > 1 and rows < cdmax:
+        raise ValueError(f"mrf_stage_int8: a conv's reach of {cdmax} steps "
+                         f"exceeds a CTA's {rows} rows")
+    esize = torch.tensor([], dtype=dtype).element_size()
+    for msum in (True, False):
+        for slots in range(MAX_SLOTS, 1, -1):
+            smem = _smem_int8(Cp, C, rows, cdmax, slots, msum, esize)
+            if smem <= _SMEM_LIMIT:
+                return Int8Plan(ts, n_tiles, lmax, window, cdmax, cluster,
+                                rows, passes, slots, msum, smem, batch)
+    raise ValueError(f"mrf_stage_int8: a window of {window} rows at C={C} "
+                     f"needs {rows} rows a CTA, which do not fit shared "
+                     "memory")
 
 
 def _lrelu(v):
@@ -262,14 +363,15 @@ def _check(x, q: MrfStageInt8, r):
                          f"for x of {C}")
     Cp = padded_channels(C)
     n = len(ks) * 2 * len(q.dilations)
-    if (q.taps.dtype != torch.int8 or q.taps.dim() != 1
-            or q.taps.numel() != 2 * len(q.dilations) * sum(ks) * Cp * Cp):
-        raise ValueError("mrf_stage_int8: taps must be int8, flat, one "
-                         "(k, Cp, Cp) block per conv")
+    n_taps = 2 * len(q.dilations) * sum(ks)
+    if (q.kernel_taps.dtype != torch.int8 or q.kernel_taps.dim() != 1
+            or q.kernel_taps.numel() != n_taps * Cp * Cp):
+        raise ValueError("mrf_stage_int8: kernel_taps must be int8, flat, "
+                         "in pack_kernel_taps's layout")
     if (tuple(q.scales.shape) != (n, Cp)
             or tuple(q.biases.shape) != (n, Cp)):
         raise ValueError("mrf_stage_int8: scales/biases must be (n_convs, Cp)")
-    for t in (q.taps, q.scales, q.biases):
+    for t in (q.kernel_taps, q.scales, q.biases):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("mrf_stage_int8: taps, scales and biases must be "
                              "contiguous on x's device")
@@ -292,34 +394,27 @@ def mrf_stage_int8(x, q: MrfStageInt8, r, tile=TILE):
     _check(x, q, r)
     B, T, C = x.shape
     Cp = padded_channels(C)
-    ts = r * tile_rows(T, r, tile)
-    n_tiles = -(-T // ts)
     ks = [int(k) for k in q.kernel_sizes]
     dil = [int(d) for d in q.dilations]
+    plan = int8_plan(T, C, r, ks, dil, B, x.dtype, tile)
     hal = [h for k in ks for h in conv_halos(k, dil, r)]
-    lmax = max(sum(conv_halos(k, dil, r)) for k in ks)
-    y = torch.empty_like(x)
-    # two window buffers (h and the conv1 output) per block, stage dtype
-    rows = ts + 2 * lmax
-    scratch = torch.empty((B * n_tiles * 2 * rows * Cp,), dtype=x.dtype,
-                          device=x.device)
+    is_bf16 = int(x.dtype == torch.bfloat16)
     lib = _build.load("mrf_stage_int8")
-    smem = lib.tk_mrf_int8_smem_bytes
-    cdmax = max((k - 1) // 2 * d for k in ks for d in dil)
-    if smem(max(ks), cdmax, Cp) > _SMEM_LIMIT:
-        raise ValueError("mrf_stage_int8: a conv's taps do not fit shared "
-                         "memory")
-    fn = lib.tk_mrf_stage_int8
-    ks_arr = (ctypes.c_int * len(ks))(*ks)
-    dil_arr = (ctypes.c_int * len(dil))(*dil)
-    hal_arr = (ctypes.c_int * len(hal))(*hal)
-    # The kernel runs on the current stream after this returns; the caching
-    # allocator hands the freed scratch only to work queued after it.
-    err = fn(x.data_ptr(), y.data_ptr(), scratch.data_ptr(),
-             q.taps.data_ptr(), q.scales.data_ptr(), q.biases.data_ptr(),
-             int(x.dtype == torch.bfloat16),
-             B, T, C, Cp, ts, n_tiles, len(ks), ks_arr, len(dil), dil_arr,
-             hal_arr, *x.stride(), *y.stride(), _build.current_stream(x.device))
+    if (lib.tk_mrf_int8_cluster_smem(Cp, C, plan.rows, plan.cdmax,
+                                     plan.slots, int(plan.msum),
+                                     is_bf16) != plan.smem
+            or lib.tk_mrf_int8_pass_rows(Cp) != PASS_ROWS[Cp]):
+        raise RuntimeError("mrf_stage_int8: int8_plan and the kernel's "
+                           "geometry disagree")
+    y = torch.empty_like(x)
+    err = lib.tk_mrf_int8_cluster_stage(
+        x.data_ptr(), y.data_ptr(), q.kernel_taps.data_ptr(),
+        q.scales.data_ptr(), q.biases.data_ptr(), is_bf16, B, T, C, Cp,
+        plan.ts, plan.n_tiles, len(ks), (ctypes.c_int * len(ks))(*ks),
+        len(dil), (ctypes.c_int * len(dil))(*dil),
+        (ctypes.c_int * len(hal))(*hal), plan.cluster, plan.rows, plan.slots,
+        int(plan.msum), *x.stride(), *y.stride(),
+        _build.current_stream(x.device))
     _build.check(lib, err, "mrf_stage_int8")
     launches += 1
     return y
