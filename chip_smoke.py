@@ -1243,7 +1243,310 @@ def phase_main_path():
     emit({"phase": "main_path", "path": "synthesis", "launches": launches,
           "ok": True})
     phase_streaming(king, n_fused, n_layers, SENTENCES[1])
-    return launches, [int(n) for n in mel_lens], mrf_runs
+    return launches, [int(n) for n in mel_lens], mrf_runs, kings
+
+
+# ---------------------------------------------------------------- serving
+
+SERVE_MAX_PHONEMES = 64
+SERVE_CONTROLS = (1.0, 1.2)   # the two duration-control groups
+
+
+def serve_requests(king, n, seed):
+    """n requests: SENTENCES' phonemes and seeded phoneme rows of 8-64
+    phonemes, speakers 0-2, the two duration controls in turn."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    rows = [king.text_preprocess(t)[0] for t in SENTENCES]
+    while len(rows) < n:
+        rows.append(rng.randint(1, 206, rng.randint(8, SERVE_MAX_PHONEMES + 1)))
+    return [(np.asarray(p, np.int32), i % 3, SERVE_CONTROLS[i % 2])
+            for i, p in enumerate(rows[:n])]
+
+
+def percentile_ms(xs, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+
+def serve_burst(server, requests, stream_text=None):
+    """Submit every request at once (and, with stream_text, run one stream()
+    while they are in flight); wait for all. Returns the wavs, each
+    request's latency (s), the burst's wall seconds, and the stream's chunks
+    and seconds to its first chunk."""
+    import time as _time
+
+    done = {}
+    t0 = _time.perf_counter()
+    futures = []
+    for i, (phonemes, speaker, dctl) in enumerate(requests):
+        t_sub = _time.perf_counter()
+        f = server.submit(phonemes=phonemes, speaker=speaker,
+                          duration_control=dctl)
+        f.add_done_callback(lambda _, i=i: done.setdefault(
+            i, _time.perf_counter()))
+        futures.append((f, t_sub))
+    chunks, first_s = [], None
+    if stream_text is not None:
+        ts = _time.perf_counter()
+        for chunk in server.stream(text=stream_text):
+            if first_s is None:
+                first_s = _time.perf_counter() - ts
+            chunks.append(chunk)
+    wavs = [f.result(timeout=600) for f, _ in futures]
+    wall = max(done.values()) - t0
+    lat = [done[i] - t_sub for i, (_, t_sub) in enumerate(futures)]
+    return wavs, lat, wall, chunks, first_s
+
+
+def serve_summary(server, requests, wavs, lat, wall, sr, n_before):
+    """The burst's numbers; its formed batches are those after the first
+    n_before dispatches."""
+    import numpy as np
+
+    formed = list(server._trace_batches)[n_before:]
+    audio_s = sum(len(w) for w in wavs) / sr
+    return {"requests": len(requests), "wall_s": wall,
+            "requests_per_s": len(requests) / wall,
+            "audio_s_per_wall_s": audio_s / wall, "audio_s": audio_s,
+            "latency_ms": {"p50": percentile_ms(lat, 50),
+                           "p90": percentile_ms(lat, 90),
+                           "max": float(max(lat) * 1e3)},
+            "formed_batches": formed,
+            "mean_formed_batch": float(np.mean(formed)),
+            "stats": server.stats()}
+
+
+def alone_wavs(king, phonemes, speaker, dctl):
+    """The request run alone (B = 1: generate, then vocode_int16 on the
+    whole bucket, trimmed) at its own phoneme padding and, where that
+    leaves it under 2 padded positions, also at twice that padding.
+    FastSpeech2's pitch and energy predictors (two k=3 convs, the speaker
+    embedding added at padded positions too) read the two positions after
+    the last phoneme, so a request's durations depend on whether it has 2
+    padded positions; the JAX package's do alike. A served batch pads a
+    request to its own bucket or to a larger one (at least twice it)."""
+    import numpy as np
+
+    from tts_king_torch.pipeline import _phone_pad
+
+    hop = king.cfg.preprocess.stft.hop_length
+    L = len(phonemes)
+    widths = [L]
+    if _phone_pad(L, king.tts.phone_buckets) < L + 2:
+        widths.append(2 * _phone_pad(L, king.tts.phone_buckets))
+    wavs = []
+    for width in widths:
+        row = np.zeros((1, width), np.int32)
+        row[0, :L] = phonemes
+        out = king.tts.generate(row, duration_control=dctl,
+                                speaker_name=speaker, src_lens=[L])
+        n = int(out["mel_lens"][0])
+        wav = king.vocoder.vocode_int16(out["postnet_mel"])[0, :n * hop]
+        wavs.append(wav.cpu().numpy())
+    return wavs
+
+
+def check_served_alone(king, requests, wavs, what, exact_f32=True):
+    """Each served wav against the same request run alone (alone_wavs, the
+    run of its padding whose length agrees). f32 (exact_f32): equal lengths
+    but for at most 1 request in 16 one frame off; where equal, samples
+    before the last generator_receptive_field frames more than 2 LSB apart
+    at under 1% of them. bf16: a duration is round(exp(logd) - 1) of a bf16
+    logd, and other kernels at another batch shape move logd by an ulp
+    (~0.4%, ~0.04 of a 5-frame duration), so about one phoneme in ten may
+    round the other way: lengths within max(2, 3%) frames of the run alone,
+    samples only reported (one bf16 rounding apart is up to 128 LSB)."""
+    import numpy as np
+    import torch
+
+    from tts_king_torch.ops.streaming import generator_receptive_field
+
+    hop = king.cfg.preprocess.stft.hop_length
+    edge = generator_receptive_field(king.cfg.vocoder) * hop
+    off_frames, worst, t0 = {}, 0.0, time.perf_counter()
+    n_wider = 0
+    for i, ((phonemes, speaker, dctl), got) in enumerate(zip(requests,
+                                                            wavs)):
+        if got.dtype != np.int16 or got.ndim != 1 or len(got) % hop:
+            fail(f"{what}: request {i}: {got.dtype} {got.shape}")
+        alone = alone_wavs(king, phonemes, speaker, dctl)
+        fracs = []
+        for j, want in enumerate(alone):
+            if len(want) != len(got):
+                continue
+            m = max(len(got) - edge, 0)
+            fracs.append((float(np.mean(
+                np.abs(got[:m].astype(np.int32)
+                       - want[:m].astype(np.int32)) > 2)) if m else 0.0, j))
+        if not fracs:
+            diff = min((len(got) - len(w)) // hop for w in alone)
+            n = len(alone[0]) // hop
+            if (abs(diff) > 1 if exact_f32 else
+                    abs(diff) > max(2, 0.03 * n)):
+                fail(f"{what}: request {i}: {len(got) // hop} frames "
+                     f"served, {n} alone")
+            off_frames[i] = diff
+            continue
+        frac, j = min(fracs)
+        n_wider += j
+        worst = max(worst, frac)
+        if exact_f32 and frac >= 0.01:
+            fail(f"{what}: request {i}: {frac:.2%} of samples > 2 LSB off "
+                 "the request run alone")
+    if exact_f32 and len(off_frames) * 16 > len(requests):
+        fail(f"{what}: requests {off_frames} one frame off the runs alone")
+    torch.cuda.synchronize()
+    return {"frames_off": off_frames, "worst_frac_off_gt2": worst,
+            "matched_wider_padding": n_wider,
+            "alone_total_s": time.perf_counter() - t0}
+
+
+def http_checks(king, server, sr):
+    """serve_http on port 0: /health, /stats, then one /tts and one /stream
+    (with the ms to its first bytes: a handler thread is new for every
+    request), each equal to server.submit / server.stream for the same
+    body."""
+    import io
+    import threading
+    import urllib.request
+    import wave
+
+    import numpy as np
+
+    from tts_king_torch.serve import serve_http
+
+    body = {"text": SENTENCES[0], "speaker": 1}
+    httpd, hserver = serve_http(king, port=0, max_batch=4)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(path):
+        req = urllib.request.Request(
+            base + path, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        return urllib.request.urlopen(req, timeout=300)
+
+    try:
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        with post("/tts") as r:
+            with wave.open(io.BytesIO(r.read())) as w:
+                rate = w.getframerate()
+                wav = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+        t0 = time.perf_counter()
+        with post("/stream") as r:
+            ctype = r.headers["Content-Type"]
+            first = r.read(2)   # the first sample of the first chunk
+            first_ms = (time.perf_counter() - t0) * 1e3
+            pcm = np.frombuffer(first + r.read(), np.int16)
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        hserver.close()
+        thread.join(timeout=30)
+    want_wav = server.submit(text=body["text"],
+                             speaker=body["speaker"]).result(timeout=300)
+    want_pcm = np.concatenate(list(server.stream(text=body["text"],
+                                                 speaker=body["speaker"])))
+    ok = (health.get("ok") is True and rate == sr
+          and ctype.startswith("audio/L16") and stats["completed"] == 1
+          and np.array_equal(wav, want_wav)
+          and np.array_equal(pcm, want_pcm))
+    out = {"health": health, "stats": stats, "tts_samples": int(len(wav)),
+           "stream_samples": int(len(pcm)), "stream_first_bytes_ms": first_ms,
+           "tts_equals_submit": bool(np.array_equal(wav, want_wav)),
+           "stream_equals_stream": bool(np.array_equal(pcm, want_pcm))}
+    if not ok:
+        fail(f"serve_http: {out}")
+    return out
+
+
+def phase_serving(kings, smi):
+    """The serving layer (tts_king_torch/serve.py) at the shipped width:
+    an f32 server (the CLI's default dtype) prewarmed for 64 phonemes
+    serves a burst of 32 requests (SENTENCES and seeded rows, 3 speakers, 2
+    duration controls) while one stream() of the 192-frame sentence runs,
+    then serve_http answers /health, /stats, /tts and /stream; a bf16
+    server (max_batch 16), prewarmed, serves a burst of 48. Checks: every
+    served wav against its request run alone, the stream against
+    TTSKing.speak_streaming at the JAX test's bound (> 1 LSB at under 0.1%
+    of samples), the HTTP answers equal to submit / stream. Each burst
+    follows one untimed burst of the same requests. Launch counts zeroed
+    just before each server's timed burst and read just after it: f32
+    gives rows 1f and 2f, bf16 rows 1 and 2."""
+    import numpy as np
+    import torch
+
+    from tts_king_torch.serve import SynthesisServer
+
+    cfg = kings["f32"].cfg
+    sr = cfg.preprocess.audio.sampling_rate
+    out, launches = {}, {}
+    t_phase = time.perf_counter()
+    for dname, max_batch, n_req in (("f32", 16, 32), ("bf16", 16, 48)):
+        king = kings[dname]
+        server = SynthesisServer(king, max_batch=max_batch)
+        try:
+            t0 = time.perf_counter()
+            warmed = server.prewarm(max_phonemes=SERVE_MAX_PHONEMES,
+                                    duration_controls=SERVE_CONTROLS)
+            prewarm_s = time.perf_counter() - t0
+            requests = serve_requests(king, n_req, seed=5)
+            text = SENTENCES[1] if dname == "f32" else None
+            # one untimed burst first, as the other paths make one untimed
+            # call: the first burst after prewarm is slower (PERF.md §7)
+            first_wall = serve_burst(server, requests)[2]
+            n_before = len(server._trace_batches)
+            zero_launch_counts()
+            wavs, lat, wall, chunks, first_s = serve_burst(server, requests,
+                                                           text)
+            counts = launch_counts()   # read just after the traffic
+            launches[dname] = {k: counts[k] for k in ("attention",
+                                                      "mrf_stage")}
+            res = {"prewarm_s": prewarm_s, "prewarmed": warmed,
+                   "first_burst_wall_s": first_wall,
+                   **serve_summary(server, requests, wavs, lat, wall, sr,
+                                   n_before),
+                   "launches": launches[dname]}
+            if (res["stats"]["failed"]
+                    or res["stats"]["completed"] != 2 * n_req):
+                fail(f"serving {dname}: stats {res['stats']}")
+            for name, n in launches[dname].items():
+                if n == 0:
+                    fail(f"serving {dname}: kernel {name} was not launched")
+            res["vs_alone"] = check_served_alone(
+                king, requests, wavs, f"serving {dname}",
+                exact_f32=dname == "f32")
+            if chunks:
+                ref = np.concatenate(list(king.speak_streaming(text)))
+                got = np.concatenate(chunks)
+                frac = (float(np.mean(np.abs(got.astype(np.int32)
+                                             - ref.astype(np.int32)) > 1))
+                        if got.shape == ref.shape else 1.0)
+                res["stream"] = {
+                    "text": text, "chunks": len(chunks),
+                    "first_chunk_ms": first_s * 1e3,
+                    "samples": int(len(got)), "ref_samples": int(len(ref)),
+                    "frac_off_gt1": frac}
+                if got.shape != ref.shape or frac >= 1e-3:
+                    fail(f"serving stream: {res['stream']}")
+                res["http"] = http_checks(king, server, sr)
+        finally:
+            server.close()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out[dname] = res
+        emit({"phase": "serving", "dtype": dname, "max_batch": max_batch,
+              "nvidia_smi": smi, **res, "ok": True})
+    emit({"phase": "serving", "launches": launches, "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+    return launches
 
 
 def bench_train_superbatch():
@@ -1745,12 +2048,18 @@ def main():
           "loss_total": losses["total"], "max_err": golden_errs,
           "tol": "tests/test_torch_train.py (compare_train_step)",
           "seconds": time.perf_counter() - t0, "ok": True})
-    launches, mel_lens, mrf_runs = phase_main_path()
+    launches, mel_lens, mrf_runs, kings = phase_main_path()
+    serving_launches = phase_serving(kings, smi)
+    del kings
+    torch.cuda.empty_cache()
     int8_launches = phase_int8_vocoder(main_config())
     train_launches = phase_train_path()
     phase_train_step_time(smi)
     rows = phase_timing(main_config(), launches, train_launches, errs,
                         mel_lens, mrf_runs)
+    for row in rows[:2]:   # attention (rows 1, 1f), mrf_stage (2, 2f)
+        row["launches_serving"] = {dname: serving_launches[dname][row["name"]]
+                                   for dname in ("bf16", "f32")}
     rows.insert(2, int8_timing_row(main_config(), int8_launches,
                                    errs["mrf_stage_int8"]["bf16"]))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -11,7 +11,10 @@ vocoder (``--int8``): TTSConfig()'s Generator(mrf_backend="fused_int8")
 in bf16 on a mel of B = 8, T_mel = 1000 (config 2b of bench.py:218-240),
 as chip_smoke.py times it. A sentence (``--speak``): the f32 TTSKing's
 ``speak`` on chip_smoke.py's 192-frame sentence (TF32 off), as chip_smoke.py
-drives it.
+drives it. Serving (``--serve f32|bf16``): a SynthesisServer (max_batch 16,
+prewarmed) on that TTSKing serves chip_smoke.py's serving burst (32
+requests in f32, 48 in bf16) per run; the device's idle share over a burst
+says how far the host and the pipeline's waits hold the card back.
 
 After two warm-up runs, ``--reps`` runs are timed without the profiler
 (host clock, synchronized), then one run is profiled under
@@ -21,8 +24,8 @@ device's busy time (the sum of kernel times: one stream, so kernels do not
 overlap), its idle share, and the device time by operator and by kernel,
 largest first. The full tables and a Chrome trace go to ``--out``.
 
-    python3 scripts/profile_port.py [--train | --int8 | --speak]
-        [--reps N] [--out DIR]
+    python3 scripts/profile_port.py [--train | --int8 | --speak |
+        --serve f32|bf16] [--reps N] [--out DIR]
 """
 
 import argparse
@@ -59,6 +62,8 @@ def main(argv=None):
                       help="profile the int8 vocoder instead of synthesis")
     what.add_argument("--speak", action="store_true",
                       help="profile TTSKing.speak on one sentence (f32)")
+    what.add_argument("--serve", choices=("f32", "bf16"),
+                      help="profile a burst through SynthesisServer")
     args = ap.parse_args(argv)
 
     import torch
@@ -108,6 +113,25 @@ def main(argv=None):
 
         def run():
             return king.speak(text)
+    elif args.serve:
+        from tts_king_torch.serve import SynthesisServer
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = chip_smoke.main_config()
+        cfg.preprocess.lexicon_path = os.path.join(chip_smoke.E2E_DIR,
+                                                   "lexicon.dict")
+        king = chip_smoke.main_path_kings(cfg)[args.serve]
+        server = SynthesisServer(king, max_batch=16)
+        server.prewarm(max_phonemes=chip_smoke.SERVE_MAX_PHONEMES,
+                       duration_controls=chip_smoke.SERVE_CONTROLS)
+        requests = chip_smoke.serve_requests(
+            king, 32 if args.serve == "f32" else 48, seed=5)
+        shape = {"requests": len(requests), "max_batch": 16,
+                 "dtype": args.serve}
+
+        def run():
+            return chip_smoke.serve_burst(server, requests)
     else:
         cfg = chip_smoke.main_config()
         king = chip_smoke.main_path_kings(cfg)["bf16"]
@@ -158,7 +182,8 @@ def main(argv=None):
         "device": torch.cuda.get_device_name(0),
         "path": ("train_step" if args.train else
                  "int8_vocoder" if args.int8 else
-                 "speak" if args.speak else "synthesis"),
+                 "speak" if args.speak else
+                 "serve" if args.serve else "synthesis"),
         "shape": shape,
         "wall_ms_runs": runs_ms,
         "wall_ms_median": sorted(runs_ms)[len(runs_ms) // 2] if runs_ms
@@ -171,7 +196,11 @@ def main(argv=None):
         "top_kernels_ms": sorted(([k[:90], round(ms, 3)] for k, ms in
                                   by_kernel.items()),
                                  key=lambda r: -r[1])[:args.top],
+        **({"formed_batches": list(server._trace_batches)}
+           if args.serve else {}),
     }), flush=True)
+    if args.serve:
+        server.close()
     return 0
 
 

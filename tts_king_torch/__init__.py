@@ -7,5 +7,7 @@ path and the kernel's test oracle. The package imports torch, numpy and the
 standard library only; nothing of JAX or of tts_king_tpu.
 
 Entry points: ``tts_king_torch.pipeline.TTSKing`` / ``AcousticModel`` /
-``Vocoder``. They run on CUDA unless given ``device="cpu"``.
+``Vocoder``, and the server ``tts_king_torch.serve.SynthesisServer``
+(``python -m tts_king_torch.serve``). They run on CUDA unless given
+``device="cpu"``.
 """

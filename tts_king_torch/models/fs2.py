@@ -133,6 +133,9 @@ class VarianceAdaptor(nn.Module):
             "pitch": self._make_bins(pitch_min, pitch_max, pitch_quantization),
             "energy": self._make_bins(energy_min, energy_max,
                                       energy_quantization)}
+        # their copies per device: a copy from the host on every forward
+        # would wait for the card's queued work
+        self._bins_on = {}
 
     def _make_bins(self, lo, hi, quantization):
         if quantization == "log":
@@ -142,8 +145,11 @@ class VarianceAdaptor(nn.Module):
         return torch.from_numpy(b.astype(np.float32))
 
     def _bucketize(self, kind, values):
-        return torch.searchsorted(self._bins[kind].to(values.device),
-                                  values.float().contiguous())
+        key = (kind, values.device)
+        bins = self._bins_on.get(key)
+        if bins is None:
+            bins = self._bins_on[key] = self._bins[kind].to(values.device)
+        return torch.searchsorted(bins, values.float().contiguous())
 
     def forward(self, x, speaker_embedding, src_mask, max_mel_len: int,
                 p_control=1.0, e_control=1.0, d_control=1.0, mel_mask=None,

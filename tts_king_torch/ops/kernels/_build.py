@@ -11,6 +11,11 @@ Each library's C entry points get their ctypes signatures once, when the
 library is opened (``SIGNATURES``). Every kernel entry point returns a
 ``cudaError_t`` value; ``check`` raises on anything but 0. Nothing here runs
 when a module is imported.
+
+Several threads may launch kernels at once (the server's pipeline stages and
+a streaming caller): ``load`` and ``build`` hold one lock while they build
+and bind, each build writes through a temporary file named for its process
+and thread, and ``count_launch`` bumps a wrapper's launch count under a lock.
 """
 
 import ctypes
@@ -18,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -53,6 +59,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs = {}
+_lock = threading.RLock()          # load and build
+_count_lock = threading.Lock()     # count_launch
 
 
 def build_dir():
@@ -89,14 +97,18 @@ def build(names=None):
     for the sources it compiled; raises with nvcc's output on a failure.
     nvcc's resource report (-Xptxas -v) is kept beside each library as
     ``<lib>.log``."""
-    names = list(SOURCES) if names is None else list(names)
+    with _lock:
+        return _compile(list(SOURCES) if names is None else list(names))
+
+
+def _compile(names):
     os.makedirs(build_dir(), exist_ok=True)
     procs = {}
     for name in names:
         out = _lib_path(name)
         if os.path.exists(out):
             continue
-        tmp = f"{out}.{os.getpid()}.tmp"
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
                os.path.join(CSRC_DIR, SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -132,13 +144,24 @@ def bind(name, path):
 
 
 def load(name):
-    """The ctypes library of one kernel, built first if needed."""
+    """The ctypes library of one kernel, built first if needed; the first
+    caller of several threads builds and binds it, the others wait for it."""
     lib = _libs.get(name)
     if lib is None:
-        build([name])
-        lib = bind(name, _lib_path(name))
-        _libs[name] = lib
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build([name])
+                lib = bind(name, _lib_path(name))
+                _libs[name] = lib
     return lib
+
+
+def count_launch(namespace, name="launches"):
+    """Add one to the launch count ``namespace[name]`` (a wrapper module's
+    globals()) under a lock: a bare ``+= 1`` from two threads can lose one."""
+    with _count_lock:
+        namespace[name] += 1
 
 
 def build_log(name):

@@ -54,7 +54,6 @@ def attention(q, k, v, key_pad_mask):
     on 16 bytes (the kernel's 16-byte cp.async); other inputs raise. Padded
     query rows come out finite; the caller zeroes them.
     """
-    global launches
     if q.device.type == "cpu":
         return attention_plain(q, k, v, key_pad_mask)
     if q.device.type != "cuda":
@@ -93,5 +92,5 @@ def attention(q, k, v, key_pad_mask):
         out.data_ptr(), int(q.dtype == torch.bfloat16), B, H, T, D, sb, sh,
         st, osb, osh, ost, 1.0 / math.sqrt(D), _build.current_stream(q.device))
     _build.check(lib, err, "attention")
-    launches += 1
+    _build.count_launch(globals())
     return out

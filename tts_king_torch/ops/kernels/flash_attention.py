@@ -106,7 +106,6 @@ def _out_like(q):
 
 
 def _forward_cuda(q, k, v, mask):
-    global launches_fwd
     B, H, T, D = q.shape
     o = _out_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -116,12 +115,11 @@ def _forward_cuda(q, k, v, mask):
         o.data_ptr(), lse.data_ptr(), B, H, T, D, *q.stride()[:3],
         *o.stride()[:3], 1.0 / math.sqrt(D), _build.current_stream(q.device))
     _build.check(lib, err, "flash_attention forward")
-    launches_fwd += 1
+    _build.count_launch(globals(), "launches_fwd")
     return o, lse
 
 
 def _backward_cuda(q, k, v, mask, o, lse, do):
-    global launches_bwd
     B, H, T, D = q.shape
     if do.stride() != o.stride() or do.data_ptr() % 16:
         do = _out_like(q).copy_(do)   # autograd's gradient, in O's layout
@@ -135,7 +133,7 @@ def _backward_cuda(q, k, v, mask, o, lse, do):
         *q.stride()[:3], *o.stride()[:3], 1.0 / math.sqrt(D),
         _build.current_stream(q.device))
     _build.check(lib, err, "flash_attention backward")
-    launches_bwd += 1
+    _build.count_launch(globals(), "launches_bwd")
     return dq, dk, dv
 
 

@@ -581,7 +581,6 @@ def mrf_stage(x, stage):
     (packed on every call). On CUDA: f32 or bf16, C <= 128, odd kernel
     sizes, weights on x's device and dtype.
     """
-    global launches
     if x.device.type == "cpu":
         return mrf_stage_plain(x, stage)
     if x.device.type != "cuda":
@@ -631,5 +630,5 @@ def mrf_stage(x, stage):
             plan.slots, len(ks), ks_arr, len(dil), dil_arr, *x.stride(),
             *y.stride(), _build.current_stream(x.device))
     _build.check(lib, err, "mrf_stage")
-    launches += 1
+    _build.count_launch(globals())
     return y

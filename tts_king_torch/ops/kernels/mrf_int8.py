@@ -386,7 +386,6 @@ def mrf_stage_int8(x, q: MrfStageInt8, r, tile=TILE):
     place). Returns (B, T, C) with x's memory layout. On CUDA: f32 or bf16,
     C <= 128, odd kernel sizes, taps, scales and biases on x's device.
     """
-    global launches
     if x.device.type == "cpu":
         return mrf_stage_int8_plain(x, q, r, tile)
     if x.device.type != "cuda":
@@ -416,5 +415,5 @@ def mrf_stage_int8(x, q: MrfStageInt8, r, tile=TILE):
         int(plan.msum), *x.stride(), *y.stride(),
         _build.current_stream(x.device))
     _build.check(lib, err, "mrf_stage_int8")
-    launches += 1
+    _build.count_launch(globals())
     return y

@@ -33,21 +33,23 @@ def generator_receptive_field(config) -> int:
 
 def stream_vocoder(vocode: Callable[[np.ndarray], np.ndarray], mel,
                    chunk_frames: int = 64, halo_frames: int = 32,
-                   hop: int = 256) -> Iterator[np.ndarray]:
+                   hop: int = 256, start_frame: int = 0
+                   ) -> Iterator[np.ndarray]:
     """Yield waveform chunks for a (1, T, n_mels) numpy mel.
 
     vocode: (1, frames, n_mels) numpy mel -> (1, frames * hop) numpy
     waveform. halo_frames must cover the generator's receptive field
     (generator_receptive_field()). Windows past the utterance's edges repeat
     its edge frames. The chunks concatenate to the full pass's waveform,
-    exactly in the interior.
+    exactly in the interior. start_frame skips the chunks before it, which
+    were already produced (serve.SynthesisServer.stream's first window).
     """
     mel = np.asarray(mel)
     if mel.ndim != 3 or mel.shape[0] != 1:
         raise ValueError(f"stream_vocoder: mel must be (1, T, n_mels), got "
                          f"{mel.shape}")
     T = mel.shape[1]
-    for start in range(0, T, chunk_frames):
+    for start in range(start_frame, T, chunk_frames):
         lo = start - halo_frames
         hi = start + chunk_frames + halo_frames
         pad_l = max(0, -lo)

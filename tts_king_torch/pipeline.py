@@ -2,10 +2,13 @@
 
 Port of tts_king_tpu/pipeline.py (API of the reference tts_king.py TTSKing,
 fsapi.py FSTWOapi, hifiapi.py HIFIapi), inference with HiFi-GAN or MelGAN:
-  * phoneme lengths pad up to power-of-two buckets;
+  * phoneme lengths pad up to power-of-two buckets, or to a load-tuned grid
+    (``AcousticModel.phone_buckets``, serve.py's suggest_buckets) where it
+    covers the length;
   * the mel length starts at a bucket guessed from the phoneme count and
     escalates through MEL_BUCKETS while the model's raw (unclamped) length
-    overflows the bucket;
+    overflows the bucket, unless ``generate(defer_overflow=True)`` leaves
+    that check to the caller, so that nothing waits for the card;
   * the waveform is scaled by max_wav_value and cast f32 -> int32 -> int16
     on the device, which wraps at full scale as numpy's astype does;
   * ``TTSKing.speak_streaming`` yields the int16 waveform in chunks vocoded
@@ -55,9 +58,13 @@ def _bucket(n, buckets):
     return buckets[-1]
 
 
-def _phone_pad(n):
-    """Phoneme padding length: the next power of two from 16 up, at most
-    1024."""
+def _phone_pad(n, buckets=None):
+    """Phoneme padding length: the tuned grid ``buckets`` when it covers n,
+    else the next power of two from 16 up, at most 1024. A tuned grid holds
+    only the lengths of past load, so a longer request still pads up (a pad
+    clamped to the grid's top could not hold it)."""
+    if buckets and n <= buckets[-1]:
+        return _bucket(n, buckets)
     b = 16
     while b < n:
         b *= 2
@@ -83,6 +90,16 @@ def resolve_device(device):
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "the port on the CPU")
     return device
+
+
+def to_device(array, device):
+    """A numpy array as a tensor on ``device``. A CUDA copy goes through
+    pinned memory and does not wait: a copy from pageable memory first waits
+    for all the work queued on the current stream."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def wav_to_int16(wav, scale):
@@ -172,27 +189,50 @@ class AcousticModel:
             "AcousticModel", lambda path: convert_fs2_checkpoint(
                 path, tc.encoder_layer, tc.decoder_layer,
                 config.model.use_cwt))
+        self.phone_buckets = None   # optional tuned L-padding grid
+
+    def check_ids(self, phonemes, speaker_ids):
+        """Raise ValueError for a phoneme or speaker id outside the model's
+        embedding tables. On the card such an id is a device-side assert,
+        which ends the process (the JAX package clamps it silently)."""
+        n_sym = self.model.encoder.src_word_emb.num_embeddings
+        phonemes = np.asarray(phonemes)
+        if phonemes.size and (phonemes.min() < 0 or phonemes.max() >= n_sym):
+            raise ValueError(f"phoneme ids must be in [0, {n_sym})")
+        emb = getattr(self.model, "speaker_emb", None)
+        ids = np.asarray(speaker_ids)
+        if emb is not None and ids.size and (
+                ids.min() < 0 or ids.max() >= emb.num_embeddings):
+            raise ValueError(f"speaker ids must be in [0, "
+                             f"{emb.num_embeddings})")
 
     @torch.inference_mode()
     def generate(self, phonemes, duration_control=1.0, pitch_control=1.0,
                  energy_control=1.0, speaker_name=None, max_mel_len=None,
-                 src_lens=None):
+                 src_lens=None, defer_overflow=False):
         """phonemes: (B, L) ints -> dict of device tensors (postnet_mel
-        (B, T, 80), mel_lens, mel_lens_raw, ...).
+        (B, T, 80), mel_lens, mel_lens_raw, ...) and ``mel_bucket``, T.
 
-        Pads L up to a bucket; picks and escalates the mel bucket until the
-        predicted raw lengths fit. max_mel_len pins one bucket (not clamped
-        to max_seq_len: positional sinusoids regenerate past it).
-        src_lens: per-item phoneme counts for ragged batches (default: L).
+        Pads L up to a bucket (``phone_buckets`` where it covers L); picks
+        and escalates the mel bucket until the predicted raw lengths fit.
+        max_mel_len pins one bucket (not clamped to max_seq_len: positional
+        sinusoids regenerate past it). src_lens: per-item phoneme counts for
+        ragged batches (default: L).
+
+        defer_overflow=True runs the first bucket only and returns without
+        waiting for the card: the caller holds mel_lens_raw against
+        ``mel_bucket`` when it fetches the results anyway, and redoes the
+        (rare) overflow itself (serve.py's pipeline).
         """
         phonemes = np.asarray(phonemes)
         B, L = phonemes.shape
-        Lb = _phone_pad(L)
+        Lb = _phone_pad(L, self.phone_buckets)
         texts = np.zeros((B, Lb), np.int64)
         texts[:, :L] = phonemes
         src_lens = (np.asarray(src_lens, np.int32) if src_lens is not None
                     else np.full((B,), L, np.int32))
         speaker_ids = self._resolve_speakers(speaker_name, B)
+        self.check_ids(texts, speaker_ids)
 
         if max_mel_len is not None:
             buckets = [max_mel_len]
@@ -203,16 +243,16 @@ class AcousticModel:
                        or [self.config.model.max_seq_len])
 
         dev = self.device
-        texts_t = torch.from_numpy(texts).to(dev)
-        src_lens_t = torch.from_numpy(src_lens).to(dev)
-        speakers_t = torch.from_numpy(speaker_ids.astype(np.int64)).to(dev)
+        texts_t = to_device(texts, dev)
+        src_lens_t = to_device(src_lens, dev)
+        speakers_t = to_device(speaker_ids.astype(np.int64), dev)
         out = None
         for T in buckets:
             out = self.model(speakers_t, texts_t, src_lens_t, max_mel_len=T,
                              p_control=pitch_control, e_control=energy_control,
                              d_control=duration_control)
             # escalate on the RAW length: mel_lens is clamped to T in-model
-            if int(out["mel_lens_raw"].max()) <= T:
+            if defer_overflow or int(out["mel_lens_raw"].max()) <= T:
                 break
         out["mel_bucket"] = T
         return out
@@ -272,12 +312,14 @@ class Vocoder:
                                   convert)
 
     def _mel(self, mel):
-        mel = torch.as_tensor(np.asarray(mel) if not isinstance(
-            mel, torch.Tensor) else mel).to(self.device)
+        mel = (mel.to(self.device) if isinstance(mel, torch.Tensor)
+               else to_device(np.asarray(mel), self.device))
         if self.kind == "MelGAN":
             # one IEEE division, as the JAX package divides (PyTorch's CUDA
-            # kernels divide by a Python scalar through its reciprocal)
-            mel = mel / mel.new_tensor(math.log(10.0))
+            # kernels divide by a Python scalar through its reciprocal); the
+            # divisor is filled on the device, so nothing waits for the card
+            mel = mel / torch.full((), math.log(10.0), dtype=mel.dtype,
+                                   device=mel.device)
         return mel
 
     @torch.inference_mode()
