@@ -48,9 +48,20 @@ non-zero exit (nothing is caught):
                each path and read just after, and must show the path's
                kernels ran (training: 40 flash forward and 40 flash
                backward launches per step; int8: 3 per Generator call);
-  6. train step — the sustained ms per optimizer step at the superbatch of
+  6. data preparation and CWT — a raw synthetic corpus (4 speakers x 40
+               utterances, wav + TextGrid) through the port's Preprocessor on
+               the card (YIN), held against the same corpus prepared on the
+               CPU and the golden's corpus against the JAX Preprocessor's
+               golden, then the native DIO backend; train() of a use_cwt=True
+               FastSpeech2 at the shipped width on the card's features (4
+               steps, validation, a checkpoint, a resume), a timed train
+               step, the JAX CWT train-step and forward goldens replayed;
+               TTSKing.speak through the trained CWT model (f32) with launch
+               counts, a B = 4 generate against the CPU and a flat pitch at
+               B = 1;
+  7. train step — the sustained ms per optimizer step at the superbatch of
                bench.py:286-301 (acc 4 x B 16, L = 96, T = 640, f32);
-  7. kernels — kernel time, plain time, library time and the card's bound at
+  8. kernels — kernel time, plain time, library time and the card's bound at
                the bench shapes (attention also at speak's f32 call, the
                MRF kernel's f32 route, 3xTF32 passes of (tile, branch)
                blocks, at speak's 192-frame sentence; f32 bounds as 3xTF32
@@ -833,7 +844,7 @@ def phase_goldens():
                   torch.from_numpy(z["in::texts"]).long().cuda(),
                   torch.from_numpy(z["in::src_lens"]).int().cuda(),
                   max_mel_len=32)
-    got = {k: v.cpu().numpy() for k, v in out.items()}
+    got = {k: v.cpu().numpy() for k, v in out.items() if v is not None}
     np.testing.assert_array_equal(got["mel_lens"], z["out::mel_lens"])
     errs = {}
     for key in ("log_duration_prediction", "mel", "postnet_mel"):
@@ -1019,31 +1030,250 @@ def compare_train_step(got, want, lr, stats_atol=1e-6):
     return errs
 
 
-def replay_train_step_golden(device="cpu"):
-    """golden_train_step.npz (scripts/export_train_step_golden.py: one JAX
-    train step at acc = 2) through the port on ``device``, held to
-    compare_train_step's tolerances. Returns (losses, max errors)."""
+def replay_train_step_golden(device="cpu", path=GOLDEN_TRAIN):
+    """A train-step golden through the port on ``device``, held to
+    compare_train_step's tolerances. golden_train_step.npz
+    (scripts/export_train_step_golden.py) is one JAX train step at acc = 2;
+    golden_cwt_train_step.npz (scripts/export_cwt_features_golden.py) is two
+    steps of a CWT model, its inputs and losses with a leading step axis and
+    the state after the last step, held at the two-step bounds of
+    tests/test_torch_train.py. Returns (the last step's losses, max
+    errors)."""
     import numpy as np
 
     from tts_king_torch.train.schedule import noam_schedule
     from tts_king_torch.weights import load_flax_npz
 
-    z = np.load(GOLDEN_TRAIN)
+    z = np.load(path)
     meta = json.loads(str(z["meta::config"]))
-    trees = load_flax_npz(GOLDEN_TRAIN)
+    n = meta.get("steps", 1)
+    trees = load_flax_npz(path)
     variables = {"params": trees["params"],
                  "batch_stats": trees["batch_stats"]}
-    sb = {k[len("in::"):]: z[k] for k in z.files if k.startswith("in::")}
-    (got,) = port_train_steps(meta["model"], meta["optimizer"], variables,
-                              [sb], device=device)
-    want = {"losses": {k[len("out::loss::"):]: float(z[k]) for k in z.files
-                       if k.startswith("out::loss::")},
+    ins = {k[len("in::"):]: z[k] for k in z.files if k.startswith("in::")}
+    sbs = ([ins] if n == 1 else
+           [{k: v[i] for k, v in ins.items()} for i in range(n)])
+    got = port_train_steps(meta["model"], meta["optimizer"], variables, sbs,
+                           device=device)
+    losses = {k[len("out::loss::"):]: np.reshape(z[k], (n,)) for k in z.files
+              if k.startswith("out::loss::")}
+    for i in range(n - 1):
+        for name, v in losses.items():
+            np.testing.assert_allclose(got[i]["losses"][name], v[i],
+                                       rtol=1e-5, atol=1e-7,
+                                       err_msg=f"step {i} loss {name}")
+    want = {"losses": {k: float(v[-1]) for k, v in losses.items()},
             "count": int(z["out::count"]),
             **{c: trees[f"out_{c}"]
                for c in ("params", "batch_stats", "mu", "nu")}}
     lr = noam_schedule(meta["model"]["transformer"]["encoder_hidden"],
-                       meta["optimizer"]["warm_up_step"], [], 1.0)(0)
-    return got["losses"], compare_train_step(got, want, lr)
+                       meta["optimizer"]["warm_up_step"], [], 1.0)(n - 1)
+    # after a first step the weights already differ by rounding
+    # (tests/test_torch_train.py::test_train_step_matches_jax)
+    return got[-1]["losses"], compare_train_step(
+        got[-1], want, lr, stats_atol=1e-6 if n == 1 else 1e-4)
+
+
+# ------------------------------------------------- CWT and feature goldens
+
+# scripts/export_cwt_features_golden.py (JAX on the CPU) writes these
+GOLDEN_CWT_FS2 = os.path.join(FIXTURES, "torch_port", "golden_cwt_fs2.npz")
+GOLDEN_CWT_TRAIN = os.path.join(FIXTURES, "torch_port",
+                                "golden_cwt_train_step.npz")
+GOLDEN_FEATURES = os.path.join(FIXTURES, "torch_port",
+                               "golden_cwt_features.npz")
+
+
+def compare_cwt_outputs(got, want):
+    """A CWT FastSpeech2's outputs (numpy) against a reference's, at the
+    bounds of tests/test_parity_fs2_extra.py::test_cwt_mode_parity:
+    pitch_prediction, log_duration_prediction, pitch_mean and pitch_std at
+    rtol/atol 1e-4, mel_lens equal, mel on each item's valid frames at rtol
+    1e-3 / atol 3e-4. Raises on a mismatch; returns the largest errors."""
+    import numpy as np
+
+    errs = {}
+    for key in ("pitch_prediction", "log_duration_prediction", "pitch_mean",
+                "pitch_std"):
+        if want.get(key) is not None:
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
+                                       atol=1e-4, err_msg=key)
+            errs[key] = float(np.abs(got[key] - want[key]).max())
+    np.testing.assert_array_equal(got["mel_lens"], want["mel_lens"])
+    if int(np.max(want["mel_lens"])) < 1:
+        fail("CWT outputs: no mel frames to compare")
+    errs["mel"] = 0.0
+    for b, n in enumerate(np.asarray(want["mel_lens"]).astype(int)):
+        g, w = got["mel"][b, :n], want["mel"][b, :n]
+        np.testing.assert_allclose(g, w, rtol=1e-3, atol=3e-4,
+                                   err_msg=f"mel item {b}")
+        errs["mel"] = max(errs["mel"], float(np.abs(g - w).max()))
+    return errs
+
+
+def replay_cwt_fs2_golden(device="cpu"):
+    """golden_cwt_fs2.npz (a JAX CWT FastSpeech2 at micro width: its
+    variables, a B = 3 batch of lengths 10 / 7 / 4 and the eval forward's
+    outputs) through the port on ``device``, at compare_cwt_outputs'
+    bounds. Returns the largest errors."""
+    import numpy as np
+    import torch
+
+    from tts_king_torch.weights import load_flax_npz
+
+    z = np.load(GOLDEN_CWT_FS2)
+    meta = json.loads(str(z["meta::config"]))
+    model = port_model_no_dropout(meta["model"], load_flax_npz(GOLDEN_CWT_FS2),
+                                  device).eval()
+    with torch.inference_mode():
+        out = model(*(torch.from_numpy(z[f"in::{k}"]).to(device)
+                      for k in ("speakers", "texts", "src_lens")),
+                    max_mel_len=meta["max_mel_len"])
+    got = {k: v.float().cpu().numpy() for k, v in out.items()
+           if v is not None}
+    want = {k[len("out::"):]: z[k] for k in z.files if k.startswith("out::")}
+    return compare_cwt_outputs(got, want)
+
+
+_FEATURE_KINDS = ("frame-pitch", "cwt-pitch", "pitch-mean", "pitch-std",
+                  "pitch", "mel", "energy", "duration")
+_F0_DERIVED = ("pitch", "cwt-pitch", "pitch-mean", "pitch-std")
+# Log-mels are held in the linear domain, each bin at rtol 1e-4 (a log-mel
+# error of 1e-4) plus an atol of 1e-6 of its frame's largest bin. Two f32
+# FFTs differ in a bin by the rounding of the frame's loud bins: ~2e-8
+# between XLA's and PyTorch's CPU FFTs, up to 2e-7 between cuFFT and the
+# CPU, which in a quiet bin near the 1e-5 clip is a log-mel error of up to
+# 3e-3 (each f32 STFT on the CPU is several 1e-4 from a float64 one there:
+# tests/test_torch_features.py::test_mel_matches_float64_stft). TF32
+# products would miss the loud bins by ~1e-3 relative.
+MEL_RTOL, MEL_FRAME_ATOL = 1e-4, 1e-6
+
+
+def feature_tree(root):
+    """A prepared feature tree as {relative path: array, or text for
+    .txt and .json files}."""
+    import numpy as np
+
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            path = os.path.join(d, n)
+            rel = os.path.relpath(path, root)
+            if n.endswith(".npy"):
+                out[rel] = np.load(path)
+            else:
+                with open(path, encoding="utf-8") as f:
+                    out[rel] = f.read()
+    return out
+
+
+def _feature_kind(rel):
+    """(kind, speaker-name key) of a per-utterance feature file."""
+    base = os.path.basename(rel)[: -len(".npy")]
+    for kind in _FEATURE_KINDS:
+        marker = f"-{kind}-"
+        if marker in base:
+            spk, name = base.split(marker, 1)
+            return kind, (spk, name)
+    raise ValueError(f"not a feature file: {rel}")
+
+
+def compare_feature_trees(got, want, yin, max_flipped_share=1 / 6):
+    """Two feature trees (feature_tree) of one corpus, held to each other:
+    train.txt, val.txt and speakers.json identical, the same files,
+    durations equal; the linear mel (exp of the log-mel) at rtol MEL_RTOL
+    and an atol of MEL_FRAME_ATOL times its frame's largest bin; energy at
+    rtol 1e-4 / atol 1e-4. The F0 files:
+
+      * ``yin=False`` (the same F0 on both sides, e.g. the native DIO):
+        pitch, cwt-pitch, frame-pitch, pitch-mean, pitch-std and stats.json
+        at rtol 1e-4 / atol 1e-5;
+      * ``yin=True`` (YIN through two FFT implementations, whose decisions
+        are thresholds an ulp can flip): frame-pitch voicing agrees on
+        >= 99% of all frames, and F0 within 0.1% relative on >= 99% of the
+        frames both voice; for every utterance whose voicing agrees on all
+        frames the F0-derived files at rtol 1e-3 (atol 1e-3: the corpus
+        normalization of the pitch files moves with a flipped frame
+        elsewhere), stats.json at rtol 1e-3 / atol 1e-3; at most
+        ``max_flipped_share`` of the utterances (and at least one allowed)
+        may have a flipped frame.
+
+    Raises on a mismatch; returns a summary."""
+    import numpy as np
+
+    for name in ("train.txt", "val.txt", "speakers.json"):
+        if got[name] != want[name]:
+            fail(f"features: {name} differs")
+    if sorted(got) != sorted(want):
+        fail(f"features: files differ: "
+             f"{sorted(set(got) ^ set(want))[:6]}")
+    utts = {}
+    for rel in want:
+        if rel.endswith(".npy"):
+            kind, key = _feature_kind(rel)
+            utts.setdefault(key, {})[kind] = rel
+    mel_err = mel_share = 0.0
+    frames = agree = both = close = 0
+    flipped = []
+    for key, files in sorted(utts.items()):
+        np.testing.assert_array_equal(got[files["duration"]],
+                                      want[files["duration"]], err_msg=key)
+        g, w = got[files["mel"]], want[files["mel"]]
+        if g.shape != w.shape:
+            fail(f"features: mel {key} {g.shape} vs {w.shape}")
+        lin_g, lin_w = np.exp(g), np.exp(w)
+        bound = (MEL_RTOL * lin_w
+                 + MEL_FRAME_ATOL * lin_w.max(axis=-1, keepdims=True))
+        share = np.abs(lin_g - lin_w) / bound
+        if (share > 1).any():
+            fail(f"features: mel {key}: {int((share > 1).sum())} bins out "
+                 f"of bounds, the worst at {share.max():.2f} of its bound")
+        mel_share = max(mel_share, float(share.max(initial=0.0)))
+        mel_err = max(mel_err, float(np.abs(g - w).max(initial=0.0)))
+        np.testing.assert_allclose(got[files["energy"]],
+                                   want[files["energy"]], rtol=1e-4,
+                                   atol=1e-4, err_msg=f"energy {key}")
+        gf, wf = got[files["frame-pitch"]], want[files["frame-pitch"]]
+        if gf.shape != wf.shape:
+            fail(f"features: frame-pitch {key} {gf.shape} vs {wf.shape}")
+        if not yin:
+            for kind in _F0_DERIVED + ("frame-pitch",):
+                np.testing.assert_allclose(
+                    got[files[kind]], want[files[kind]], rtol=1e-4,
+                    atol=1e-5, err_msg=f"{kind} {key}")
+            continue
+        same = (gf > 0) == (wf > 0)
+        voiced = (gf > 0) & (wf > 0)
+        frames += gf.size
+        agree += int(same.sum())
+        both += int(voiced.sum())
+        close += int((np.abs(gf - wf)[voiced]
+                      <= 1e-3 * np.abs(wf[voiced])).sum())
+        if not same.all():
+            flipped.append(key)
+            continue
+        for kind in _F0_DERIVED:
+            np.testing.assert_allclose(
+                got[files[kind]], want[files[kind]], rtol=1e-3, atol=1e-3,
+                err_msg=f"{kind} {key}")
+    rtol, atol = (1e-3, 1e-3) if yin else (1e-4, 1e-5)
+    gs, ws = json.loads(got["stats.json"]), json.loads(want["stats.json"])
+    for name in ws:
+        np.testing.assert_allclose(gs[name], ws[name], rtol=rtol, atol=atol,
+                                   err_msg=f"stats.json {name}")
+    summary = {"utterances": len(utts), "log_mel_max_err": mel_err,
+               "mel_worst_share_of_bound": mel_share}
+    if yin:
+        summary.update({"voicing_agree": agree / max(frames, 1),
+                        "f0_close": close / max(both, 1),
+                        "flipped_utterances": len(flipped)})
+        if agree < 0.99 * frames or close < 0.99 * both:
+            fail(f"features: YIN voicing agrees on {agree}/{frames} frames, "
+                 f"F0 within 0.1% on {close}/{both}")
+        if len(flipped) > max(1, int(max_flipped_share * len(utts))):
+            fail(f"features: {len(flipped)} of {len(utts)} utterances have "
+                 f"a flipped YIN frame")
+    return summary
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1596,87 +1826,387 @@ def train_corpus_config(tmp):
     return cfg
 
 
-def phase_train_path(device="cuda"):
-    """train() at the shipped width for TRAIN_STEPS steps, validation and a
-    checkpoint, then a resume for one more step. Every launch count is
-    zeroed just before each train() call and read just after."""
-    import shutil
-    import tempfile
-
+def train_and_resume(cfg, device="cuda"):
+    """train() of ``cfg`` for TRAIN_STEPS steps with validation, objective
+    metrics and a checkpoint, then a resume for one more step. Every launch
+    count is zeroed just before each train() call and read just after, and
+    each step must launch one flash forward and backward per FFT block and
+    microbatch. Returns the runs ((restore, steps, wall, launches) each),
+    the train records, the val and objective records, the checkpoints and
+    the resumed state."""
     import numpy as np
     import torch
 
     from tts_king_torch.train.loop import train
 
-    cfg = main_config()
     tc = cfg.model.transformer
-    # one flash launch (forward and backward) per FFT block and microbatch
     per_step = ((tc.encoder_layer + tc.decoder_layer)
                 * cfg.train.optimizer.grad_acc_step)
+    runs = []
+    for restore, steps in ((0, TRAIN_STEPS), (TRAIN_STEPS, TRAIN_STEPS + 1)):
+        cfg.acoustic.restore_step = restore
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        state = train(cfg, max_steps=steps, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()   # read just after the path's run
+        n = steps - restore
+        if state.step != steps:
+            fail(f"train: ended at step {state.step}, not {steps}")
+        if (launches["flash_fwd"] != per_step * n
+                or launches["flash_bwd"] != per_step * n):
+            fail(f"train: flash launches {launches} for {n} steps "
+                 f"(want {per_step} forward and backward per step)")
+        if restore == 0 and launches["attention"] == 0:
+            fail("train: validation launched no attention kernel")
+        runs.append((restore, steps, wall, launches))
+    with open(os.path.join(cfg.train.result_path,
+                           f"{cfg.exp_name}.metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    train_recs = [r for r in recs if r["phase"] == "train"]
+    losses = [r["total"] for r in train_recs]
+    if len(losses) != TRAIN_STEPS + 1 or not np.all(np.isfinite(losses)):
+        fail(f"train: losses {losses}")
+    val = [r for r in recs if r["phase"] == "val"]
+    obj = [r for r in recs if r["phase"] == "objective"]
+    if len(val) != 1 or not np.isfinite(val[0]["total"]) or not obj:
+        fail(f"train: val {val}, objective {obj}")
+    ckpts = sorted(os.listdir(cfg.train.ckpt_path))
+    if ckpts != [f"step_{TRAIN_STEPS:08d}", f"step_{TRAIN_STEPS + 1:08d}"]:
+        fail(f"train: checkpoints {ckpts}")
+    return runs, train_recs, val[0], obj[0], ckpts, state
+
+
+def emit_train_runs(path, runs):
+    for restore, steps, wall, launches in runs:
+        emit({"phase": "main_path", "path": path, "call": "train",
+              "restore_step": restore, "steps": steps - restore,
+              "wall_s": wall, "launches": launches,
+              "flash_per_step": launches["flash_fwd"] // (steps - restore),
+              "ok": True})
+
+
+def phase_train_path(device="cuda"):
+    """train() at the shipped width on a synthetic feature corpus
+    (train_and_resume). Returns the first run's launch counts."""
+    import shutil
+    import tempfile
+
+    from tts_king_torch.data.dataset import FS2Dataset
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         t0 = time.perf_counter()
         cfg = train_corpus_config(tmp)
         corpus_s = time.perf_counter() - t0
-        runs = []
-        for restore, steps in ((0, TRAIN_STEPS), (TRAIN_STEPS,
-                                                  TRAIN_STEPS + 1)):
-            cfg.acoustic.restore_step = restore
-            zero_launch_counts()
-            t0 = time.perf_counter()
-            state = train(cfg, max_steps=steps, device=device)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = launch_counts()   # read just after the path's run
-            n = steps - restore
-            if state.step != steps:
-                fail(f"train: ended at step {state.step}, not {steps}")
-            if (launches["flash_fwd"] != per_step * n
-                    or launches["flash_bwd"] != per_step * n):
-                fail(f"train: flash launches {launches} for {n} steps "
-                     f"(want {per_step} forward and backward per step)")
-            if restore == 0 and launches["attention"] == 0:
-                fail("train: validation launched no attention kernel")
-            runs.append((restore, steps, wall, launches))
-        with open(os.path.join(cfg.train.result_path,
-                               f"{cfg.exp_name}.metrics.jsonl")) as f:
-            recs = [json.loads(line) for line in f]
-        train_recs = [r for r in recs if r["phase"] == "train"]
-        losses = [r["total"] for r in train_recs]
-        if len(losses) != TRAIN_STEPS + 1 or not np.all(np.isfinite(losses)):
-            fail(f"train: losses {losses}")
-        val = [r for r in recs if r["phase"] == "val"]
-        obj = [r for r in recs if r["phase"] == "objective"]
-        if len(val) != 1 or not np.isfinite(val[0]["total"]) or not obj:
-            fail(f"train: val {val}, objective {obj}")
+        runs, train_recs, val, obj, ckpts, _ = train_and_resume(cfg, device)
         # host time to read and collate one superbatch, as the loop does
-        # between steps
-        from tts_king_torch.data.dataset import FS2Dataset
-
-        ds = FS2Dataset("train.txt", cfg.preprocess, cfg.train,
-                        max_mel_len=cfg.model.max_seq_len)
-        t0 = time.perf_counter()
-        n_sb = sum(1 for _ in ds.epoch_superbatches(seed=cfg.train.seed))
-        load_ms = (time.perf_counter() - t0) * 1e3 / n_sb
-        ckpts = sorted(os.listdir(cfg.train.ckpt_path))
-        if ckpts != [f"step_{TRAIN_STEPS:08d}", f"step_{TRAIN_STEPS + 1:08d}"]:
-            fail(f"train: checkpoints {ckpts}")
-        for restore, steps, wall, launches in runs:
-            emit({"phase": "main_path", "path": "training",
-                  "call": "train", "restore_step": restore,
-                  "steps": steps - restore, "wall_s": wall,
-                  "launches": launches,
-                  "flash_per_step": launches["flash_fwd"] // (steps - restore),
-                  "ok": True})
+        # between steps, by the loader train() picks and by the numpy one
+        load_ms = {}
+        for native in (None, False):
+            ds = FS2Dataset("train.txt", cfg.preprocess, cfg.train,
+                            max_mel_len=cfg.model.max_seq_len,
+                            use_native_loader=native)
+            t0 = time.perf_counter()
+            n_sb = sum(1 for _ in ds.epoch_superbatches(seed=cfg.train.seed))
+            load_ms["native" if ds.use_native_loader else "numpy"] = (
+                (time.perf_counter() - t0) * 1e3 / n_sb)
+        emit_train_runs("training", runs)
         emit({"phase": "main_path", "path": "training",
-              "corpus_s": corpus_s, "losses": losses,
+              "corpus_s": corpus_s,
+              "losses": [r["total"] for r in train_recs],
               "sec_per_step": [r["sec_per_step"] for r in train_recs],
               "load_ms_per_superbatch": load_ms,
-              "val_total": val[0]["total"],
-              "objective": {k: v for k, v in obj[0].items()
+              "val_total": val["total"],
+              "objective": {k: v for k, v in obj.items()
                             if k not in ("step", "t", "phase")},
               "checkpoints": ckpts, "ok": True})
         return runs[0][3]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------------- data preparation + CWT
+
+# the raw corpus of the CWT phase: 160 utterances (data/synthetic.py)
+CWT_CORPUS = {"n_speakers": 4, "utts_per_speaker": 40, "seed": 0}
+
+
+def prepare_features(cfg, out, backend, device):
+    """Preprocessor(cfg.preprocess) of the raw corpus into ``out`` on
+    ``device``; returns (wall seconds, the feature tree, the backend)."""
+    import torch
+
+    from tts_king_torch.data.features import Preprocessor
+
+    cfg.preprocess.preprocessed_path = out
+    t0 = time.perf_counter()
+    pre = Preprocessor(cfg.preprocess, pitch_backend=backend, device=device)
+    pre.build_from_path(seed=cfg.train.seed)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0, feature_tree(out), pre.pitch_backend
+
+
+def golden_feature_tree():
+    import numpy as np
+
+    z = np.load(GOLDEN_FEATURES)
+    tree = {k[len("tree::"):]: str(z[k]) if z[k].dtype.kind == "U" else z[k]
+            for k in z.files if k.startswith("tree::")}
+    return json.loads(str(z["meta::corpus"])), tree
+
+
+def save_npz_weights(path, state_dict):
+    """A state dict as the port's npz weights (``var::`` naming, the layout
+    of scripts/export_flax_variables.py)."""
+    import numpy as np
+
+    from tts_king_torch.weights import torch_to_flax
+
+    flat = {}
+
+    def walk(coll, node, prefix):
+        for key, value in node.items():
+            p = f"{prefix}/{key}" if prefix else str(key)
+            if hasattr(value, "items"):
+                walk(coll, value, p)
+            else:
+                flat[f"var::{coll}::{p}"] = value
+
+    for coll, tree in torch_to_flax(state_dict).items():
+        walk(coll, tree, "")
+    np.savez(path, **flat)
+
+
+def phase_cwt_features(cfg, tmp, smi):
+    """Steps 1-2 of the CWT phase: the raw corpus, its features on the card
+    (YIN) held against the same corpus on the CPU, the golden's corpus on
+    the card held against the JAX Preprocessor's golden, and the native DIO
+    backend. Returns the card's feature directory."""
+    from tts_king_torch.data.features import resolve_pitch_backend
+    from tts_king_torch.data.synthetic import generate_corpus
+
+    t0 = time.perf_counter()
+    audio_s = generate_corpus(cfg.preprocess.raw_path, **CWT_CORPUS)
+    corpus_s = time.perf_counter() - t0
+    # a first run in the process (cuFFT plans, the allocator), then the one
+    # whose tree is kept and timed
+    cold_wall, _, _ = prepare_features(cfg, os.path.join(tmp, "cold"), "yin",
+                                       "cuda")
+    card_dir = os.path.join(tmp, "features_cuda")
+    wall, card, backend = prepare_features(cfg, card_dir, "yin", "cuda")
+    cpu_wall, cpu, _ = prepare_features(
+        cfg, os.path.join(tmp, "features_cpu"), "yin", "cpu")
+    vs_cpu = compare_feature_trees(card, cpu, yin=True)
+    n_utts = sum(1 for k in card if k.startswith("mel"))
+    emit({"phase": "cwt_path", "step": "features", "backend": backend,
+          "device": "cuda", "utterances": n_utts, "audio_s": audio_s,
+          "corpus_s": corpus_s, "wall_s": wall,
+          "audio_s_per_wall_s": audio_s / wall, "first_run_wall_s": cold_wall,
+          "cpu_wall_s": cpu_wall, "cpu_audio_s_per_wall_s": audio_s / cpu_wall,
+          "vs_cpu": vs_cpu, "nvidia_smi": smi, "ok": True})
+
+    corpus, want = golden_feature_tree()
+    golden_cfg = main_config()
+    golden_cfg.preprocess.raw_path = os.path.join(tmp, "golden_raw")
+    generate_corpus(golden_cfg.preprocess.raw_path, **corpus)
+    _, got, _ = prepare_features(golden_cfg, os.path.join(
+        tmp, "golden_cuda"), "yin", "cuda")
+    emit({"phase": "cwt_path", "step": "features_golden", "corpus": corpus,
+          "vs_jax_golden": compare_feature_trees(got, want, yin=True),
+          "ok": True})
+
+    auto = resolve_pitch_backend("auto")
+    native_wall, native_tree, _ = prepare_features(
+        cfg, os.path.join(tmp, "features_native"), "native", "cuda")
+    if native_tree["train.txt"] != card["train.txt"]:
+        fail("features: the native backend kept other utterances")
+    emit({"phase": "cwt_path", "step": "features", "backend": "native",
+          "device": "cuda", "auto_backend": auto, "wall_s": native_wall,
+          "audio_s_per_wall_s": audio_s / native_wall, "nvidia_smi": smi,
+          "ok": True})
+    cfg.preprocess.preprocessed_path = card_dir
+    return card_dir
+
+
+def phase_cwt_training(cfg, smi):
+    """Step 3: train() of the CWT FastSpeech2 at the shipped width on the
+    card's feature tree (train_and_resume), the ms of a train step on one
+    of its superbatches, and the JAX CWT train-step golden replayed on the
+    card. Returns the first run's launches and the resumed state."""
+    import numpy as np
+    import torch
+
+    from tts_king_torch.data.dataset import FS2Dataset
+    from tts_king_torch.train.loop import step_generator
+    from tts_king_torch.train.state import Optimizer
+    from tts_king_torch.train.step import make_train_step, to_device
+
+    runs, train_recs, val, obj, ckpts, state = train_and_resume(cfg)
+    emit_train_runs("cwt_training", runs)
+    for r in train_recs:
+        if not (np.isfinite(r["pitch_mean"]) and np.isfinite(r["pitch_std"])
+                and r["pitch_mean"] > 0):
+            fail(f"CWT train: mean/std losses {r}")
+    ds = FS2Dataset("train.txt", cfg.preprocess, cfg.train,
+                    max_mel_len=cfg.model.max_seq_len)
+    sb = to_device(next(ds.epoch_superbatches(seed=cfg.train.seed)), "cuda")
+    step = make_train_step(Optimizer(cfg.train.optimizer,
+                                     cfg.model.transformer.encoder_hidden))
+    times = []
+    for i in range(4):
+        t0 = time.perf_counter()
+        losses = step(state, sb, step_generator(0, state.step, "cuda"))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not math.isfinite(float(losses.total)):
+        fail(f"CWT train step: loss {float(losses.total)}")
+    t0 = time.perf_counter()
+    golden_losses, golden_errs = replay_train_step_golden(
+        device="cuda", path=GOLDEN_CWT_TRAIN)
+    emit({"phase": "cwt_path", "step": "training",
+          "losses": [{k: r[k] for k in ("total", "mel", "pitch", "energy",
+                                        "duration", "pitch_mean",
+                                        "pitch_std")} for r in train_recs],
+          "val": {k: v for k, v in val.items()
+                  if k not in ("step", "t", "phase")},
+          "objective": {k: v for k, v in obj.items()
+                        if k not in ("step", "t", "phase")},
+          "checkpoints": ckpts,
+          "superbatch": {k: list(v.shape) for k, v in sb.items()
+                         if k in ("texts", "mels")},
+          "ms_per_step": sum(times[1:]) / 3, "ms_each": times,
+          "flash_per_step": runs[0][3]["flash_fwd"] // TRAIN_STEPS,
+          "golden": {"fixture": "golden_cwt_train_step", "losses":
+                     golden_losses, "max_err": golden_errs,
+                     "seconds": time.perf_counter() - t0},
+          "cwt_fs2_golden_max_err": replay_cwt_fs2_golden(device="cuda"),
+          "nvidia_smi": smi, "ok": True})
+    return runs[0][3], state
+
+
+def phase_cwt_speak(cfg, state, tmp, smi):
+    """Step 4: TTSKing from the trained CWT FastSpeech2 (exported to npz
+    beside the corpus's stats.json and speakers.json, the duration head set
+    to about five frames a phoneme as in main_path_kings: 5 steps leave it
+    near its random init) with the shipped HiFi-GAN in f32: speak on the
+    three SENTENCES (launches counted), a warm median over 10 calls, a B = 4
+    generate against the same model on the CPU, and a flat pitch at B = 1.
+    Returns the launch counts of the three speak calls."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from tts_king_torch.models.hifigan import Generator
+    from tts_king_torch.ops.cwt import inverse_batch_cwt
+    from tts_king_torch.pipeline import AcousticModel, TTSKing
+
+    model_dir = os.path.join(tmp, "cwt_model")
+    os.makedirs(model_dir)
+    for name in ("stats.json", "speakers.json"):
+        shutil.copy(os.path.join(cfg.preprocess.preprocessed_path, name),
+                    model_dir)
+    sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    head = "variance_adaptor.duration_predictor.linear_layer"
+    sd[head + ".weight"] = sd[head + ".weight"] * 0.1
+    sd[head + ".bias"] = torch.full_like(sd[head + ".bias"], math.log(6.0))
+    cfg.acoustic.weights_path = os.path.join(model_dir, "fs2.npz")
+    save_npz_weights(cfg.acoustic.weights_path, sd)
+    cfg.preprocess.lexicon_path = os.path.join(E2E_DIR, "lexicon.dict")
+    voc_vars = seeded_flax_variables(lambda: Generator(cfg.vocoder), seed=1)
+    king = TTSKing(cfg, device="cuda", vocoder_variables=voc_vars)
+    n_spk = len(king.speakers)
+    hop = cfg.preprocess.stft.hop_length
+    n_layers = (cfg.model.transformer.encoder_layer
+                + cfg.model.transformer.decoder_layer)
+    n_fused = len(fused_stages(cfg, BENCH_T))
+    king.speak(SENTENCES[0])          # cuDNN's plans, the allocator's pools
+    torch.cuda.synchronize()
+
+    zero_launch_counts()
+    calls = []
+    for i, text in enumerate(SENTENCES):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        wav = king.speak(text, speaker=i % n_spk)[0]
+        ms = (time.perf_counter() - t0) * 1e3
+        after = launch_counts()
+        d_att = after["attention"] - before["attention"]
+        d_mrf = after["mrf_stage"] - before["mrf_stage"]
+        if d_att < n_layers or d_mrf != n_fused:
+            fail(f"CWT speak: attention launches {d_att} (>= {n_layers}), "
+                 f"mrf {d_mrf} (== {n_fused})")
+        if wav.dtype != np.int16 or wav.size == 0 or wav.size % hop:
+            fail(f"CWT speak: {wav.dtype} {wav.shape}")
+        calls.append({"text": text, "ms": ms, "samples": int(wav.size),
+                      "launches": {"attention": d_att, "mrf_stage": d_mrf}})
+    launches = launch_counts()   # read just after the path's run
+    for name in ("attention", "mrf_stage"):
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the CWT speak path")
+
+    warm = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        king.speak(SENTENCES[1])
+        warm.append((time.perf_counter() - t0) * 1e3)
+
+    rng = np.random.RandomState(5)
+    phonemes = rng.randint(1, 206, (4, 32))
+    speakers = [i % n_spk for i in range(4)]
+    cpu_model = AcousticModel(cfg, device="cpu")
+    got = king.tts.generate(phonemes, speaker_name=speakers)
+    want = cpu_model.generate(phonemes, speaker_name=speakers)
+    got_lens = got["mel_lens"].cpu().numpy()
+    want_lens = want["mel_lens"].numpy()
+    if not np.array_equal(got_lens, want_lens):
+        fail(f"CWT generate: card mel lengths {got_lens} vs CPU {want_lens}")
+    maes = [float(np.mean(np.abs(got["postnet_mel"][b, :n].cpu().numpy()
+                                 - want["postnet_mel"][b, :n].numpy())))
+            for b, n in enumerate(want_lens)]
+    if max(maes) >= 1e-3:
+        fail(f"CWT generate: mel MAE card vs CPU {maes}")
+    one = king.tts.generate(phonemes[:1], speaker_name=speakers[:1])
+    if bool(inverse_batch_cwt(one["pitch_prediction"]).any()):
+        fail("CWT generate: a batch of one has no flat pitch")
+    emit({"phase": "cwt_path", "step": "speak", "dtype": "f32",
+          "calls": calls, "warm_median_ms": float(np.median(warm)),
+          "warm_ms": warm, "launches": launches,
+          "generate_B4": {"mel_lens": [int(n) for n in want_lens],
+                          "mel_mae_vs_cpu": maes},
+          "flat_pitch_B1": True, "nvidia_smi": smi, "ok": True})
+    return launches
+
+
+def phase_cwt_path(smi):
+    """The data-preparation path and the CWT FastSpeech2 on the card: a
+    raw corpus (CWT_CORPUS) through the Preprocessor, train() of a
+    use_cwt=True model at the shipped width on the card's features, and
+    speak through it (phase_cwt_features, phase_cwt_training,
+    phase_cwt_speak). Every launch count is zeroed just before each path
+    and read just after. Returns the training and speak launch counts."""
+    import shutil
+    import tempfile
+
+    from tts_king_torch.config import StepConfig
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cwt_")
+    try:
+        cfg = main_config()
+        cfg.model.use_cwt = True
+        cfg.preprocess.raw_path = os.path.join(tmp, "raw")
+        cfg.train.ckpt_path = os.path.join(tmp, "ckpt")
+        cfg.train.result_path = os.path.join(tmp, "result")
+        cfg.train.step = StepConfig(total_step=TRAIN_STEPS, log_step=1,
+                                    synth_step=10 ** 6, val_step=TRAIN_STEPS,
+                                    save_step=TRAIN_STEPS)
+        phase_cwt_features(cfg, tmp, smi)
+        train_launches, state = phase_cwt_training(cfg, smi)
+        speak_launches = phase_cwt_speak(cfg, state, tmp, smi)
+        return {"train": train_launches, "speak": speak_launches}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2054,12 +2584,19 @@ def main():
     torch.cuda.empty_cache()
     int8_launches = phase_int8_vocoder(main_config())
     train_launches = phase_train_path()
+    cwt_launches = phase_cwt_path(smi)
     phase_train_step_time(smi)
     rows = phase_timing(main_config(), launches, train_launches, errs,
                         mel_lens, mrf_runs)
     for row in rows[:2]:   # attention (rows 1, 1f), mrf_stage (2, 2f)
         row["launches_serving"] = {dname: serving_launches[dname][row["name"]]
                                    for dname in ("bf16", "f32")}
+        # the CWT model's 3 speak calls (f32) and its training run
+        # (validation's attention)
+        row["launches_cwt"] = {p: cwt_launches[p][row["name"]]
+                               for p in ("speak", "train")}
+    rows[-1]["launches_cwt"] = {k: cwt_launches["train"][k]
+                                for k in ("flash_fwd", "flash_bwd")}
     rows.insert(2, int8_timing_row(main_config(), int8_launches,
                                    errs["mrf_stage_int8"]["bf16"]))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -18,7 +18,7 @@ import torch
 N_SPEAKERS = 3
 
 
-def _configs(tmp_path=None):
+def _configs(tmp_path=None, use_cwt=False):
     """The JAX micro config at two FFT blocks a side, and the port's copy."""
     from tts_king_torch import config as port_config
     from tts_king_tpu.config import micro_config
@@ -26,6 +26,7 @@ def _configs(tmp_path=None):
     cfg = micro_config()
     cfg.model.transformer.encoder_layer = 2
     cfg.model.transformer.decoder_layer = 2
+    cfg.model.use_cwt = use_cwt
     if tmp_path is not None:
         cfg.acoustic.weights_path = str(tmp_path / "model.pth.tar")
     port = port_config._build(port_config.TTSConfig,
@@ -67,20 +68,20 @@ def _torch_layout(path, shape):
     return tuple(shape)
 
 
-@pytest.fixture(scope="module")
-def upstream_state():
+def _upstream_state(use_cwt):
     """{upstream key: seeded float32 array} for the JAX micro model (with
     2 + 2 FFT blocks and N_SPEAKERS speakers)."""
     from tts_king_tpu.checkpoint import convert_fs2_state
     from tts_king_tpu.pipeline import AcousticModel
 
-    cfg, _ = _configs()
+    cfg, _ = _configs(use_cwt=use_cwt)
     tc = cfg.model.transformer
     variables = AcousticModel(cfg, n_speakers=N_SPEAKERS).variables
     shapes = {(coll,) + p: a.shape for coll in variables
               for p, a in _flat(variables[coll])}
     rec = _Recorder()
-    traced = convert_fs2_state(rec, tc.encoder_layer, tc.decoder_layer)
+    traced = convert_fs2_state(rec, tc.encoder_layer, tc.decoder_layer,
+                               use_cwt)
     rng = np.random.RandomState(0)
     state = {}
     for coll in traced:
@@ -101,6 +102,11 @@ def upstream_state():
     state[head + ".weight"] *= 0.1
     state[head + ".bias"][:] = np.log(6.0)
     return state
+
+
+@pytest.fixture(scope="module")
+def upstream_state():
+    return _upstream_state(use_cwt=False)
 
 
 def test_fs2_converter_equals_the_jax_converter(upstream_state):
@@ -164,14 +170,49 @@ def test_acoustic_model_loads_a_pth_tar_as_the_jax_one(upstream_state,
     assert mae < 1e-3, mae
 
 
-def test_cwt_checkpoint_names_the_missing_branch(upstream_state, tmp_path):
+def test_cwt_checkpoint_names_the_missing_branch(tmp_path):
+    """A .pth.tar of a CWT model (use_cwt=True), which raised before the
+    CWT branch was ported: the port's converter gives exactly the JAX
+    converter's tree, CWT heads (net.0 conv, net.2 LayerNorm, linear)
+    included, which the port's CWT FastSpeech2 takes whole; through
+    AcousticModel its mel matches the JAX AcousticModel's."""
     from tts_king_torch.checkpoint import convert_fs2_state
+    from tts_king_torch.models.fs2 import build_fastspeech2
     from tts_king_torch.pipeline import AcousticModel
+    from tts_king_torch.weights import flax_to_torch
+    from tts_king_tpu.checkpoint import convert_fs2_state as jax_convert
+    from tts_king_tpu.pipeline import AcousticModel as JaxAcousticModel
 
-    with pytest.raises(NotImplementedError, match="CWT"):
-        convert_fs2_state(upstream_state, 2, 2, use_cwt=True)
-    cfg, port_cfg = _configs(tmp_path)
-    _write_pth_tar(upstream_state, cfg.acoustic.weights_path)
-    port_cfg.model.use_cwt = True
-    with pytest.raises(NotImplementedError, match="CWT"):
-        AcousticModel(port_cfg, n_speakers=N_SPEAKERS, device="cpu")
+    state = _upstream_state(use_cwt=True)
+    cfg, port_cfg = _configs(tmp_path, use_cwt=True)
+    tc = port_cfg.model.transformer
+    want = flax_to_torch(jax_convert(state, tc.encoder_layer,
+                                     tc.decoder_layer, use_cwt=True))
+    got = convert_fs2_state({k: torch.from_numpy(v) for k, v in state.items()},
+                            tc.encoder_layer, tc.decoder_layer, use_cwt=True)
+    assert sorted(got) == sorted(want)
+    assert any(k.startswith("variance_adaptor.pitch_mean.flat_one.norm")
+               for k in got)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    with torch.device("meta"):
+        model = build_fastspeech2(port_cfg.model, {
+            "pitch": [-3.0, 9.5], "energy": [-1.5, 6.1]}, N_SPEAKERS)
+    assert {k for k in model.state_dict()
+            if not k.endswith("num_batches_tracked")} == set(got)
+    _write_pth_tar(state, cfg.acoustic.weights_path)
+    jam = JaxAcousticModel(cfg, n_speakers=N_SPEAKERS)
+    pam = AcousticModel(port_cfg, n_speakers=N_SPEAKERS, device="cpu")
+    phonemes = np.random.RandomState(1).randint(1, 100, (3, 9))
+    want_out = jam.generate(phonemes, speaker_name=[0, 2, 1])
+    got_out = pam.generate(phonemes, speaker_name=[0, 2, 1])
+    np.testing.assert_array_equal(got_out["mel_lens"].numpy(),
+                                  np.asarray(want_out["mel_lens"]))
+    n = int(np.asarray(want_out["mel_lens"]).max())
+    assert n > 0
+    np.testing.assert_allclose(got_out["pitch_mean"].numpy(),
+                               np.asarray(want_out["pitch_mean"]), rtol=1e-4,
+                               atol=1e-4)
+    mae = float(np.mean(np.abs(got_out["postnet_mel"][:, :n].numpy()
+                               - np.asarray(want_out["postnet_mel"])[:, :n])))
+    assert mae < 1e-3, mae

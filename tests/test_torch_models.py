@@ -46,7 +46,7 @@ def _run_fs2(model, speakers, texts, src_lens, **kw):
         out = model(torch.as_tensor(speakers).long(),
                     torch.as_tensor(texts).long(),
                     torch.as_tensor(src_lens).int(), **kw)
-    return {k: v.numpy() for k, v in out.items()}
+    return {k: v.numpy() for k, v in out.items() if v is not None}
 
 
 def test_fs2_golden_fixture():
@@ -197,10 +197,23 @@ def test_generator_int8_backend_state_dict_and_cast():
 
 
 def test_fs2_cwt_not_ported():
+    """use_cwt=True, which raised before the CWT branch was ported, builds
+    the CWT pitch predictor (11 scales, its own dropout module at 0.1, so
+    the no-dropout helpers reach it) and the mean and std heads
+    (tests/test_torch_cwt.py holds them to JAX)."""
     from tts_king_torch.models.fs2 import FastSpeech2
+    from tts_king_torch.models.layers import CNNScalar, Dropout
 
-    with pytest.raises(NotImplementedError):
-        FastSpeech2(dataclasses.replace(_tiny_model_config(), use_cwt=True))
+    va = FastSpeech2(dataclasses.replace(_tiny_model_config(), use_cwt=True)
+                     ).variance_adaptor
+    assert va.pitch_predictor.linear_layer.out_features == 11
+    assert isinstance(va.pitch_predictor.dropout, Dropout)
+    assert va.pitch_predictor.dropout.p == 0.1
+    assert va.energy_predictor.dropout.p == 0.5
+    assert isinstance(va.pitch_mean, CNNScalar)
+    assert isinstance(va.pitch_std, CNNScalar)
+    plain = FastSpeech2(_tiny_model_config()).variance_adaptor
+    assert not hasattr(plain, "pitch_mean")
 
 
 @pytest.mark.parametrize("fixture", ["golden_fs2.npz", "golden_vocoder.npz"])

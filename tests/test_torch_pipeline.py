@@ -171,12 +171,6 @@ def test_unported_paths_raise(tmp_path):
     cfg.vocoder.weights_path = str(tmp_path)
     with pytest.raises(NotImplementedError, match="npz"):
         Vocoder(cfg, device="cpu")
-    pth = tmp_path / "model.pth.tar"
-    pth.write_bytes(b"")
-    cfg.acoustic.weights_path = str(pth)
-    cfg.model.use_cwt = True      # an FS2 .pth.tar loads at use_cwt=False
-    with pytest.raises(NotImplementedError, match="CWT"):
-        AcousticModel(cfg, device="cpu")
 
 
 def test_npz_weights_path(tmp_path):

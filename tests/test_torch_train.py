@@ -93,8 +93,8 @@ def _jax_model(model_cfg, n_speakers=N_SPEAKERS, stats=STATS):
 
 
 def jax_train(model_cfg, opt_cfg, variables, superbatches):
-    """The JAX package's make_train_step from ``variables``, one step per
-    superbatch, dropout intercepted. Returns numpy trees per step:
+    """The JAX package's make_train_step from ``variables`` (with the
+    config's use_cwt), one step per superbatch, dropout intercepted. Returns numpy trees per step:
     losses, params, batch_stats and the Adam state (count, mu, nu)."""
     import flax.linen as nn
     import jax
@@ -113,7 +113,7 @@ def jax_train(model_cfg, opt_cfg, variables, superbatches):
                        batch_stats=jax.tree.map(jnp.asarray,
                                                 variables["batch_stats"]),
                        opt_state=opt.init(params))
-    step = make_train_step(model, opt)
+    step = make_train_step(model, opt, use_cwt=mc.use_cwt)
     out = []
     for i, sb in enumerate(superbatches):
         with nn.intercept_methods(_no_dropout):
@@ -172,8 +172,9 @@ def test_loss_matches_jax():
         np.testing.assert_allclose(float(getattr(got, name)),
                                    float(getattr(want, name)), rtol=1e-5,
                                    err_msg=name)
-    with pytest.raises(NotImplementedError):
-        fastspeech2_loss({}, {}, use_cwt=True)
+    # without CWT the mean and std terms are 0 (tests/test_torch_cwt.py
+    # holds the CWT loss)
+    assert float(got.pitch_mean) == float(got.pitch_std) == 0.0
 
 
 @pytest.mark.parametrize("T", [24, 40], ids=["T24", "T40_past_max_seq_len"])

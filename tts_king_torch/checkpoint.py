@@ -8,8 +8,9 @@ The port's own copy of the converters of tts_king_tpu/checkpoint.py:
     the split speaker embedding put back; FFT blocks at
     ``{encoder,decoder}.layer_stack.{i}``, variance predictors'
     ``conv_layer.{conv1d_1.conv, layer_norm_1, ...}``, the postnet's
-    ``convolutions.{i}.{0.conv, 1}``. The CWT heads (``use_cwt=True``) wait
-    for the port's CWT branch;
+    ``convolutions.{i}.{0.conv, 1}``; with ``use_cwt=True`` the CWT heads
+    ``variance_adaptor.pitch_{mean,std}.{flat_one,flat_two}.net.{0,2}``
+    (the k=1 conv and the LayerNorm) and their ``linear``;
 
   * HiFi-GAN: ``{"generator": state_dict}`` (hifiapi.py:21-22) with
     weight-norm ``weight_g`` / ``weight_v`` pairs, folded to plain weights
@@ -80,17 +81,19 @@ def _variance_predictor(state, src, dst, out):
     _copy(state, f"{src}.linear_layer", f"{dst}.linear_layer", out)
 
 
+def _cnn_scalar(state, src, dst, out):
+    for flat in ("flat_one", "flat_two"):
+        _copy(state, f"{src}.{flat}.net.0", f"{dst}.{flat}.conv", out)
+        _copy(state, f"{src}.{flat}.net.2", f"{dst}.{flat}.norm", out)
+    _copy(state, f"{src}.linear", f"{dst}.linear", out)
+
+
 def convert_fs2_state(state, n_encoder_layers=4, n_decoder_layers=6,
                       use_cwt=False):
     """An upstream FastSpeech2 state dict (speaker_emb.weight included
     where the model has one) -> the port's FastSpeech2 state dict
     (models/fs2.py names), the keys that tts_king_tpu/checkpoint.py's
-    convert_fs2_state reads. ``use_cwt=True`` raises: the port has no CWT
-    branch yet."""
-    if use_cwt:
-        raise NotImplementedError(
-            "FastSpeech2 checkpoint with use_cwt=True: the CWT pitch branch "
-            "(pitch_mean / pitch_std heads) is not ported yet")
+    convert_fs2_state reads; ``use_cwt=True`` adds the CWT heads."""
     out = {}
     _copy(state, "encoder.src_word_emb", "encoder.src_word_emb", out,
           ("weight",))
@@ -106,6 +109,9 @@ def convert_fs2_state(state, n_encoder_layers=4, n_decoder_layers=6,
                             f"{va}.{name}_predictor", out)
     for name in ("pitch_embedding", "energy_embedding"):
         _copy(state, f"{va}.{name}", f"{va}.{name}", out, ("weight",))
+    if use_cwt:
+        for name in ("pitch_mean", "pitch_std"):
+            _cnn_scalar(state, f"{va}.{name}", f"{va}.{name}", out)
     if "speaker_emb.weight" in state:
         _copy(state, "speaker_emb", "speaker_emb", out, ("weight",))
     _copy(state, "mel_linear", "mel_linear", out)

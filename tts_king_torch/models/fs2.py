@@ -20,7 +20,16 @@ regulator runs on the target durations and the mel mask comes from
 ``model.train()``: dropout at the config's rates with masks from the
 ``generator`` passed to forward, BatchNorm on batch statistics, attention
 through the flash kernels, and the decoder truncation.
-The CWT pitch branch (``use_cwt=True``) is not ported yet.
+
+The CWT pitch branch (``use_cwt=True``, fs_two/model/modules.py:103-129):
+the pitch predictor gives 11 CWT scales (with its own dropout of 0.1), two
+CNNScalar heads give the pitch mean and std from the detached adaptor input
+and prediction, and the pitch is the batch-standardized recomposition
+(ops/cwt.inverse_batch_cwt, in f32) times the std plus the mean; its
+embedding is bucketized from pitch * p_control, with or without targets.
+Two quirks of the reference change outputs: the standardization runs over
+the batch axis (a batch of one gets a flat pitch, the mean), and the heads
+pool over the padded phoneme length, so the padding moves them.
 """
 
 from typing import Any, Dict, Optional
@@ -30,11 +39,15 @@ import torch
 from torch import nn
 
 from tts_king_torch.config import ModelConfig, VariancePredictorConfig
-from tts_king_torch.models.layers import (FFTBlock, PostNet, VariancePredictor,
+from tts_king_torch.models.layers import (CNNScalar, FFTBlock, PostNet,
+                                          VariancePredictor,
                                           sinusoid_position_table)
+from tts_king_torch.ops.cwt import inverse_batch_cwt
 from tts_king_torch.ops.length_regulator import length_regulate, round_durations
 from tts_king_torch.ops.masks import mask_from_lengths
 from tts_king_torch.text.symbols import VOCAB_SIZE
+
+CWT_CHANNELS = 11   # the CWT scales of the pitch spectrogram
 
 
 class _Positions:
@@ -118,14 +131,22 @@ class VarianceAdaptor(nn.Module):
     def __init__(self, d_model=256, predictor: Optional[VariancePredictorConfig]
                  = None, n_bins=256, pitch_quantization="linear",
                  energy_quantization="linear", pitch_min=-1.0, pitch_max=1.0,
-                 energy_min=-1.0, energy_max=1.0):
+                 energy_min=-1.0, energy_max=1.0, use_cwt=False):
         super().__init__()
         vp = predictor or VariancePredictorConfig()
         self.n_bins = n_bins
+        self.use_cwt = use_cwt
         for name in ("duration_predictor", "pitch_predictor",
                      "energy_predictor"):
             self.add_module(name, VariancePredictor(
                 d_model, vp.filter_size, vp.kernel_size, vp.dropout))
+        if use_cwt:
+            # 11 CWT scales, with the reference's own dropout of 0.1
+            self.pitch_predictor = VariancePredictor(
+                d_model, vp.filter_size, vp.kernel_size, 0.1,
+                output_size=CWT_CHANNELS)
+            self.pitch_mean = CNNScalar(d_model, CWT_CHANNELS)
+            self.pitch_std = CNNScalar(d_model, CWT_CHANNELS)
         self.pitch_embedding = nn.Embedding(n_bins, d_model)
         self.energy_embedding = nn.Embedding(n_bins, d_model)
         # f32 bins, kept out of the module state so a bf16 cast leaves them be
@@ -161,7 +182,14 @@ class VarianceAdaptor(nn.Module):
         x = x + speaker_embedding
 
         pitch_prediction = self.pitch_predictor(x, src_mask, g)
-        if pitch_target is None:
+        pitch_mean = pitch_std = None
+        if self.use_cwt:
+            xd, pd = x.detach(), pitch_prediction.detach()
+            pitch_mean = self.pitch_mean(xd, pd)
+            pitch_std = self.pitch_std(xd, pd)
+            pitch = inverse_batch_cwt(pitch_prediction)
+            pitch_target = (pitch * pitch_std + pitch_mean) * p_control
+        elif pitch_target is None:
             pitch_prediction = pitch_prediction * p_control
             pitch_target = pitch_prediction
         x = x + self.pitch_embedding(self._bucketize("pitch", pitch_target))
@@ -195,6 +223,8 @@ class VarianceAdaptor(nn.Module):
             "duration_rounded": duration_rounded,
             "mel_len": mel_len,
             "mel_mask": mel_mask,
+            "pitch_mean": pitch_mean,
+            "pitch_std": pitch_std,
         }
 
 
@@ -209,10 +239,6 @@ class FastSpeech2(nn.Module):
                  n_mel_channels=80):
         super().__init__()
         mc = model_config
-        if mc.use_cwt:
-            raise NotImplementedError(
-                "use_cwt=True (CWT pitch branch) is not ported yet; it comes "
-                "in a later slice of the port")
         tc = mc.transformer
         self.model_config = mc
         self.encoder = Encoder(
@@ -225,7 +251,7 @@ class FastSpeech2(nn.Module):
         self.variance_adaptor = VarianceAdaptor(
             tc.encoder_hidden, mc.variance_predictor, ve.n_bins,
             ve.pitch_quantization, ve.energy_quantization, pitch_min,
-            pitch_max, energy_min, energy_max)
+            pitch_max, energy_min, energy_max, mc.use_cwt)
         self.decoder = Decoder(
             tc.decoder_layer, tc.decoder_head, tc.decoder_hidden,
             tc.conv_filter_size, tuple(tc.conv_kernel_size), mc.max_seq_len,
@@ -238,8 +264,11 @@ class FastSpeech2(nn.Module):
                 energy_targets=None, duration_targets=None,
                 pitch_raw_targets=None, generator=None) -> Dict[str, Any]:
         """Inference from (speakers, texts, src_lens), or teacher forcing
-        when ``mel_lens`` and the three targets are given. ``generator``
-        draws the dropout masks in training mode."""
+        when ``mel_lens`` and the targets are given (the CWT branch takes no
+        pitch target: its embedding comes from its own prediction).
+        ``generator`` draws the dropout masks in training mode. The dict
+        holds ``pitch_mean`` and ``pitch_std`` ((B, 1), None without
+        CWT)."""
         mc = self.model_config
         if max_mel_len is None:
             max_mel_len = mc.max_seq_len
@@ -274,6 +303,8 @@ class FastSpeech2(nn.Module):
             "mel_lens": va["mel_len"],
             "mel_lens_raw": va["mel_len_raw"],
             "postnet_mel": postnet_mel,
+            "pitch_mean": va["pitch_mean"],
+            "pitch_std": va["pitch_std"],
         }
 
 

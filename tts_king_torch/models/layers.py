@@ -9,7 +9,10 @@ Port of tts_king_tpu/models/layers.py. Behaviour kept from the reference
     dropout 0.5, activations zeroed past mel_len after every stage;
   * VariancePredictor = 2x [conv1d(k=3) + ReLU + LayerNorm + dropout] +
     linear head, 0 at padded positions; conv1d_2's padding is 1 whatever k
-    is.
+    is;
+  * CNNScalar = two [conv1d(k=1) + adaptive average pool to 30 + LayerNorm
+    + ReLU] branches summed, linear head, ReLU (the CWT branch's pitch
+    mean and std).
 
 Training mode is the module's ``training`` flag (``model.train()``): dropout
 draws its masks from a ``torch.Generator`` that the caller passes down the
@@ -198,10 +201,14 @@ class PostNet(nn.Module):
 
 
 class VariancePredictor(nn.Module):
-    """Duration/pitch/energy predictor (fs_two/model/modules.py:255-309)."""
+    """Duration/pitch/energy predictor (fs_two/model/modules.py:255-309):
+    (B, T) out, or (B, T, output_size) when output_size > 1 (the CWT pitch
+    predictor's 11 scales)."""
 
-    def __init__(self, d_in, filter_size=256, kernel_size=3, dropout=0.5):
+    def __init__(self, d_in, filter_size=256, kernel_size=3, dropout=0.5,
+                 output_size=1):
         super().__init__()
+        self.output_size = output_size
         k = kernel_size
         self.conv1d_1 = nn.Conv1d(d_in, filter_size, k, padding=(k - 1) // 2)
         self.layer_norm_1 = nn.LayerNorm(filter_size, eps=LN_EPS)
@@ -209,12 +216,47 @@ class VariancePredictor(nn.Module):
         self.conv1d_2 = nn.Conv1d(filter_size, filter_size, k, padding=1)
         self.layer_norm_2 = nn.LayerNorm(filter_size, eps=LN_EPS)
         self.dropout = Dropout(dropout)
-        self.linear_layer = nn.Linear(filter_size, 1)
+        self.linear_layer = nn.Linear(filter_size, output_size)
 
     def forward(self, x, pad_mask, generator=None):
         h = self.layer_norm_1(F.relu(_conv(self.conv1d_1, x)))
         h = self.dropout(h, generator)
         h = self.layer_norm_2(F.relu(_conv(self.conv1d_2, h)))
         h = self.dropout(h, generator)
-        out = self.linear_layer(h)[..., 0]
-        return torch.where(pad_mask, out.new_zeros(()), out)
+        out = self.linear_layer(h)
+        if self.output_size == 1:
+            return torch.where(pad_mask, out.new_zeros(()), out[..., 0])
+        return torch.where(pad_mask[:, :, None], out.new_zeros(()), out)
+
+
+class CNNFlat(nn.Module):
+    """Conv1d(C -> 1, k=1) + AdaptiveAvgPool1d(reduce) + LayerNorm + ReLU
+    (fs_two/model/modules.py:358-370): (B, T, C) -> (B, reduce). The pool
+    averages every position of T, padded ones too (segment i spans
+    floor(i*T/reduce) to ceil((i+1)*T/reduce), also for T < reduce)."""
+
+    def __init__(self, d_in, reduce=30):
+        super().__init__()
+        self.conv = nn.Conv1d(d_in, 1, 1)
+        self.norm = nn.LayerNorm(reduce, eps=LN_EPS)
+        self.reduce = reduce
+
+    def forward(self, x):
+        h = self.conv(x.transpose(1, 2))                  # (B, 1, T)
+        h = F.adaptive_avg_pool1d(h, self.reduce)[:, 0]   # (B, reduce)
+        return F.relu(self.norm(h))
+
+
+class CNNScalar(nn.Module):
+    """Two CNNFlat branches + a linear head -> (B, 1) non-negative scalar
+    (fs_two/model/modules.py:373-385); the pitch mean and std heads of the
+    CWT branch."""
+
+    def __init__(self, d_one, d_two, reduce=30):
+        super().__init__()
+        self.flat_one = CNNFlat(d_one, reduce)
+        self.flat_two = CNNFlat(d_two, reduce)
+        self.linear = nn.Linear(reduce, 1)
+
+    def forward(self, x_one, x_two):
+        return F.relu(self.linear(self.flat_one(x_one) + self.flat_two(x_two)))

@@ -23,8 +23,8 @@ Weights come from ``variables=`` (a flax-style tree of numpy arrays, or a
 state dict) or from a weights path: an ``.npz`` export (``var::`` naming,
 see scripts/export_flax_variables.py) for either model, or an upstream
 PyTorch checkpoint (``.pth`` / ``.pth.tar``, checkpoint.py) for the
-vocoder and FastSpeech2 (``use_cwt=False``); without either, seeded
-random weights.
+vocoder and FastSpeech2 (with or without the CWT branch); without
+either, seeded random weights.
 """
 
 import json

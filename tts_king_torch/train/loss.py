@@ -8,9 +8,10 @@ with its quirks kept:
     but averaged over the FULL padded tensor (loss.py:83-96), which rescales
     the mel term against the others;
   * log-duration targets are log(d + 1) (loss.py:56);
-  * mel targets trimmed to the decoder-truncated length (loss.py:57).
-The CWT branch (pitch mean/std heads) is not ported yet: ``use_cwt=True``
-raises, and those two terms are 0.
+  * mel targets trimmed to the decoder-truncated length (loss.py:57);
+  * with ``use_cwt`` the pitch term is the masked MSE over the 11 CWT
+    scales, plus the MSE of the pitch mean and std heads; otherwise those
+    two terms are 0.
 """
 
 from typing import Any, Dict, NamedTuple
@@ -38,10 +39,6 @@ def fastspeech2_loss(batch: Dict[str, Any], outputs: Dict[str, Any],
                      use_cwt: bool = False) -> FS2Losses:
     """batch: training targets (tensors); outputs: FastSpeech2.forward's
     dict. Every term is a 0-dim tensor."""
-    if use_cwt:
-        raise NotImplementedError(
-            "use_cwt=True (CWT pitch loss) is not ported yet; it comes with "
-            "the CWT branch in a later slice of the port")
     src_valid = ~outputs["src_masks"]          # (B, L)
     mel_valid = ~outputs["mel_masks"]          # (B, T') possibly truncated
     T = mel_valid.shape[1]
@@ -49,8 +46,20 @@ def fastspeech2_loss(batch: Dict[str, Any], outputs: Dict[str, Any],
     mel_targets = batch["mels"][:, :T]
     log_d_targets = torch.log(batch["durations"].float() + 1.0)
 
-    pitch_loss = _masked_mse(outputs["pitch_prediction"],
-                             batch["pitches_raw"], src_valid)
+    zero = log_d_targets.new_zeros(())
+    if use_cwt:
+        pitch_valid = src_valid[:, :, None].expand(
+            -1, -1, outputs["pitch_prediction"].shape[-1])
+        pitch_loss = _masked_mse(outputs["pitch_prediction"],
+                                 batch["pitches_cwt"], pitch_valid)
+        mean_loss = torch.mean(
+            (outputs["pitch_mean"][:, 0] - batch["pitches_mean"]) ** 2)
+        std_loss = torch.mean(
+            (outputs["pitch_std"][:, 0] - batch["pitches_std"]) ** 2)
+    else:
+        pitch_loss = _masked_mse(outputs["pitch_prediction"],
+                                 batch["pitches_raw"], src_valid)
+        mean_loss = std_loss = zero
     energy_loss = _masked_mse(outputs["energy_prediction"],
                               batch["energies"], src_valid)
     duration_loss = _masked_mse(outputs["log_duration_prediction"],
@@ -66,7 +75,7 @@ def fastspeech2_loss(batch: Dict[str, Any], outputs: Dict[str, Any],
     post_mae = torch.mean(torch.abs(post_p - mel_t))
     mel_loss = mel_mse + mel_mae + post_mae
 
-    zero = mel_loss.new_zeros(())
-    total = mel_loss + duration_loss + pitch_loss + energy_loss
+    total = (mel_loss + duration_loss + pitch_loss + energy_loss
+             + mean_loss + std_loss)
     return FS2Losses(total, mel_loss, pitch_loss, energy_loss, duration_loss,
-                     zero, zero)
+                     mean_loss, std_loss)

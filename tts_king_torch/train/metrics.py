@@ -9,10 +9,10 @@ corpus's ground-truth features:
   * MCD (dB)        — mel-cepstral distortion over a DTW alignment of the
                       free-running mel vs the GT mel (lengths differ because
                       durations are predicted);
-  * duration MAE    — |predicted − GT| frames per phoneme.
-
-The JAX package's F0-RMSE and V/UV metrics need a vocoder and an F0
-tracker (its scripts/evaluate.py); they are not ported yet.
+  * duration MAE    — |predicted − GT| frames per phoneme;
+  * F0-RMSE (Hz) and V/UV precision, recall and F1 over the DTW path, when
+    the caller gives a vocoder and an F0 tracker (``vocode_fn``, ``f0_fn``)
+    and the corpus has the feature pipeline's ``frame-pitch`` files.
 """
 
 from typing import Dict, Optional
@@ -87,22 +87,56 @@ def duration_mae(d_pred: np.ndarray, d_gt: np.ndarray) -> float:
                                 - np.asarray(d_gt[:n], np.float64))))
 
 
+def f0_frame_metrics(f0_pred: np.ndarray, f0_gt: np.ndarray, path
+                     ) -> Dict[str, float]:
+    """F0-RMSE (Hz, frames voiced in both) + V/UV precision/recall/F1 over
+    a DTW path of (pred_frame, gt_frame) pairs. 0 = unvoiced."""
+    ii = np.asarray([p[0] for p in path])
+    jj = np.asarray([p[1] for p in path])
+    ii = np.clip(ii, 0, len(f0_pred) - 1)
+    jj = np.clip(jj, 0, len(f0_gt) - 1)
+    pv = np.asarray(f0_pred)[ii] > 0
+    gv = np.asarray(f0_gt)[jj] > 0
+    both = pv & gv
+    out = {}
+    if both.any():
+        d = np.asarray(f0_pred, np.float64)[ii][both] - \
+            np.asarray(f0_gt, np.float64)[jj][both]
+        out["f0_rmse_hz"] = float(np.sqrt(np.mean(d * d)))
+    else:
+        out["f0_rmse_hz"] = float("nan")
+    tp = float(np.sum(pv & gv))
+    prec = tp / max(float(np.sum(pv)), 1.0)
+    rec = tp / max(float(np.sum(gv)), 1.0)
+    out["vuv_precision"] = prec
+    out["vuv_recall"] = rec
+    out["vuv_f1"] = (2 * prec * rec / (prec + rec)
+                     if (prec + rec) > 0 else 0.0)
+    return out
+
+
 def evaluate_objective(model, dataset, device, max_utts: int = 16,
-                       max_mel_len: Optional[int] = None) -> Dict[str, float]:
+                       max_mel_len: Optional[int] = None, vocode_fn=None,
+                       f0_fn=None) -> Dict[str, float]:
     """Free-running synthesis over the first `max_utts` val utterances ->
     mean objective metrics.
 
     model: the port's FastSpeech2 (put in eval mode here); dataset:
     FS2Dataset (val split, apply_masking=False).
+    vocode_fn: optional (T, n_mels) mel -> (T*hop,) float waveform;
+    f0_fn: optional (n,) waveform -> frame-level F0 in Hz (0 = unvoiced).
+    The F0 and V/UV metrics need both, and the corpus's ``frame-pitch``
+    files.
     """
     import torch
 
     from tts_king_torch.data.dataset import L_STEP, _quantize
 
     model.eval()
-    mcds, dur_maes = [], []
+    mcds, dur_maes, f0s = [], [], []
     n = min(len(dataset.meta), max_utts)
     for idx in range(n):
+        name, speaker, _text, _raw = dataset.meta[idx]
         item = dataset._item_from_entry(dataset._entry(idx))
         seq = item["text"]
         L = _quantize(len(seq), L_STEP)
@@ -119,14 +153,28 @@ def evaluate_objective(model, dataset, device, max_utts: int = 16,
             continue
         mel_pred = out["postnet_mel"][0, :T].float().cpu().numpy()
         mel_gt = item["mel"]
-        mcds.append(mcd_dtw(mel_pred, mel_gt)[0])
+        mcd, path = mcd_dtw(mel_pred, mel_gt)
+        mcds.append(mcd)
         dur_maes.append(duration_mae(
             out["duration_rounded"][0, : len(seq)].cpu().numpy(),
             item["duration"]))
+        if vocode_fn is not None and f0_fn is not None:
+            try:
+                f0_gt = dataset._npy("frame-pitch", speaker, name)
+            except FileNotFoundError:
+                continue
+            wav = np.asarray(vocode_fn(mel_pred), np.float32).reshape(-1)
+            f0_pred = np.asarray(f0_fn(wav)).reshape(-1)
+            f0s.append(f0_frame_metrics(f0_pred, f0_gt, path))
 
-    return {
+    out = {
         "n_utts": float(len(mcds)),
         "mcd_db": float(np.mean(mcds)) if mcds else float("nan"),
         "duration_mae_frames": (float(np.mean(dur_maes)) if dur_maes
                                 else float("nan")),
     }
+    if f0s:
+        for k in ("f0_rmse_hz", "vuv_f1", "vuv_precision", "vuv_recall"):
+            vals = [m[k] for m in f0s if np.isfinite(m[k])]
+            out[k] = float(np.mean(vals)) if vals else float("nan")
+    return out

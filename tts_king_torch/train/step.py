@@ -8,7 +8,8 @@ train.py:43), then clipped and applied (train/state.py). The BatchNorm
 running stats are carried from one microbatch to the next, as the JAX
 step's scan carry is. Dropout masks come from one generator per optimizer
 step that the caller derives from (train.seed, step) (train/loop.py), drawn
-by the microbatches in order.
+by the microbatches in order. Whether the CWT pitch targets and loss apply
+(the JAX steps' ``use_cwt``) is the model's own ``model_config.use_cwt``.
 """
 
 from typing import Any, Dict
@@ -26,15 +27,19 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, Any]:
 
 
 def forward_loss(model, batch, generator=None):
-    """Teacher-forced forward of one (B, ...) batch and its losses (the
-    model raises for use_cwt, which is not ported yet)."""
+    """Teacher-forced forward of one (B, ...) batch and its losses. A CWT
+    model (``model_config.use_cwt``) takes no raw pitch targets and is held
+    to the CWT targets (``pitches_cwt``, ``pitches_mean``,
+    ``pitches_std``)."""
+    use_cwt = model.model_config.use_cwt
     outputs = model(
         batch["speakers"], batch["texts"], batch["src_lens"],
         max_mel_len=int(batch["mels"].shape[1]), mel_lens=batch["mel_lens"],
         energy_targets=batch["energies"],
         duration_targets=batch["durations"],
-        pitch_raw_targets=batch["pitches_raw"], generator=generator)
-    return fastspeech2_loss(batch, outputs)
+        pitch_raw_targets=None if use_cwt else batch["pitches_raw"],
+        generator=generator)
+    return fastspeech2_loss(batch, outputs, use_cwt)
 
 
 def make_train_step(optimizer):
