@@ -2,8 +2,9 @@
 """The PyTorch port's main paths on one CUDA card, checked end to end:
 synthesis (TTSKing.speak, speak_streaming, batched generate + vocode), the
 int8 vocoder (Generator(mrf_backend="fused_int8")), the other vocoder paths
-(MelGAN, upstream .pth.tar checkpoints) and FastSpeech2 training (train()
-from a preprocessed corpus, with resume).
+(MelGAN, upstream .pth.tar checkpoints), FastSpeech2 training (train()
+from a preprocessed corpus, with resume), the data-preparation path and the
+CWT model, and HiFi-GAN GAN training (VocoderTrainer, train_vocoder).
 
 Run from the root of a checkout, with one card and no arguments:
 
@@ -59,9 +60,19 @@ non-zero exit (nothing is caught):
                TTSKing.speak through the trained CWT model (f32) with launch
                counts, a B = 4 generate against the CPU and a flat pitch at
                B = 1;
-  7. train step — the sustained ms per optimizer step at the superbatch of
+  7. GAN training — (a) the JAX GAN step of golden_gan_step.npz replayed
+               through VocoderTrainer in f32 at the CPU test's bounds; (b)
+               the sustained ms per GAN step at bench.py:350-399's shape
+               (B = 16 x 8192 samples, the published widths), f32 and
+               bf16, with FLOPs from the conv shapes, share of peak and
+               peak memory; (c) train_vocoder at batch 8 on generated wavs,
+               4 steps, validation, a checkpoint, a resume for one more;
+               (d) the trained generator folded into the fused inference
+               Generator (f32 and bf16) on a 1000-frame mel against the
+               weight-norm route, with 3 MRF launches a call;
+  8. train step — the sustained ms per optimizer step at the superbatch of
                bench.py:286-301 (acc 4 x B 16, L = 96, T = 640, f32);
-  8. kernels — kernel time, plain time, library time and the card's bound at
+  9. kernels — kernel time, plain time, library time and the card's bound at
                the bench shapes (attention also at speak's f32 call, the
                MRF kernel's f32 route, 3xTF32 passes of (tile, branch)
                blocks, at speak's 192-frame sentence; f32 bounds as 3xTF32
@@ -71,7 +82,8 @@ non-zero exit (nothing is caught):
                through cuDNN at its fastest algorithms (cudnn_chain_ms) and
                each stage's grid (f32: blocks per pass, launches per stage);
                the int8 row its cluster plan per stage and the fused bf16
-               kernel at the same stages (bf16_kernel_ms).
+               kernel at the same stages (bf16_kernel_ms); the MRF rows
+               the GAN export's launches (launches_gan).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout, it prints no result and exits 1. The JAX package is not imported.
@@ -1072,6 +1084,141 @@ def replay_train_step_golden(device="cpu", path=GOLDEN_TRAIN):
     # (tests/test_torch_train.py::test_train_step_matches_jax)
     return got[-1]["losses"], compare_train_step(
         got[-1], want, lr, stats_atol=1e-6 if n == 1 else 1e-4)
+
+
+# ------------------------------------------------------- the GAN-step golden
+
+# scripts/export_gan_step_golden.py (JAX on the CPU) writes it
+GOLDEN_GAN = os.path.join(FIXTURES, "torch_port", "golden_gan_step.npz")
+GAN_ADAM_B1 = 0.8   # VocoderModelConfig's adam_b1
+
+
+def gan_golden(path=GOLDEN_GAN):
+    """(meta, the npz, its variable trees) of the GAN-step golden."""
+    import numpy as np
+
+    from tts_king_torch.weights import load_flax_npz
+
+    z = np.load(path)
+    return json.loads(str(z["meta::config"])), z, load_flax_npz(path)
+
+
+def gan_trainer(meta, device="cpu", compute_dtype=None):
+    """The port's VocoderTrainer at the golden's configuration."""
+    from tts_king_torch.config import VocoderModelConfig
+    from tts_king_torch.train.vocoder import VocoderTrainer
+
+    return VocoderTrainer(
+        VocoderModelConfig(**meta["vocoder"]),
+        disc_p_channels=meta["disc_p_channels"], msd_width=meta["msd_width"],
+        steps_per_epoch=meta["steps_per_epoch"], eps=meta["eps"],
+        compute_dtype=compute_dtype, device=device)
+
+
+def gan_state_dicts(trees, params="params", spectral="spectral"):
+    """(generator, discriminators) state dicts of one of the golden's
+    variable sets."""
+    from tts_king_torch.weights import flax_to_torch
+
+    p = trees[params]
+    return (flax_to_torch({"params": p["gen"]}),
+            flax_to_torch({"params": {"mpd": p["mpd"], "msd": p["msd"]},
+                           "spectral": trees[spectral]}))
+
+
+def gan_golden_batch(z, device="cpu"):
+    import torch
+
+    return {k: torch.from_numpy(z[f"in::{k}"]).to(device)
+            for k in ("mel", "wav", "mel_loss")}
+
+
+def compare_gan_step(state, losses, z, trees, lr):
+    """A port GAN step (its state after the step and its losses) against
+    the golden's JAX step; raises on a mismatch and returns the largest
+    errors. The bounds are compare_train_step's: losses rtol 1e-5; params
+    atol 1e-3 * lr (the optimizers run at eps = 1e-3, so a gradient's
+    rounding moves a weight by far less); the Adam moments, and mu / (1 -
+    b1), the gradient, rtol 1e-4 with an atol of 1e-5 of the largest
+    magnitude of their optimizer; the spectral buffers u and v rtol 1e-4
+    (atol 1e-6, for entries near 0 of these unit vectors); the counts
+    exactly."""
+    import numpy as np
+
+    from tts_king_torch.weights import flax_to_torch
+
+    errs = {"loss_rel": 0.0, "param_abs": 0.0, "uv_abs": 0.0,
+            "grad_rel_top": 0.0}
+    for name, v in zip(losses._fields, losses):
+        want = float(z[f"out::loss::{name}"])
+        np.testing.assert_allclose(float(v), want, rtol=1e-5, atol=1e-7,
+                                   err_msg=f"loss {name}")
+        errs["loss_rel"] = max(errs["loss_rel"],
+                               abs(float(v) - want) / max(abs(want), 1e-30))
+    gen_want, disc_want = gan_state_dicts(trees, "out_params", "out_spectral")
+
+    def host(module):
+        return {k: t.detach().float().cpu().numpy()
+                for k, t in module.state_dict().items()}
+
+    for got, want in ((host(state.gen), gen_want), (host(state.disc),
+                                                     disc_want)):
+        if got.keys() != want.keys():
+            fail(f"GAN golden: state keys {sorted(set(got) ^ set(want))[:6]}")
+        for k, w in want.items():
+            w = w.numpy()
+            uv = k.endswith((".u", ".v")) and w.ndim == 1
+            np.testing.assert_allclose(got[k], w, rtol=1e-4 if uv else 0,
+                                       atol=1e-6 if uv else 1e-3 * lr,
+                                       err_msg=k)
+            key = "uv_abs" if uv else "param_abs"
+            errs[key] = max(errs[key], float(np.abs(got[k] - w).max()))
+    for which, opt in (("gen", state.gen_opt), ("disc", state.disc_opt)):
+        count = int(z[f"out::{which}_count"])
+        if opt.count != count:
+            fail(f"GAN golden: {which} Adam count {opt.count} vs {count}")
+        for coll, factor in (("mu", 1.0 / (1.0 - GAN_ADAM_B1)), ("mu", 1.0),
+                             ("nu", 1.0)):
+            tree = trees[f"out_{which}_{coll}"]
+            ref = {k: v.numpy() * factor for k, v in flax_to_torch(
+                {"params": tree["gen"] if which == "gen" else tree}).items()}
+            top = max(float(np.abs(r).max()) for r in ref.values())
+            got = getattr(opt, coll)
+            if got.keys() != ref.keys():
+                fail(f"GAN golden: {which} {coll} keys differ")
+            for k, v in got.items():
+                v = v.detach().cpu().numpy() * factor
+                np.testing.assert_allclose(v, ref[k], rtol=1e-4,
+                                           atol=1e-5 * top,
+                                           err_msg=f"{which} {coll} {k}")
+                if factor != 1.0:
+                    errs["grad_rel_top"] = max(errs["grad_rel_top"], float(
+                        np.abs(v - ref[k]).max()) / top)
+    if state.step != int(z["out::step"]):
+        fail(f"GAN golden: step {state.step} vs {int(z['out::step'])}")
+    return errs
+
+
+def replay_gan_step_golden(device="cpu"):
+    """golden_gan_step.npz through the port's VocoderTrainer on ``device``
+    (f32): one train step from the golden's variables held to
+    compare_gan_step, then the eval step's mel L1 (rtol 1e-5). Returns
+    (losses, max errors)."""
+    import numpy as np
+
+    meta, z, trees = gan_golden()
+    trainer = gan_trainer(meta, device)
+    state = trainer.state_from(*gan_state_dicts(trees))
+    batch = gan_golden_batch(z, device)
+    losses = trainer.make_train_step()(state, batch)
+    lr = meta["vocoder"]["learning_rate"]
+    errs = compare_gan_step(state, losses, z, trees, lr)
+    mel_l1 = float(trainer.make_eval_step()(state, batch))
+    np.testing.assert_allclose(mel_l1, float(z["out::eval_mel_l1"]),
+                               rtol=1e-5, err_msg="eval mel L1")
+    errs["eval_mel_l1_rel"] = abs(mel_l1 - float(z["out::eval_mel_l1"])) \
+        / float(z["out::eval_mel_l1"])
+    return {k: float(v) for k, v in zip(losses._fields, losses)}, errs
 
 
 # ------------------------------------------------- CWT and feature goldens
@@ -2268,6 +2415,280 @@ def phase_train_step_time(smi, device="cuda"):
     return out
 
 
+# ----------------------------------------------------------- the GAN path
+
+# The GAN step's shape at bench.py:350-399, the upstream recipe: batch 16 of
+# 8192-sample segments (32 mel frames); bench.py:347's useful FLOPs of the
+# JAX step there (XLA's cost analysis of its native-lowering f32 program),
+# printed beside the port's count.
+GAN_B = 16
+GAN_JAX_USEFUL_FLOPS = 2.602e12
+# train_vocoder's corpus (generate_corpus: 16 utterances of ~2 s; 2
+# validate) and batch; the export check's mel length.
+GAN_CORPUS = {"n_speakers": 2, "utts_per_speaker": 8, "seed": 3}
+GAN_LOOP_BATCH = 8
+GAN_EXPORT_T = 1000
+
+
+def gan_bench_batch(cfg, B=None, device="cuda"):
+    """bench.py's seeded GAN batch (B = GAN_B): mel and loss mel N(0, 1),
+    wav N(0, 0.01)."""
+    import numpy as np
+    import torch
+
+    B = B or GAN_B
+    vc = cfg.vocoder
+    frames = vc.segment_size // vc.hop_size
+    rng = np.random.RandomState(6)
+    batch = dict(
+        mel=rng.randn(B, frames, vc.num_mels).astype(np.float32),
+        wav=(rng.randn(B, vc.segment_size) * 0.1).astype(np.float32),
+        mel_loss=rng.randn(B, frames, vc.num_mels).astype(np.float32))
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def gan_step_flops(state, batch):
+    """FLOPs of one GAN step, reckoned from the conv shapes of one forward
+    (2 per multiply-add; a conv's output elements, a transposed conv's input
+    elements, times each weight's fan): the generator forward and its
+    backward (data and weight gradients, 2x the forward); the
+    discriminators on y and y_hat forward and backward in the
+    discriminators' half (3x); in the generator's half forward and the data
+    gradient of the y_hat half (1.5x). The STFT of the mel loss and the
+    elementwise work are left out."""
+    import torch
+
+    from tts_king_torch.models.hifigan import WNConvTranspose1d
+
+    total = {"gen": 0.0, "disc": 0.0}
+
+    def hook(key):
+        def count(module, inputs, out):
+            w = module.v if hasattr(module, "v") and module.v.dim() > 1 \
+                else module.weight_orig
+            n = (inputs[0].numel() if isinstance(module, WNConvTranspose1d)
+                 else out.numel())
+            total[key] += 2.0 * n * w[0].numel()
+        return count
+
+    handles = []
+    for key, root in (("gen", state.gen), ("disc", state.disc)):
+        for m in root.modules():
+            if hasattr(m, "weight_orig") or (hasattr(m, "v") and hasattr(
+                    m, "g")):
+                handles.append(m.register_forward_hook(hook(key)))
+    try:
+        with torch.no_grad():
+            y_hat = state.gen(batch["mel"])
+            state.disc.mpd(batch["wav"], y_hat, pair_batched=False)
+            state.disc.msd(batch["wav"], y_hat, pair_batched=False)
+    finally:
+        for h in handles:
+            h.remove()
+    return {"gen_fwd": total["gen"], "disc_fwd_pair": total["disc"],
+            "step": 3.0 * total["gen"] + 4.5 * total["disc"]}
+
+
+def phase_gan_step_time(smi, device="cuda"):
+    """Sustained ms per GAN step of VocoderTrainer at TTSConfig()'s width
+    (MPD channels (32, 128, 512, 1024, 1024), the 3-scale MSD at width 1)
+    on gan_bench_batch, f32 (TF32 off) and with compute_dtype bf16: host
+    clock around each of 6 steps that end in a synchronize, after 2; the
+    median. Peak memory, FLOPs per step and their share of the dtype's
+    peak."""
+    import numpy as np
+    import torch
+
+    from tts_king_torch.train.vocoder import VocoderTrainer
+
+    cfg = main_config()
+    out = {}
+    for dname, dtype, peak in (("f32", None, PEAK_F32_OPS),
+                               ("bf16", torch.bfloat16, PEAK_BF16_OPS)):
+        trainer = VocoderTrainer(cfg.vocoder, compute_dtype=dtype,
+                                 device=device)
+        state = trainer.init_state(cfg.vocoder.seed)
+        batch = gan_bench_batch(cfg, device=device)
+        flops = gan_step_flops(state, batch)
+        step = trainer.make_train_step()
+        for _ in range(2):
+            step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            losses = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: float(v) for k, v in zip(losses._fields, losses)}
+        if not all(math.isfinite(v) for v in vals.values()):
+            fail(f"GAN step {dname}: losses {vals}")
+        ms = float(np.median(times))
+        out[dname] = {
+            "phase": "gan_path", "step": "step_time", "dtype": dname,
+            "shape": {"B": GAN_B, "segment": cfg.vocoder.segment_size,
+                      "frames": cfg.vocoder.segment_size
+                      // cfg.vocoder.hop_size},
+            "ms_per_step": ms, "ms_each": times, "losses": vals,
+            "flops_per_step": flops["step"], "flops": flops,
+            "jax_useful_flops_per_step": GAN_JAX_USEFUL_FLOPS,
+            "share_of_peak": flops["step"] / (ms / 1e3) / peak,
+            "peak": peak,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "nvidia_smi": smi, "ok": True}
+        emit(out[dname])
+        del state, batch, step, trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_gan_train_vocoder(tmp, smi, device="cuda"):
+    """train_vocoder() at TTSConfig()'s width on GAN_CORPUS's wavs, batch
+    GAN_LOOP_BATCH: 4 steps with validation and a checkpoint, then a resume
+    from step 4 for one more. Checks the metrics' phases, the checkpoint's
+    GAN state (the first run's spectral buffers and weights, Adam counts 4)
+    and the resumed state. Returns the final state."""
+    import numpy as np
+    import torch
+
+    from tts_king_torch.data.synthetic import generate_corpus
+    from tts_king_torch.train.checkpoint import restore_vocoder_state
+    from tts_king_torch.train.vocoder_loop import train_vocoder
+
+    cfg = main_config()
+    cfg.vocoder.batch_size = GAN_LOOP_BATCH
+    cfg.train.ckpt_path = os.path.join(tmp, "ckpt")
+    cfg.train.result_path = os.path.join(tmp, "result")
+    raw = os.path.join(tmp, "wavs")
+    audio_s = generate_corpus(raw, **GAN_CORPUS)
+    wavs = sorted(os.path.join(root, n) for root, _, names in os.walk(raw)
+                  for n in names if n.endswith(".wav"))
+    runs = []
+    for restore, steps in ((None, TRAIN_STEPS), (TRAIN_STEPS,
+                                                 TRAIN_STEPS + 1)):
+        t0 = time.perf_counter()
+        state = train_vocoder(cfg, wavs[2:], val_paths=wavs[:2],
+                              max_steps=steps, log_every=1,
+                              save_every=TRAIN_STEPS, restore_step=restore,
+                              device=device)
+        torch.cuda.synchronize()
+        runs.append({"restore_step": restore, "steps": steps,
+                     "wall_s": time.perf_counter() - t0})
+        if state.step != steps or state.gen_opt.count != steps \
+                or state.disc_opt.count != steps:
+            fail(f"train_vocoder: step {state.step}, Adam counts "
+                 f"{state.gen_opt.count} / {state.disc_opt.count}, not "
+                 f"{steps}")
+        if restore is None:
+            first = {k: v.detach().cpu() for k, v in
+                     state.disc.state_dict().items()}
+    ckpt_dir = os.path.join(cfg.train.ckpt_path, "vocoder")
+    payload = restore_vocoder_state(ckpt_dir, TRAIN_STEPS)
+    gan = payload["gan_state"]
+    if (gan["step"] != TRAIN_STEPS or gan["gen_opt"]["count"] != TRAIN_STEPS
+            or gan["disc_opt"]["count"] != TRAIN_STEPS
+            or any(not torch.equal(gan["disc"][k], v)
+                   for k, v in first.items())):
+        fail("train_vocoder: the step-4 checkpoint is not the run's state")
+    with open(os.path.join(cfg.train.result_path,
+                           f"{cfg.exp_name}_vocoder.metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    phases = [r["phase"] for r in recs]
+    want = (["vocoder"] * TRAIN_STEPS + ["vocoder_val"] * 2
+            + ["vocoder", "vocoder_val"])
+    mel_l1 = [r["mel_l1"] for r in recs if r["phase"] == "vocoder"]
+    val = [r["val_mel_l1"] for r in recs if r["phase"] == "vocoder_val"]
+    if phases != want or not np.all(np.isfinite(mel_l1 + val)):
+        fail(f"train_vocoder: metrics {phases}, mel L1 {mel_l1}, val {val}")
+    emit({"phase": "gan_path", "step": "train_vocoder", "batch":
+          GAN_LOOP_BATCH, "wavs": len(wavs), "audio_s": audio_s, "runs": runs,
+          "mel_l1": mel_l1, "val_mel_l1": val,
+          "checkpoints": sorted(os.listdir(ckpt_dir)),
+          "spectral_buffers_restored": True, "nvidia_smi": smi, "ok": True})
+    return state
+
+
+def phase_gan_export(state, smi, device="cuda"):
+    """The trained generator folded (export_inference_params) into
+    Generator(mrf_backend="fused"), in f32 and cast to bf16, on one
+    GAN_EXPORT_T-frame mel, held against the plain weight-norm route in the
+    same compute dtype: f32 at TOL[mrf_stage, f32], bf16 at TOL[mrf_stage,
+    bf16], relative to max(1, the waveform's peak). Each Generator call's
+    launches are counted from 0: one MRF stage launch per fused stage (3 at
+    the shipped width). Returns the launches per dtype."""
+    import numpy as np
+    import torch
+
+    from tts_king_torch.models.hifigan import Generator
+    from tts_king_torch.train.vocoder import export_inference_params
+    from tts_king_torch.weights import load_into
+
+    vc = main_config().vocoder
+    n_fused = len(fused_stages(main_config(), GAN_EXPORT_T))
+    folded = export_inference_params(state.gen)
+    mel = torch.from_numpy(np.random.RandomState(9).randn(
+        1, GAN_EXPORT_T, vc.num_mels).astype(np.float32)).to(device)
+    launches = {}
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        fused = load_into(Generator(vc), folded).to(device, dtype).eval()
+        wn = Generator(vc, mrf_backend="plain", weight_norm=True,
+                       compute_dtype=dtype)
+        wn = load_into(wn, {k: v.cpu() for k, v in
+                            state.gen.state_dict().items()}).to(device)
+        with torch.inference_mode():
+            ref = wn(mel)
+            zero_launch_counts()
+            got = fused(mel)
+            torch.cuda.synchronize()
+            launches[dname] = launch_counts()["mrf_stage"]
+            ms = cuda_ms(lambda: fused(mel), warmup=1, reps=3)
+            plain_ms = cuda_ms(lambda: wn(mel), warmup=1, reps=3)
+        scale = max(1.0, float(ref.abs().max()))
+        err = float((got - ref).abs().max())
+        tol = TOL[("mrf_stage", dname)] * scale
+        if not (bool(torch.isfinite(got).all()) and err <= tol):
+            fail(f"GAN export {dname}: max err {err} > {tol}")
+        if launches[dname] != n_fused:
+            fail(f"GAN export {dname}: {launches[dname]} MRF launches in one "
+                 f"Generator call, not {n_fused}")
+        emit({"phase": "gan_path", "step": "export", "dtype": dname,
+              "T_mel": GAN_EXPORT_T, "max_abs_err": err, "tol": tol,
+              "wav_peak": float(ref.abs().max()), "mrf_launches": launches[
+                  dname], "fused_ms": ms, "plain_wn_ms": plain_ms,
+              "nvidia_smi": smi, "ok": True})
+        del fused, wn
+    return launches
+
+
+def phase_gan_path(smi):
+    """HiFi-GAN GAN training on the card: (a) the JAX GAN step of
+    golden_gan_step.npz replayed in f32 at the CPU test's bounds; (b) the
+    step's time at bench.py's shape, f32 and bf16; (c) train_vocoder with a
+    resume; (d) its generator folded into the fused inference Generator.
+    Returns the export's MRF launches per dtype."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    losses, errs = replay_gan_step_golden(device="cuda")
+    emit({"phase": "gan_path", "step": "golden", "losses": losses,
+          "max_err": errs, "tol": "tests/test_torch_vocoder_training.py "
+          "(compare_gan_step)", "seconds": time.perf_counter() - t0,
+          "ok": True})
+    phase_gan_step_time(smi)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gan_")
+    try:
+        state = phase_gan_train_vocoder(tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = phase_gan_export(state, smi)
+    emit({"phase": "gan_path", "step": "done",
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -2585,6 +3006,9 @@ def main():
     int8_launches = phase_int8_vocoder(main_config())
     train_launches = phase_train_path()
     cwt_launches = phase_cwt_path(smi)
+    torch.cuda.empty_cache()
+    gan_launches = phase_gan_path(smi)
+    torch.cuda.empty_cache()
     phase_train_step_time(smi)
     rows = phase_timing(main_config(), launches, train_launches, errs,
                         mel_lens, mrf_runs)
@@ -2597,6 +3021,9 @@ def main():
                                for p in ("speak", "train")}
     rows[-1]["launches_cwt"] = {k: cwt_launches["train"][k]
                                 for k in ("flash_fwd", "flash_bwd")}
+    # the GAN path's export check: one fused Generator call per dtype
+    rows[1]["launches_gan"] = gan_launches["bf16"]
+    rows[1]["f32"]["launches_gan"] = gan_launches["f32"]
     rows.insert(2, int8_timing_row(main_config(), int8_launches,
                                    errs["mrf_stage_int8"]["bf16"]))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -14,7 +14,11 @@ as chip_smoke.py times it. A sentence (``--speak``): the f32 TTSKing's
 drives it. Serving (``--serve f32|bf16``): a SynthesisServer (max_batch 16,
 prewarmed) on that TTSKing serves chip_smoke.py's serving burst (32
 requests in f32, 48 in bf16) per run; the device's idle share over a burst
-says how far the host and the pipeline's waits hold the card back.
+says how far the host and the pipeline's waits hold the card back. GAN
+training (``--gan [f32|bf16]``): one HiFi-GAN step of VocoderTrainer at
+TTSConfig()'s width on chip_smoke.py's GAN batch (B = 16 x 8192 samples,
+bench.py:350-399), f32 with TF32 off or with compute_dtype bf16; beside the
+profile, the peak memory of the profiled step.
 
 After two warm-up runs, ``--reps`` runs are timed without the profiler
 (host clock, synchronized), then one run is profiled under
@@ -25,7 +29,7 @@ overlap), its idle share, and the device time by operator and by kernel,
 largest first. The full tables and a Chrome trace go to ``--out``.
 
     python3 scripts/profile_port.py [--train | --int8 | --speak |
-        --serve f32|bf16] [--reps N] [--out DIR]
+        --serve f32|bf16 | --gan [f32|bf16]] [--reps N] [--out DIR]
 """
 
 import argparse
@@ -64,6 +68,8 @@ def main(argv=None):
                       help="profile TTSKing.speak on one sentence (f32)")
     what.add_argument("--serve", choices=("f32", "bf16"),
                       help="profile a burst through SynthesisServer")
+    what.add_argument("--gan", nargs="?", const="f32", choices=("f32", "bf16"),
+                      help="profile one HiFi-GAN training step")
     args = ap.parse_args(argv)
 
     import torch
@@ -132,6 +138,23 @@ def main(argv=None):
 
         def run():
             return chip_smoke.serve_burst(server, requests)
+    elif args.gan:
+        from tts_king_torch.train.vocoder import VocoderTrainer
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = chip_smoke.main_config()
+        trainer = VocoderTrainer(
+            cfg.vocoder, device="cuda",
+            compute_dtype=torch.bfloat16 if args.gan == "bf16" else None)
+        gan_state = trainer.init_state(cfg.vocoder.seed)
+        gan_step = trainer.make_train_step()
+        batch = chip_smoke.gan_bench_batch(cfg)
+        shape = {"B": chip_smoke.GAN_B, "segment": cfg.vocoder.segment_size,
+                 "dtype": args.gan}
+
+        def run():
+            return gan_step(gan_state, batch)
     else:
         cfg = chip_smoke.main_config()
         king = chip_smoke.main_path_kings(cfg)["bf16"]
@@ -155,6 +178,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         runs_ms.append((time.perf_counter() - t0) * 1e3)
 
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -183,7 +207,8 @@ def main(argv=None):
         "path": ("train_step" if args.train else
                  "int8_vocoder" if args.int8 else
                  "speak" if args.speak else
-                 "serve" if args.serve else "synthesis"),
+                 "serve" if args.serve else
+                 "gan_step" if args.gan else "synthesis"),
         "shape": shape,
         "wall_ms_runs": runs_ms,
         "wall_ms_median": sorted(runs_ms)[len(runs_ms) // 2] if runs_ms
@@ -191,6 +216,7 @@ def main(argv=None):
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "n_kernels": len(kernels),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "top_ops_self_device_ms": [[k, round(ms, 3), n]
                                    for k, ms, n in ops[:args.top]],
         "top_kernels_ms": sorted(([k[:90], round(ms, 3)] for k, ms in

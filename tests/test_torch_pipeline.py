@@ -208,15 +208,16 @@ def test_port_config_and_text_match_jax_package():
                                       jax_preprocess_rus(text))
 
 
-_BANNED = re.compile(r"\b(jax|flax|orbax|tts_king_tpu)\b")
+_BANNED = re.compile(r"\b(jax|flax|optax|orbax|tts_king_tpu)\b")
 _IMPORT_LINE = re.compile(r"^\s*(import|from)\s", re.MULTILINE)
-_DYNAMIC = re.compile(r"(import_module|__import__)\(\s*[\"'](jax|flax|orbax|"
-                      r"tts_king_tpu)\b")
+_DYNAMIC = re.compile(r"(import_module|__import__)\(\s*[\"'](jax|flax|optax|"
+                      r"orbax|tts_king_tpu)\b")
 
 
 def test_port_imports_nothing_of_jax():
-    """No file of the port, and not chip_smoke.py, imports jax, flax, orbax
-    or tts_king_tpu (the JAX package is named in comments only)."""
+    """No file of the port, and not chip_smoke.py, imports jax, flax,
+    optax, orbax or tts_king_tpu (the JAX package is named in comments
+    only)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "tts_king_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]

@@ -19,7 +19,12 @@ The port's own copy of the converters of tts_king_tpu/checkpoint.py:
     ``resblocks.{n}.convs1.{j}`` / ``convs2.{j}``, ResBlock2 at
     ``resblocks.{n}.convs.{j}``, upsamplers at ``ups.{i}``;
   * MelGAN (models/melgan.convert_melgan_state): the descript generator's
-    ``model.{idx}`` Sequential.
+    ``model.{idx}`` Sequential;
+  * HiFi-GAN discriminators (``convert_hifigan_discriminators``), the
+    upstream ``do_*`` checkpoint's ``{"mpd": ..., "msd": ...}``: weight
+    norm kept as (v, g) pairs (``weight_v``, ``weight_g``), MSD scale 1's
+    spectral norm as ``weight_orig`` and its power-iteration buffers
+    (``weight_u``, ``weight_v``), for GAN training (train/vocoder.py).
 
 The upstream weights are already in torch's layouts, so only the names
 change.
@@ -155,6 +160,45 @@ def convert_hifigan_generator(state, n_ups=4, n_kernels=3, n_res_convs=3):
                 _conv(state, f"{src}.convs.{j}", f"resblocks_{n}.convs_{j}",
                       out)
     return out
+
+
+def _wn_pair(state, src, dst, out):
+    """A weight-norm conv kept as its (v, g) pair: g to one value per
+    output channel."""
+    out[f"{dst}.v"] = torch.as_tensor(state[src + ".weight_v"]).float()
+    out[f"{dst}.g"] = torch.as_tensor(state[src + ".weight_g"]).float() \
+        .reshape(-1)
+    out[f"{dst}.bias"] = torch.as_tensor(state[src + ".bias"]).float()
+
+
+def _sn_conv(state, src, dst, out):
+    """A spectral-norm conv: weight_orig, bias and the u, v buffers."""
+    for a, b in (("weight_orig", "weight_orig"), ("bias", "bias"),
+                 ("weight_u", "u"), ("weight_v", "v")):
+        out[f"{dst}.{b}"] = torch.as_tensor(state[f"{src}.{a}"]).float()
+
+
+def convert_hifigan_discriminators(ckpt, periods=(2, 3, 5, 7, 11),
+                                   n_scales=3):
+    """Upstream HiFi-GAN discriminators ({"mpd": state_dict, "msd":
+    state_dict}, upstream train.py's ``do_*`` file) -> (the port's
+    MultiPeriodDiscriminator state dict, its MultiScaleDiscriminator state
+    dict), the counterpart of tts_king_tpu/checkpoint.py's converter
+    (models/hifigan.py names: ``disc_p<p>.convs_<j>``, ``disc_s<i>.convs_<j>``,
+    ``conv_post``)."""
+    mpd, msd = {}, {}
+    for i, p in enumerate(periods):
+        for j in range(5):
+            _wn_pair(ckpt["mpd"], f"discriminators.{i}.convs.{j}",
+                     f"disc_p{p}.convs_{j}", mpd)
+        _wn_pair(ckpt["mpd"], f"discriminators.{i}.conv_post",
+                 f"disc_p{p}.conv_post", mpd)
+    for i in range(n_scales):
+        convert = _sn_conv if i == 0 else _wn_pair
+        for name in [f"convs.{j}" for j in range(7)] + ["conv_post"]:
+            convert(ckpt["msd"], f"discriminators.{i}.{name}",
+                    f"disc_s{i}.{name.replace('convs.', 'convs_')}", msd)
+    return mpd, msd
 
 
 def convert_hifigan_checkpoint(path, **kw):

@@ -10,8 +10,9 @@ Port of tts_king_tpu/ops/stft.py. Numerical parity targets:
     center=False, sqrt(|.|^2 + 1e-9) magnitudes, same mel + log.
 
 Everything runs on the device of its input. The mel projection feeds the
-training targets, so it runs in exact f32 (``exact_f32``): TF32 would move
-the log-mels by ~1e-3.
+training targets and HiFi-GAN's mel loss (weighted 45), so it runs in exact
+f32 (``exact_f32``), forward and backward: TF32 would move the log-mels by
+~1e-3.
 """
 
 import contextlib
@@ -97,10 +98,35 @@ def dynamic_range_decompression(x, C=1.0):
     return torch.exp(x) / C
 
 
+class _MelProject(torch.autograd.Function):
+    """mag @ basis^T with the product of the backward (grad @ basis) in
+    exact f32 too: autograd's own backward would run under the process's
+    TF32 setting. The basis is a constant."""
+
+    @staticmethod
+    def forward(ctx, mag, basis):
+        ctx.save_for_backward(basis)
+        with exact_f32():
+            return torch.matmul(mag, basis.t())
+
+    @staticmethod
+    def backward(ctx, grad):
+        (basis,) = ctx.saved_tensors
+        with exact_f32():
+            return torch.matmul(grad, basis), None
+
+
 def _mel_project(mag, basis):
-    """(B, T, F) @ (M, F)^T in exact f32."""
-    with exact_f32():
-        return torch.matmul(mag, basis.t())
+    """(B, T, F) @ (M, F)^T in exact f32, forward and backward."""
+    return _MelProject.apply(mag, basis)
+
+
+@functools.lru_cache(maxsize=None)
+def _mel_basis(sampling_rate, n_fft, num_mels, fmin, fmax, device):
+    """The mel filterbank as a tensor on ``device``, made once per setting
+    and device (a constant: no caller writes to it)."""
+    return torch.from_numpy(mel_filterbank(
+        sampling_rate, n_fft, num_mels, fmin, fmax)).to(device)
 
 
 class MelExtractor:
@@ -143,8 +169,8 @@ def hifigan_mel(y, n_fft=1024, num_mels=80, sampling_rate=22050, hop_size=256,
     """HiFi-GAN training mel (hifi/meldataset.py:45-74): (B, T) -> (B, frames, mels)."""
     mag = stft_magnitude(y, n_fft, hop_size, win_size, center_pad="hifigan",
                          mag_eps=1e-9)
-    basis = torch.from_numpy(
-        mel_filterbank(sampling_rate, n_fft, num_mels, fmin, fmax)).to(y.device)
+    basis = _mel_basis(sampling_rate, n_fft, num_mels, fmin, fmax,
+                       torch.device(y.device))
     return dynamic_range_compression(_mel_project(mag, basis))
 
 

@@ -31,23 +31,82 @@ def _cpu(tree):
     return {k: v.detach().cpu() for k, v in tree.items()}
 
 
-def save_train_state(path: str, step: int, state: TrainState):
-    sd = _cpu(state.model.state_dict())
-    speaker_emb = {k: sd.pop(k) for k in list(sd)
-                   if k.startswith(_SPEAKER_PREFIX)}
-    opt = state.opt_state
-    payload = {
-        "model": sd,
-        "speaker_emb": speaker_emb,
-        "opt_state": {"count": opt.count, "mu": _cpu(opt.mu),
-                      "nu": _cpu(opt.nu)},
-        "step": int(step),
-    }
+def _write(path: str, step: int, payload):
     out = ckpt_dir(path, step)
     os.makedirs(out, exist_ok=True)
     tmp = os.path.join(out, f"{STATE_FILE}.{os.getpid()}.tmp")
     torch.save(payload, tmp)
     os.replace(tmp, os.path.join(out, STATE_FILE))
+
+
+def _adam_payload(opt: AdamState):
+    return {"count": opt.count, "mu": _cpu(opt.mu), "nu": _cpu(opt.nu)}
+
+
+def _adam_state(payload, device) -> AdamState:
+    return AdamState(int(payload["count"]),
+                     {k: v.to(device) for k, v in payload["mu"].items()},
+                     {k: v.to(device) for k, v in payload["nu"].items()})
+
+
+def save_train_state(path: str, step: int, state: TrainState):
+    sd = _cpu(state.model.state_dict())
+    speaker_emb = {k: sd.pop(k) for k in list(sd)
+                   if k.startswith(_SPEAKER_PREFIX)}
+    _write(path, step, {
+        "model": sd,
+        "speaker_emb": speaker_emb,
+        "opt_state": _adam_payload(state.opt_state),
+        "step": int(step),
+    })
+
+
+def save_vocoder_state(path: str, step: int, state, params):
+    """A GAN train state (train/vocoder.VocoderTrainState) and ``params``,
+    the folded inference Generator's state dict."""
+    _write(path, step, {
+        "params": _cpu(params),
+        "gan_state": {"gen": _cpu(state.gen.state_dict()),
+                      "disc": _cpu(state.disc.state_dict()),
+                      "gen_opt": _adam_payload(state.gen_opt),
+                      "disc_opt": _adam_payload(state.disc_opt),
+                      "step": int(state.step)},
+        "step": int(step),
+    })
+
+
+def _read(path: str, step: Optional[int]):
+    if step is None:
+        step = latest_step(path)
+    d = ckpt_dir(path, step)
+    f = os.path.join(d, STATE_FILE)
+    if not os.path.exists(f):
+        if os.path.isdir(d):
+            raise NotImplementedError(
+                f"{d} holds no {STATE_FILE}: orbax checkpoints of the JAX "
+                "package are not read by the port; export their weights "
+                "with scripts/export_flax_variables.py")
+        raise FileNotFoundError(f"no checkpoint for step {step} under {path}")
+    return torch.load(f, map_location="cpu", weights_only=True)
+
+
+def restore_vocoder_state(path: str, step: Optional[int] = None):
+    """The payload of one GAN checkpoint (the latest if ``step`` is
+    None)."""
+    return _read(path, step)
+
+
+def load_vocoder_state(state, payload):
+    """Copy a restored GAN payload into ``state`` (on its models'
+    device)."""
+    gan = payload["gan_state"]
+    state.gen.load_state_dict(gan["gen"], strict=True)
+    state.disc.load_state_dict(gan["disc"], strict=True)
+    device = next(state.gen.parameters()).device
+    state.gen_opt = _adam_state(gan["gen_opt"], device)
+    state.disc_opt = _adam_state(gan["disc_opt"], device)
+    state.step = int(gan["step"])
+    return state
 
 
 def latest_step(path: str) -> int:
@@ -62,18 +121,7 @@ def latest_step(path: str) -> int:
 def restore_train_state(path: str, step: Optional[int] = None):
     """The payload of one checkpoint (the latest if ``step`` is None), with
     the speaker embedding put back among the model's entries."""
-    if step is None:
-        step = latest_step(path)
-    d = ckpt_dir(path, step)
-    f = os.path.join(d, STATE_FILE)
-    if not os.path.exists(f):
-        if os.path.isdir(d):
-            raise NotImplementedError(
-                f"{d} holds no {STATE_FILE}: orbax checkpoints of the JAX "
-                "package are not read by the port; export their weights "
-                "with scripts/export_flax_variables.py")
-        raise FileNotFoundError(f"no checkpoint for step {step} under {path}")
-    payload = torch.load(f, map_location="cpu", weights_only=True)
+    payload = _read(path, step)
     payload["model"] = {**payload["model"], **payload["speaker_emb"]}
     return payload
 
@@ -82,9 +130,6 @@ def load_train_state(state: TrainState, payload) -> TrainState:
     """Copy a restored payload into ``state`` (on the model's device)."""
     state.model.load_state_dict(payload["model"], strict=True)
     device = next(state.model.parameters()).device
-    opt = payload["opt_state"]
-    state.opt_state = AdamState(
-        int(opt["count"]), {k: v.to(device) for k, v in opt["mu"].items()},
-        {k: v.to(device) for k, v in opt["nu"].items()})
+    state.opt_state = _adam_state(payload["opt_state"], device)
     state.step = int(payload["step"])
     return state

@@ -1,4 +1,5 @@
-"""Noam learning-rate schedule with step anneals.
+"""Learning-rate schedules: FastSpeech2's Noam schedule with step anneals,
+and HiFi-GAN's per-epoch exponential decay.
 
 Port of tts_king_tpu/train/schedule.py (reference ScheduledOptim,
 fs_two/model/optimizer.py:35-53):
@@ -26,5 +27,22 @@ def noam_schedule(d_model: int, warm_up_step: int, anneal_steps,
         scale = min(step ** np.float32(-0.5), step * warm ** np.float32(-1.5))
         n_anneals = int(np.sum(step > anneal))
         return float(init_lr * scale * rate ** np.float32(n_anneals))
+
+    return lr
+
+
+def exponential_decay(init_value: float, transition_steps: int,
+                      decay_rate: float):
+    """optax.exponential_decay(..., staircase=True), HiFi-GAN's per-epoch
+    decay (torch ExponentialLR stepped once an epoch):
+
+        lr(count) = init_value * decay_rate ** (count // transition_steps)
+
+    at the 0-based count of updates already applied, in f32."""
+    init = np.float32(init_value)
+    rate = np.float32(decay_rate)
+
+    def lr(count: int) -> float:
+        return float(init * rate ** np.float32(count // transition_steps))
 
     return lr

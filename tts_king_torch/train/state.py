@@ -4,9 +4,9 @@ Port of tts_king_tpu/train/state.py. The optimizer is the JAX package's
 optax chain (fs_two/model/optimizer.py:10-15, train.py:47-54), written out
 step by step so that each stage is optax's:
 
-  1. global-norm clip, ``g * thresh / ||g||`` when ``||g|| >= thresh``
-     (optax.clip_by_global_norm; ``clip_grad_norm_`` would add 1e-6 to the
-     norm);
+  1. (FastSpeech2 only) global-norm clip, ``g * thresh / ||g||`` when
+     ``||g|| >= thresh`` (optax.clip_by_global_norm; ``clip_grad_norm_``
+     would add 1e-6 to the norm);
   2. Adam, ``m_hat / (sqrt(v_hat) + eps)`` with eps outside the root and
      bias corrections at the incremented count (optax.scale_by_adam);
   3. decoupled weight decay ``+ wd * param`` after Adam, when the config
@@ -14,6 +14,13 @@ step by step so that each stage is optax's:
      ``weight_decay`` is L2 folded into the gradient, another optimizer);
   4. ``* -lr(count)`` with the Noam schedule at the 0-based count
      (optax.scale_by_schedule).
+
+``Optimizer.adamw`` builds HiFi-GAN's optax.adamw (train/vocoder.py): no
+clip, Adam at the given betas and eps, a decoupled weight decay on every
+parameter (biases and weight-norm g included), and a schedule of the
+caller's (the per-epoch exponential decay). ``torch.optim.AdamW`` rounds in
+another order (it decays the parameter before the Adam step) and is not
+this optimizer.
 
 The Adam moments are keyed by the model's parameter names, which are the
 state-dict names ``weights.flax_to_torch`` gives an optax ``mu``/``nu`` tree
@@ -73,7 +80,7 @@ def init_state_dict(module, seed: int):
 
 
 class Optimizer:
-    """clip -> Adam -> [decoupled weight decay] -> -lr(count), in place."""
+    """[clip ->] Adam -> [decoupled weight decay] -> -lr(count), in place."""
 
     def __init__(self, opt_cfg: OptimizerConfig, d_model: int):
         self.clip = float(opt_cfg.grad_clip_thresh)
@@ -82,6 +89,19 @@ class Optimizer:
         self.weight_decay = float(opt_cfg.weight_decay)
         self.lr = noam_schedule(d_model, opt_cfg.warm_up_step,
                                 opt_cfg.anneal_steps, opt_cfg.anneal_rate)
+
+    @classmethod
+    def adamw(cls, lr, b1: float, b2: float, eps: float = 1e-8,
+              weight_decay: float = 0.01) -> "Optimizer":
+        """optax.adamw(lr, b1, b2, eps, weight_decay=...): no clip; ``lr``
+        maps the 0-based count to the learning rate."""
+        opt = cls.__new__(cls)
+        opt.clip = None
+        opt.b1, opt.b2 = float(b1), float(b2)
+        opt.eps = float(eps)
+        opt.weight_decay = float(weight_decay)
+        opt.lr = lr
+        return opt
 
     def init(self, model) -> AdamState:
         return AdamState(
@@ -98,10 +118,11 @@ class Optimizer:
         mu = [state.mu[n] for n in names]
         nu = [state.nu[n] for n in names]
 
-        g_norm = torch.stack(torch._foreach_norm(g)).square().sum().sqrt()
-        factor = torch.where(g_norm < self.clip, torch.ones_like(g_norm),
-                             self.clip / g_norm)
-        torch._foreach_mul_(g, factor)
+        if self.clip is not None:
+            g_norm = torch.stack(torch._foreach_norm(g)).square().sum().sqrt()
+            factor = torch.where(g_norm < self.clip, torch.ones_like(g_norm),
+                                 self.clip / g_norm)
+            torch._foreach_mul_(g, factor)
 
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, g, alpha=1.0 - self.b1)

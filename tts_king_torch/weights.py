@@ -12,11 +12,22 @@ change layout as follows:
     nn.Embed embedding                          weight
     LayerNorm / BatchNorm scale, bias           weight, bias
     batch_stats mean, var                       running_mean, running_var
+    weight-norm v, g (Generator, WNConv)        v, g: v in the layout of
+                                                the conv's weight above; a
+                                                2-D conv's (kh, kw, in, out)
+                                                as (out, in, kh, kw)
+    SNConv weight_orig                          weight_orig, laid out as v
+    spectral u, v (SNConv's power iteration)    u, v buffers of the SNConv
 
 The JAX package's transposed conv flips its kernel internally
 (ops/convs.py:33-59); torch's ConvTranspose1d takes the same (k, Cin, Cout)
 orientation without a flip. The transposed convs are the upsamplers, named
 ``ups_<i>`` in HiFi-GAN and ``up_<i>`` in MelGAN.
+
+A weight-norm g is one value per output channel of a conv and per input
+channel of a transposed conv, in both packages. ``optax_adam_to_torch``
+reads the Adam moments out of an optax chain's state (adamw's
+``ScaleByAdamState``), as ``flax_adam_to_torch`` reads them out of Adam's.
 
 No JAX here: trees are nested dicts of numpy arrays (or anything
 ``np.asarray`` takes), and ``load_flax_npz`` reads the flat
@@ -41,8 +52,28 @@ def _is_transposed(path):
     return len(path) >= 2 and path[-2].startswith(_TRANSPOSED_CONV_PREFIXES)
 
 
+def _kernel_to_torch(a, path):
+    """A flax conv/dense kernel (or weight-norm v, weight_orig) in the
+    layout of the torch weight."""
+    if a.ndim == 2:
+        return a.T
+    if a.ndim == 3:
+        return a.transpose((1, 2, 0) if _is_transposed(path) else (2, 1, 0))
+    if a.ndim == 4:
+        return a.transpose(3, 2, 0, 1)
+    raise ValueError(f"kernel of rank {a.ndim} at {path}")
+
+
+def _kernel_to_flax(a, path):
+    """Inverse of _kernel_to_torch for a conv (rank 3 or 4)."""
+    if a.ndim == 3:
+        return a.transpose((2, 0, 1) if _is_transposed(path) else (2, 1, 0))
+    return a.transpose(2, 3, 1, 0)
+
+
 def flax_to_torch(variables):
-    """{"params": tree, "batch_stats": tree} -> {state-dict key: tensor}."""
+    """{"params": tree, "batch_stats": tree, "spectral": tree} -> {state-dict
+    key: tensor}."""
     sd = {}
     for coll, tree in variables.items():
         for path, leaf in _flatten(tree):
@@ -50,23 +81,22 @@ def flax_to_torch(variables):
             name, mod = path[-1], ".".join(path[:-1])
             if coll == "params":
                 if name == "kernel":
-                    if a.ndim == 2:
-                        a = a.T
-                    elif a.ndim == 3:
-                        a = a.transpose((1, 2, 0) if _is_transposed(path)
-                                        else (2, 1, 0))
-                    else:
-                        raise ValueError(f"kernel of rank {a.ndim} at {path}")
-                    name = "weight"
+                    a, name = _kernel_to_torch(a, path), "weight"
+                elif name in ("v", "weight_orig"):
+                    a = _kernel_to_torch(a, path)
                 elif name in ("embedding", "scale"):
                     name = "weight"
-                elif name != "bias":
+                elif name not in ("bias", "g"):
                     raise KeyError(f"unknown flax param {'/'.join(path)}")
             elif coll == "batch_stats":
                 names = {"mean": "running_mean", "var": "running_var"}
                 if name not in names:
                     raise KeyError(f"unknown batch stat {'/'.join(path)}")
                 name = names[name]
+            elif coll == "spectral":
+                if name not in ("u", "v"):
+                    raise KeyError(f"unknown spectral buffer "
+                                   f"{'/'.join(path)}")
             else:
                 raise KeyError(f"unknown flax collection {coll!r}")
             sd[f"{mod}.{name}"] = torch.from_numpy(np.ascontiguousarray(a))
@@ -85,11 +115,27 @@ def flax_adam_to_torch(count, mu, nu):
                      flax_to_torch({"params": nu}))
 
 
+def optax_adam_to_torch(opt_state):
+    """The Adam moments of an optax state (optax.adam's or a chain's, such
+    as optax.adamw's: the element with ``count``, ``mu`` and ``nu``) -> the
+    port's AdamState, as flax_adam_to_torch."""
+    states = opt_state if isinstance(opt_state, (tuple, list)) else (
+        opt_state,)
+    for st in states:
+        if all(hasattr(st, a) for a in ("count", "mu", "nu")):
+            return flax_adam_to_torch(st.count, st.mu, st.nu)
+    raise ValueError("no Adam state (count, mu, nu) in the optax state")
+
+
 def torch_to_flax(state_dict):
     """Inverse of ``flax_to_torch``: a state dict (tensors or arrays) ->
-    {"params": tree, "batch_stats": tree} of numpy arrays. Conv weights are
-    told from Linear ones by rank; ``num_batches_tracked`` is dropped."""
-    out = {"params": {}, "batch_stats": {}}
+    {"params": tree, "batch_stats": tree, "spectral": tree} of numpy arrays
+    (the collections that have entries). Conv weights are told from Linear
+    ones by rank; an SNConv's ``u`` and ``v`` (beside its ``weight_orig``)
+    go to "spectral"; ``num_batches_tracked`` is dropped."""
+    out = {"params": {}, "batch_stats": {}, "spectral": {}}
+    spectral_mods = {k.rsplit(".", 1)[0] for k in state_dict
+                     if k.endswith(".weight_orig")}
     for key, value in state_dict.items():
         a = np.asarray(value.detach().cpu().float().numpy()
                        if isinstance(value, torch.Tensor) else value)
@@ -100,6 +146,10 @@ def torch_to_flax(state_dict):
         coll = "params"
         if name in ("running_mean", "running_var"):
             coll, name = "batch_stats", name[len("running_"):]
+        elif mod in spectral_mods and name in ("u", "v"):
+            coll = "spectral"
+        elif name in ("v", "weight_orig"):
+            a = _kernel_to_flax(a, path + (name,))
         elif name == "weight":
             if path[-1].endswith(("emb", "embedding")):
                 name = "embedding"
@@ -108,16 +158,12 @@ def torch_to_flax(state_dict):
             elif a.ndim == 2:       # Linear
                 a, name = a.T, "kernel"
             else:
-                a = a.transpose((2, 0, 1) if _is_transposed(path + (name,))
-                                else (2, 1, 0))
-                name = "kernel"
+                a, name = _kernel_to_flax(a, path + (name,)), "kernel"
         node = out[coll]
         for p in path:
             node = node.setdefault(p, {})
         node[name] = np.ascontiguousarray(a)
-    if not out["batch_stats"]:
-        del out["batch_stats"]
-    return out
+    return {c: t for c, t in out.items() if t or c == "params"}
 
 
 def load_flax_npz(path):
