@@ -37,11 +37,14 @@ non-zero exit (nothing is caught):
   5. main paths — TTSConfig() at the shipped width: (a) synthesis with
                seeded weights (66 speakers) brought in through
                weights.flax_to_torch: TTSKing.speak on three Russian
-               sentences (f32), one batched generate + vocode at the bench
-               shape B=32, L=128, T_mel=1000 (bf16), and speak_streaming on
-               one sentence (f32); (b) the int8 Generator at config 2b of
-               bench.py (B=8, T_mel=1000, bf16) beside the fused bf16
-               Generator; (c) training: train() for 4 optimizer steps of
+               sentences (f32), one batched FastSpeech2 + vocode at the
+               bench shape B=32, L=128, T_mel=1000 in bench.py's form (the
+               model computed in bf16), and speak_streaming on one sentence
+               (f32); serving through an f32 and a bf16 SynthesisServer
+               (the bf16 AcousticModel computes FastSpeech2 in f32 on
+               bf16-rounded variables, as the JAX one does); (b) the int8
+               Generator at config 2b of bench.py (B=8, T_mel=1000, bf16)
+               beside the fused bf16 Generator; (c) training: train() for 4 optimizer steps of
                16 x 4 on a synthetic preprocessed corpus written to a
                temporary directory (L = 96, T = 640), with validation,
                objective metrics and a checkpoint, then a resume for one
@@ -59,7 +62,12 @@ non-zero exit (nothing is caught):
                step, the JAX CWT train-step and forward goldens replayed;
                TTSKing.speak through the trained CWT model (f32) with launch
                counts, a B = 4 generate against the CPU and a flat pitch at
-               B = 1;
+               B = 1; then fine-tuning on the acoustic model's mels on the
+               same corpus (phase_finetune_path): train() of the non-CWT
+               FastSpeech2 with synthesis previews through an f32
+               Vocoder, make_base_mels, train_vocoder(fine_tuning=True),
+               the export into the fused Generator (f32 and bf16), and
+               the synthesize and evaluate --objective CLIs;
   7. GAN training — (a) the JAX GAN step of golden_gan_step.npz replayed
                through VocoderTrainer in f32 at the CPU test's bounds; (b)
                the sustained ms per GAN step at bench.py:350-399's shape
@@ -83,7 +91,8 @@ non-zero exit (nothing is caught):
                each stage's grid (f32: blocks per pass, launches per stage);
                the int8 row its cluster plan per stage and the fused bf16
                kernel at the same stages (bf16_kernel_ms); the MRF rows
-               the GAN export's launches (launches_gan).
+               the GAN export's launches (launches_gan), and rows 1f, 2f, 2
+               and 3 those of the fine-tuning path (launches_finetune).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout, it prints no result and exits 1. The JAX package is not imported.
@@ -92,8 +101,10 @@ checkout, it prints no result and exits 1. The JAX package is not imported.
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1457,18 +1468,17 @@ def fused_stages(cfg, T_mel):
     return out
 
 
-def main_path_kings(cfg, n_spk=66):
-    """TTSKing in f32 and in bf16 at ``cfg``'s width, with seeded weights
-    brought in through weights.flax_to_torch."""
-    import torch
+MAIN_STATS = {"pitch": [-3.0, 9.5], "energy": [-1.5, 6.1]}
 
+
+def main_path_variables(cfg, n_spk=66):
+    """Seeded flax-layout weights of ``cfg``'s FastSpeech2 (n_spk
+    speakers, MAIN_STATS) and HiFi-GAN Generator."""
     from tts_king_torch.models.fs2 import build_fastspeech2
     from tts_king_torch.models.hifigan import Generator
-    from tts_king_torch.pipeline import TTSKing
 
-    stats = {"pitch": [-3.0, 9.5], "energy": [-1.5, 6.1]}
     fs2_vars = seeded_flax_variables(
-        lambda: build_fastspeech2(cfg.model, stats, n_spk), seed=0)
+        lambda: build_fastspeech2(cfg.model, MAIN_STATS, n_spk), seed=0)
     # Random weights predict log-durations near 0, i.e. next to no frames; a
     # head of bias log(1 + 5) and a tenth of its random weight gives each
     # phoneme about five frames, as a trained model does, so the decoder and
@@ -1477,11 +1487,40 @@ def main_path_kings(cfg, n_spk=66):
     head["linear_layer"]["kernel"] *= 0.1
     head["linear_layer"]["bias"][:] = math.log(6.0)
     voc_vars = seeded_flax_variables(lambda: Generator(cfg.vocoder), seed=1)
+    return fs2_vars, voc_vars
+
+
+def main_path_kings(cfg, n_spk=66):
+    """TTSKing in f32 and in bf16 at ``cfg``'s width, with seeded weights
+    brought in through weights.flax_to_torch. The bf16 king computes
+    FastSpeech2 in f32 on bf16-rounded variables (as the JAX AcousticModel
+    does) and the vocoder in bf16."""
+    import torch
+
+    from tts_king_torch.pipeline import TTSKing
+
+    fs2_vars, voc_vars = main_path_variables(cfg, n_spk)
     return {dname: TTSKing(cfg, dtype=dtype, device="cuda",
                            acoustic_variables=fs2_vars,
                            vocoder_variables=voc_vars, n_speakers=n_spk)
             for dname, dtype in (("f32", torch.float32),
                                  ("bf16", torch.bfloat16))}
+
+
+def bench_fs2(cfg, n_spk=66):
+    """FastSpeech2 built and run in bf16 on the card, the form of the JAX
+    bench (bench.py:119-124, build_fastspeech2(dtype=bf16)), with
+    main_path_kings' seeded weights."""
+    import torch
+
+    from tts_king_torch.models.fs2 import build_fastspeech2
+    from tts_king_torch.weights import flax_to_torch, load_into
+
+    with torch.device("meta"):
+        model = build_fastspeech2(cfg.model, MAIN_STATS, n_spk)
+    model = load_into(model.to_empty(device="cuda"), flax_to_torch(
+        main_path_variables(cfg, n_spk)[0]))
+    return model.to(torch.bfloat16).eval()
 
 
 def bench_batch(n_spk=66):
@@ -1498,8 +1537,9 @@ def launch_counts():
     from tts_king_torch.ops.kernels import (attention, flash_attention, mrf,
                                             mrf_int8)
 
-    return {"attention": attention.launches, "mrf_stage": mrf.launches,
-            "mrf_stage_int8": mrf_int8.launches,
+    return {"attention": attention.launches,
+            "attention_bf16": attention.launches_bf16,
+            "mrf_stage": mrf.launches, "mrf_stage_int8": mrf_int8.launches,
             "flash_fwd": flash_attention.launches_fwd,
             "flash_bwd": flash_attention.launches_bwd}
 
@@ -1508,7 +1548,8 @@ def zero_launch_counts():
     from tts_king_torch.ops.kernels import (attention, flash_attention, mrf,
                                             mrf_int8)
 
-    attention.launches = mrf.launches = mrf_int8.launches = 0
+    attention.launches = attention.launches_bf16 = 0
+    mrf.launches = mrf_int8.launches = 0
     flash_attention.launches_fwd = flash_attention.launches_bwd = 0
 
 
@@ -1527,13 +1568,20 @@ def phase_main_path():
     counts = launch_counts
 
     B, L, T = BENCH_B, BENCH_L, BENCH_T
+    fs2_bf16, voc = bench_fs2(cfg, n_spk), kings["bf16"].vocoder
     phonemes, speakers = bench_batch(n_spk)
-    am, voc = kings["bf16"].tts, kings["bf16"].vocoder
+    bench_in = (torch.tensor(speakers, device="cuda"),
+                torch.from_numpy(phonemes).cuda(),
+                torch.full((B,), L, dtype=torch.int32, device="cuda"))
+
+    def bench_generate():   # bench.py:139-147
+        with torch.inference_mode():
+            return fs2_bf16(*bench_in, max_mel_len=T)
+
     # one untimed call of each run: cuDNN's plans and the allocator's pools
     for king in kings.values():
         king.speak(SENTENCES[0])
-    voc(am.generate(phonemes, speaker_name=speakers,
-                    max_mel_len=T)["postnet_mel"])
+    voc(bench_generate()["postnet_mel"])
     torch.cuda.synchronize()
 
     # -- the main path's counted run: every count 0 just before it
@@ -1561,7 +1609,7 @@ def phase_main_path():
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    out = am.generate(phonemes, speaker_name=speakers, max_mel_len=T)
+    out = bench_generate()
     wav_f = voc(out["postnet_mel"])
     wav_i16 = wav_to_int16(wav_f, cfg.vocoder.max_wav_value)
     end.record()
@@ -1582,20 +1630,23 @@ def phase_main_path():
         if w.dtype != np.int16 or w.shape != (n * hop,):
             fail(f"speak: {w.dtype} {w.shape} vs int16 ({n * hop},)")
         d_att = after["attention"] - before["attention"]
+        d_bf16 = after["attention_bf16"] - before["attention_bf16"]
         d_mrf = after["mrf_stage"] - before["mrf_stage"]
-        if d_att < n_layers or d_mrf != n_fused:
-            fail(f"speak: attention launches {d_att} (>= {n_layers}), mrf "
-                 f"{d_mrf} (== {n_fused})")
+        if d_att < n_layers or d_bf16 or d_mrf != n_fused:
+            fail(f"speak: attention launches {d_att} (>= {n_layers}; "
+                 f"{d_bf16} bf16, == 0), mrf {d_mrf} (== {n_fused})")
         mrf_runs["f32"] += d_mrf
         emit({"phase": "main_path", "call": "TTSKing.speak", "dtype": "f32",
               "text": text, "mel_len": n, "samples": int(w.shape[0]),
               "wall_ms": ms, "rtf": ms / 1e3 / (w.shape[0] / sr),
-              "launches": {"attention": d_att, "mrf_stage": d_mrf},
-              "ok": True})
+              "launches": {"attention": d_att, "attention_bf16": d_bf16,
+                           "mrf_stage": d_mrf}, "ok": True})
 
     mel_lens = out["mel_lens"].cpu().numpy()
-    if tuple(out["postnet_mel"].shape) != (B, T, 80):
-        fail(f"batched mel shape {tuple(out['postnet_mel'].shape)}")
+    if (tuple(out["postnet_mel"].shape) != (B, T, 80)
+            or out["postnet_mel"].dtype != torch.bfloat16):
+        fail(f"batched mel {out['postnet_mel'].dtype} "
+             f"{tuple(out['postnet_mel'].shape)}: bf16 (B, T, 80)")
     if not bool(torch.isfinite(wav_f).all()):
         fail("batched: non-finite waveform")
     if wav_i16.dtype != torch.int16 or tuple(wav_i16.shape) != (B, T * hop):
@@ -1604,16 +1655,19 @@ def phase_main_path():
     if any(len(w) != n * hop for w, n in zip(trimmed, mel_lens)):
         fail("batched: trimmed lengths are not mel_len * hop")
     d_att = after_b["attention"] - before_b["attention"]
+    d_bf16 = after_b["attention_bf16"] - before_b["attention_bf16"]
     d_mrf = after_b["mrf_stage"] - before_b["mrf_stage"]
-    if d_att != n_layers or d_mrf != n_fused:
-        fail(f"batched: attention launches {d_att} (== {n_layers}), mrf "
-             f"{d_mrf} (== {n_fused})")
+    if d_att != n_layers or d_bf16 != n_layers or d_mrf != n_fused:
+        fail(f"batched: attention launches {d_att} ({d_bf16} bf16; both == "
+             f"{n_layers}), mrf {d_mrf} (== {n_fused})")
     mrf_runs["bf16"] = d_mrf
-    emit({"phase": "main_path", "call": "generate+vocode", "dtype": "bf16",
+    emit({"phase": "main_path", "call": "FastSpeech2+vocode",
+          "form": "bench.py's bf16 FastSpeech2", "dtype": "bf16",
           "shape": {"B": B, "L": L, "T_mel": T}, "wall_ms": batch_ms,
           "rtf": batch_ms / 1e3 / (B * T * hop / sr),
           "mel_lens_min_max": [int(mel_lens.min()), int(mel_lens.max())],
-          "launches": {"attention": d_att, "mrf_stage": d_mrf}, "ok": True})
+          "launches": {"attention": d_att, "attention_bf16": d_bf16,
+                       "mrf_stage": d_mrf}, "ok": True})
     for name in ("attention", "mrf_stage"):
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the synthesis path")
@@ -1726,16 +1780,17 @@ def alone_wavs(king, phonemes, speaker, dctl):
     return wavs
 
 
-def check_served_alone(king, requests, wavs, what, exact_f32=True):
+def check_served_alone(king, requests, wavs, what, exact_samples=True):
     """Each served wav against the same request run alone (alone_wavs, the
-    run of its padding whose length agrees). f32 (exact_f32): equal lengths
-    but for at most 1 request in 16 one frame off; where equal, samples
-    before the last generator_receptive_field frames more than 2 LSB apart
-    at under 1% of them. bf16: a duration is round(exp(logd) - 1) of a bf16
-    logd, and other kernels at another batch shape move logd by an ulp
-    (~0.4%, ~0.04 of a 5-frame duration), so about one phoneme in ten may
-    round the other way: lengths within max(2, 3%) frames of the run alone,
-    samples only reported (one bf16 rounding apart is up to 128 LSB)."""
+    run of its padding whose length agrees). Lengths, f32 and bf16 servers
+    alike (both compute FastSpeech2 in f32, the bf16 one on bf16-rounded
+    variables, as the JAX AcousticModel does): equal but for at most 1
+    request in 16 one frame off. Samples (exact_samples, the f32 server):
+    where the lengths are equal, samples before the last
+    generator_receptive_field frames more than 2 LSB apart at under 1% of
+    them; the bf16 server's vocoder computes in bf16, and other kernels at
+    another batch shape round otherwise (one bf16 rounding apart is up to
+    128 LSB), so its samples are only reported."""
     import numpy as np
     import torch
 
@@ -1760,20 +1815,18 @@ def check_served_alone(king, requests, wavs, what, exact_f32=True):
                        - want[:m].astype(np.int32)) > 2)) if m else 0.0, j))
         if not fracs:
             diff = min((len(got) - len(w)) // hop for w in alone)
-            n = len(alone[0]) // hop
-            if (abs(diff) > 1 if exact_f32 else
-                    abs(diff) > max(2, 0.03 * n)):
+            if abs(diff) > 1:
                 fail(f"{what}: request {i}: {len(got) // hop} frames "
-                     f"served, {n} alone")
+                     f"served, {[len(w) // hop for w in alone]} alone")
             off_frames[i] = diff
             continue
         frac, j = min(fracs)
         n_wider += j
         worst = max(worst, frac)
-        if exact_f32 and frac >= 0.01:
+        if exact_samples and frac >= 0.01:
             fail(f"{what}: request {i}: {frac:.2%} of samples > 2 LSB off "
                  "the request run alone")
-    if exact_f32 and len(off_frames) * 16 > len(requests):
+    if len(off_frames) * 16 > len(requests):
         fail(f"{what}: requests {off_frames} one frame off the runs alone")
     torch.cuda.synchronize()
     return {"frames_off": off_frames, "worst_frac_off_gt2": worst,
@@ -1855,8 +1908,9 @@ def phase_serving(kings, smi):
     TTSKing.speak_streaming at the JAX test's bound (> 1 LSB at under 0.1%
     of samples), the HTTP answers equal to submit / stream. Each burst
     follows one untimed burst of the same requests. Launch counts zeroed
-    just before each server's timed burst and read just after it: f32
-    gives rows 1f and 2f, bf16 rows 1 and 2."""
+    just before each server's timed burst and read just after it: both
+    servers' FastSpeech2 computes in f32 (row 1f); the f32 server's
+    vocoder gives row 2f, the bf16 one's row 2."""
     import numpy as np
     import torch
 
@@ -1886,6 +1940,12 @@ def phase_serving(kings, smi):
             counts = launch_counts()   # read just after the traffic
             launches[dname] = {k: counts[k] for k in ("attention",
                                                       "mrf_stage")}
+            # both servers' FastSpeech2 computes in f32 (the JAX
+            # AcousticModel's semantics): no bf16 attention launch
+            if counts["attention_bf16"]:
+                fail(f"serving {dname}: {counts['attention_bf16']} attention "
+                     "launches on bf16 inputs; FastSpeech2 computes in f32")
+            launches[dname]["attention_bf16"] = counts["attention_bf16"]
             res = {"prewarm_s": prewarm_s, "prewarmed": warmed,
                    "first_burst_wall_s": first_wall,
                    **serve_summary(server, requests, wavs, lat, wall, sr,
@@ -1894,12 +1954,12 @@ def phase_serving(kings, smi):
             if (res["stats"]["failed"]
                     or res["stats"]["completed"] != 2 * n_req):
                 fail(f"serving {dname}: stats {res['stats']}")
-            for name, n in launches[dname].items():
-                if n == 0:
+            for name in ("attention", "mrf_stage"):
+                if launches[dname][name] == 0:
                     fail(f"serving {dname}: kernel {name} was not launched")
             res["vs_alone"] = check_served_alone(
                 king, requests, wavs, f"serving {dname}",
-                exact_f32=dname == "f32")
+                exact_samples=dname == "f32")
             if chunks:
                 ref = np.concatenate(list(king.speak_streaming(text)))
                 got = np.concatenate(chunks)
@@ -2328,34 +2388,330 @@ def phase_cwt_speak(cfg, state, tmp, smi):
     return launches
 
 
-def phase_cwt_path(smi):
+def phase_cwt_path(smi, tmp):
     """The data-preparation path and the CWT FastSpeech2 on the card: a
     raw corpus (CWT_CORPUS) through the Preprocessor, train() of a
     use_cwt=True model at the shipped width on the card's features, and
     speak through it (phase_cwt_features, phase_cwt_training,
-    phase_cwt_speak). Every launch count is zeroed just before each path
-    and read just after. Returns the training and speak launch counts."""
-    import shutil
-    import tempfile
-
+    phase_cwt_speak), under ``tmp``. Every launch count is zeroed just
+    before each path and read just after. Returns the training and speak
+    launch counts, and the raw corpus and its card features (kept under
+    ``tmp`` for phase_finetune_path)."""
     from tts_king_torch.config import StepConfig
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_cwt_")
-    try:
-        cfg = main_config()
-        cfg.model.use_cwt = True
-        cfg.preprocess.raw_path = os.path.join(tmp, "raw")
-        cfg.train.ckpt_path = os.path.join(tmp, "ckpt")
-        cfg.train.result_path = os.path.join(tmp, "result")
-        cfg.train.step = StepConfig(total_step=TRAIN_STEPS, log_step=1,
-                                    synth_step=10 ** 6, val_step=TRAIN_STEPS,
-                                    save_step=TRAIN_STEPS)
-        phase_cwt_features(cfg, tmp, smi)
-        train_launches, state = phase_cwt_training(cfg, smi)
-        speak_launches = phase_cwt_speak(cfg, state, tmp, smi)
-        return {"train": train_launches, "speak": speak_launches}
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    cfg = main_config()
+    cfg.model.use_cwt = True
+    cfg.preprocess.raw_path = os.path.join(tmp, "raw")
+    cfg.train.ckpt_path = os.path.join(tmp, "ckpt")
+    cfg.train.result_path = os.path.join(tmp, "result")
+    cfg.train.step = StepConfig(total_step=TRAIN_STEPS, log_step=1,
+                                synth_step=10 ** 6, val_step=TRAIN_STEPS,
+                                save_step=TRAIN_STEPS)
+    features = phase_cwt_features(cfg, tmp, smi)
+    train_launches, state = phase_cwt_training(cfg, smi)
+    speak_launches = phase_cwt_speak(cfg, state, tmp, smi)
+    return ({"train": train_launches, "speak": speak_launches},
+            cfg.preprocess.raw_path, features)
+
+
+# ------------------------------------------------ fine-tuning on FS2 mels
+
+FT_SYNTH_STEP = 2      # train()'s previews at steps 2 and 4
+FT_MEL_BATCH = 16      # make_base_mels' batch
+FT_OBJECTIVE_UTTS = 4  # evaluate --objective's utterances
+
+
+class PreviewRecorder:
+    """A Vocoder whose generate() calls (the previews) are recorded."""
+
+    def __init__(self, vocoder):
+        self.vocoder, self.calls = vocoder, []
+
+    def generate(self, mel, lengths=None):
+        wavs = self.vocoder.generate(mel, lengths)
+        self.calls.append((mel, list(lengths), wavs))
+        return wavs
+
+
+def quietly(fn, *args, **kw):
+    """fn(*args, **kw) in this process with its stdout captured (this
+    script's stdout carries its JSON lines); returns (result, stdout)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args, **kw)
+    return result, buf.getvalue()
+
+
+def finetune_train(cfg, voc_vars):
+    """Stage 1: train() of the shipped FastSpeech2 (no CWT) for
+    TRAIN_STEPS steps, previews every FT_SYNTH_STEP through an f32 Vocoder:
+    each preview's wav is Vocoder.generate of its mel. Returns (state,
+    record)."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from tts_king_torch.pipeline import Vocoder
+    from tts_king_torch.train.loop import train
+    from tts_king_torch.utils.plotting import matplotlib_available
+
+    rec = PreviewRecorder(Vocoder(cfg, voc_vars, device="cuda"))
+    tc = cfg.model.transformer
+    per_step = ((tc.encoder_layer + tc.decoder_layer)
+                * cfg.train.optimizer.grad_acc_step)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    state = train(cfg, max_steps=TRAIN_STEPS, vocoder=rec, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()   # read just after the path's run
+    if state.step != TRAIN_STEPS:
+        fail(f"finetune train: ended at step {state.step}")
+    if (launches["flash_fwd"] != per_step * TRAIN_STEPS
+            or launches["flash_bwd"] != per_step * TRAIN_STEPS):
+        fail(f"finetune train: flash launches {launches}")
+    steps = list(range(FT_SYNTH_STEP, TRAIN_STEPS + 1, FT_SYNTH_STEP))
+    result = cfg.train.result_path
+    previews, calls = [], iter(rec.calls)
+    hop = cfg.preprocess.stft.hop_length
+    plots = matplotlib_available()
+    for step in steps:
+        _, wav = wavfile.read(os.path.join(result, f"step_{step}.wav"))
+        png = os.path.exists(os.path.join(result, f"step_{step}.png"))
+        if png != plots:
+            fail(f"finetune preview {step}: png {png}, matplotlib {plots}")
+        frames = len(wav) // hop
+        if frames:
+            mel, lengths, wavs = next(calls)
+            again = rec.vocoder.generate(mel, lengths=lengths)[0]
+            if not (np.array_equal(wav, wavs[0])
+                    and np.array_equal(wav, again)
+                    and lengths == [mel.shape[1] * hop] == [len(wav)]):
+                fail(f"finetune preview {step}: the wav is not "
+                     "Vocoder.generate of its mel")
+        previews.append({"step": step, "frames": frames, "png": png})
+    if not plots:
+        print("chip_smoke: matplotlib is not installed; the previews' "
+              "PNGs were skipped", file=sys.stderr, flush=True)
+    n_fused = len(fused_stages(cfg, BENCH_T))
+    if not rec.calls or launches["mrf_stage"] != n_fused * len(rec.calls):
+        fail(f"finetune train: {len(rec.calls)} vocoded previews, mrf "
+             f"launches {launches['mrf_stage']}")
+    return state, {"wall_s": wall, "previews": previews, "pngs": plots,
+                   "launches": launches}
+
+
+def finetune_base_mels(cfg):
+    """Stage 2: make_base_mels at batch FT_MEL_BATCH over every utterance:
+    one mel and one wav each, the mel the ground-truth mel's frames, the
+    wav T * hop samples."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from tts_king_torch.tools.make_base_mels import make_base_mels
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    out_dir, out = quietly(make_base_mels, cfg, batch_size=FT_MEL_BATCH,
+                           device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    root = cfg.preprocess.preprocessed_path
+    per_split = []
+    for name in ("train.txt", "val.txt"):
+        with open(os.path.join(root, name), encoding="utf-8") as f:
+            per_split.append(sum(1 for _ in f))
+    n_utts = sum(per_split)
+    mels = sorted(os.listdir(os.path.join(out_dir, "mels")))
+    wavs = sorted(os.listdir(os.path.join(out_dir, "wavs")))
+    if len(mels) != n_utts or [m[:-4] for m in mels] != [w[:-4]
+                                                         for w in wavs]:
+        fail(f"make_base_mels: {len(mels)} mels, {len(wavs)} wavs, "
+             f"{n_utts} utterances")
+    hop = cfg.preprocess.stft.hop_length
+    for m in mels:
+        mel = np.load(os.path.join(out_dir, "mels", m))
+        _, wav = wavfile.read(os.path.join(out_dir, "wavs", m[:-4] + ".wav"))
+        spk, utt = m[:-4].split("-", 1)
+        gt = np.load(os.path.join(root, "mel", f"{spk}-mel-{utt}.npy"),
+                     mmap_mode="r")
+        if (mel.shape != (min(gt.shape[0], cfg.model.max_seq_len), 80)
+                or not np.isfinite(mel).all() or wav.dtype != np.int16
+                or len(wav) != mel.shape[0] * hop):
+            fail(f"make_base_mels {m}: mel {mel.shape}, ground truth "
+                 f"{gt.shape}, wav {wav.dtype} {wav.shape}")
+    n_batches = sum(-(-n // FT_MEL_BATCH) for n in per_split)
+    tc = cfg.model.transformer
+    if launches["attention"] != n_batches * (tc.encoder_layer
+                                             + tc.decoder_layer):
+        fail(f"make_base_mels: attention launches {launches['attention']} "
+             f"for {n_batches} batches")
+    return out_dir, {"wall_s": wall, "utterances": len(mels),
+                     "batches": n_batches, "launches": launches,
+                     "log": out.strip().splitlines()[-1]}
+
+
+def finetune_vocoder(cfg, out_dir):
+    """Stage 3: train_vocoder(fine_tuning=True) on the (ground-truth wav,
+    FastSpeech2 mel) pairs, TRAIN_STEPS steps at batch GAN_LOOP_BATCH, the
+    published discriminator widths (phase_gan_train_vocoder's settings)."""
+    import numpy as np
+    import torch
+
+    from tts_king_torch.train.vocoder_loop import train_vocoder
+
+    wavs = sorted(os.path.join(out_dir, "wavs", n)
+                  for n in os.listdir(os.path.join(out_dir, "wavs")))
+    cfg.vocoder.batch_size = GAN_LOOP_BATCH
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    state = train_vocoder(cfg, wavs[2:], val_paths=wavs[:2],
+                          max_steps=TRAIN_STEPS, log_every=1,
+                          save_every=TRAIN_STEPS, fine_tuning=True,
+                          base_mels_path=os.path.join(out_dir, "mels"),
+                          device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    with open(os.path.join(cfg.train.result_path,
+                           f"{cfg.exp_name}_vocoder.metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    mel_l1 = [r["mel_l1"] for r in recs if r["phase"] == "vocoder"]
+    if (state.step != TRAIN_STEPS or len(mel_l1) != TRAIN_STEPS
+            or not np.all(np.isfinite(mel_l1))):
+        fail(f"finetune train_vocoder: step {state.step}, mel L1 {mel_l1}")
+    return state, {"wall_s": wall, "wavs": len(wavs), "mel_l1": mel_l1,
+                   "val_mel_l1": [r["val_mel_l1"] for r in recs
+                                  if r["phase"] == "vocoder_val"],
+                   "launches": launches}
+
+
+def finetune_clis(cfg, fs2_state, gan_state, tmp):
+    """Stage 6: the trained FastSpeech2 and the fine-tuned vocoder through
+    ``python -m tts_king_torch.tools.synthesize`` (held against
+    TTSKing.speak at golden_e2e's bound) and ``evaluate --objective`` (F0
+    through the vocoder and YIN on the card), in this process, from a config
+    file written as JSON (which YAML reads): the FastSpeech2 as npz beside
+    its stats.json and speakers.json and as a checkpoint, its duration head
+    set to about five frames a phoneme as in phase_cwt_speak (4 steps leave
+    it near its random init); the vocoder folded, as npz."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from tts_king_torch.pipeline import TTSKing
+    from tts_king_torch.tools import evaluate, synthesize
+    from tts_king_torch.train.checkpoint import save_train_state
+    from tts_king_torch.train.vocoder import export_inference_params
+
+    model_dir = os.path.join(tmp, "ft_model")
+    os.makedirs(model_dir)
+    for name in ("stats.json", "speakers.json"):
+        shutil.copy(os.path.join(cfg.preprocess.preprocessed_path, name),
+                    model_dir)
+    head = fs2_state.model.variance_adaptor.duration_predictor.linear_layer
+    with torch.no_grad():
+        head.weight.mul_(0.1)
+        head.bias.fill_(math.log(6.0))
+    cfg.train.ckpt_path = os.path.join(tmp, "ft_ckpt_cli")
+    save_train_state(cfg.train.ckpt_path, fs2_state.step, fs2_state)
+    cfg.acoustic.weights_path = os.path.join(model_dir, "fs2.npz")
+    save_npz_weights(cfg.acoustic.weights_path,
+                     {k: v.cpu() for k, v in
+                      fs2_state.model.state_dict().items()})
+    cfg.vocoder.weights_path = os.path.join(model_dir, "generator.npz")
+    save_npz_weights(cfg.vocoder.weights_path,
+                     {k: v.cpu() for k, v in
+                      export_inference_params(gan_state.gen).items()})
+    cfg.preprocess.lexicon_path = os.path.join(E2E_DIR, "lexicon.dict")
+    path = os.path.join(tmp, "ft_config.yaml")
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+
+    out = {}
+    text, out_dir = SENTENCES[1], os.path.join(tmp, "ft_synth")
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    code, log = quietly(synthesize.main, ["--config", path, "--text", text,
+                                          "--out", out_dir,
+                                          "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    _, wav = wavfile.read(os.path.join(out_dir, "utt_0.wav"))
+    want = TTSKing(path, device="cuda").speak(text)[0]
+    frac = (float(np.mean(np.abs(wav.astype(np.int32) - want) > 2))
+            if wav.shape == want.shape else 1.0)
+    if code != 0 or not len(wav) or frac >= 1e-3:
+        fail(f"synthesize: exit {code}, {wav.shape} vs speak {want.shape}, "
+             f"{frac:.2%} of samples > 2 LSB off")
+    out["synthesize"] = {"wall_s": time.perf_counter() - t0,
+                         "samples": int(len(wav)), "frac_off_gt2": frac,
+                         "launches": launches}
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    code, log = quietly(evaluate.main, [path, "--objective",
+                                        "--objective-utts",
+                                        str(FT_OBJECTIVE_UTTS),
+                                        "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    report = json.loads(log.strip().splitlines()[-1])
+    keys = ("total", "mel", "mcd_db", "duration_mae_frames", "f0_rmse_hz",
+            "vuv_f1")
+    if code != 0 or any(report.get(k) is None for k in keys) \
+            or report["step"] != TRAIN_STEPS:
+        fail(f"evaluate --objective: exit {code}, {report}")
+    out["evaluate"] = {"wall_s": time.perf_counter() - t0,
+                       "report": report, "launches": launches}
+    return out
+
+
+def phase_finetune_path(smi, raw, features, tmp):
+    """Fine-tuning HiFi-GAN on the acoustic model's own mels, the recipe
+    of scripts/make_base_mels.py then train_vocoder --fine-tuning, at the
+    shipped width on the CWT phase's corpus (raw wavs and TextGrids under
+    ``raw``, card features under ``features``): (1) train() of the
+    non-CWT FastSpeech2 with previews; (2) make_base_mels; (3)
+    train_vocoder(fine_tuning=True); (4-5) the export into the fused
+    Generator, f32 and bf16, against the weight-norm route; (6) the
+    synthesize and evaluate --objective CLIs. Counts zeroed just before
+    each stage and read just after. Returns each stage's launches (the
+    export's: MRF launches per dtype)."""
+    from tts_king_torch.config import StepConfig
+    from tts_king_torch.models.hifigan import Generator
+
+    t_phase = time.perf_counter()
+    cfg = main_config()
+    cfg.preprocess.raw_path = raw
+    cfg.preprocess.preprocessed_path = features
+    cfg.train.ckpt_path = os.path.join(tmp, "ft_ckpt")
+    cfg.train.result_path = os.path.join(tmp, "ft_result")
+    cfg.train.step = StepConfig(total_step=TRAIN_STEPS, log_step=1,
+                                synth_step=FT_SYNTH_STEP,
+                                val_step=TRAIN_STEPS, save_step=TRAIN_STEPS)
+    voc_vars = seeded_flax_variables(lambda: Generator(cfg.vocoder), seed=1)
+    stages = {}
+    fs2_state, stages["train"] = finetune_train(cfg, voc_vars)
+    out_dir, stages["base_mels"] = finetune_base_mels(cfg)
+    state, stages["train_vocoder"] = finetune_vocoder(cfg, out_dir)
+    t0 = time.perf_counter()
+    export = phase_gan_export(state, smi, phase="finetune_path")
+    stages["export"] = {"wall_s": time.perf_counter() - t0,
+                        "launches": export}
+    stages.update(finetune_clis(cfg, fs2_state, state, tmp))
+    emit({"phase": "finetune_path", "stages": stages,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi,
+          "ok": True})
+    return {name: stage["launches"] for name, stage in stages.items()}
 
 
 def train_state_at_width(device="cuda"):
@@ -2609,7 +2965,7 @@ def phase_gan_train_vocoder(tmp, smi, device="cuda"):
     return state
 
 
-def phase_gan_export(state, smi, device="cuda"):
+def phase_gan_export(state, smi, device="cuda", phase="gan_path"):
     """The trained generator folded (export_inference_params) into
     Generator(mrf_backend="fused"), in f32 and cast to bf16, on one
     GAN_EXPORT_T-frame mel, held against the plain weight-norm route in the
@@ -2652,7 +3008,7 @@ def phase_gan_export(state, smi, device="cuda"):
         if launches[dname] != n_fused:
             fail(f"GAN export {dname}: {launches[dname]} MRF launches in one "
                  f"Generator call, not {n_fused}")
-        emit({"phase": "gan_path", "step": "export", "dtype": dname,
+        emit({"phase": phase, "step": "export", "dtype": dname,
               "T_mel": GAN_EXPORT_T, "max_abs_err": err, "tol": tol,
               "wav_peak": float(ref.abs().max()), "mrf_launches": launches[
                   dname], "fused_ms": ms, "plain_wn_ms": plain_ms,
@@ -2760,7 +3116,8 @@ def attention_timing_row(cfg, launches, errs, mel_lens):
     row = {"name": "attention", "route": "cuda",
            "source": "tts_king_torch/csrc/attention.cu",
            "replaces": "tts_king_tpu/ops/pallas/attention.py:29",
-           "launches": launches["attention"], "dtype": "bf16",
+           "launches": launches["attention"],
+           "launches_bf16": launches["attention_bf16"], "dtype": "bf16",
            **out["bf16"], "f32": out["f32"],
            "note": "ms, plain_ms, library_ms, bound_ms, max_abs_err: bf16 at "
                    "the batched shape; f32: speak's decoder call; "
@@ -3005,25 +3362,55 @@ def main():
     torch.cuda.empty_cache()
     int8_launches = phase_int8_vocoder(main_config())
     train_launches = phase_train_path()
-    cwt_launches = phase_cwt_path(smi)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cwt_")
+    try:
+        cwt_launches, raw, features = phase_cwt_path(smi, tmp)
+        torch.cuda.empty_cache()
+        ft_launches = phase_finetune_path(smi, raw, features, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     gan_launches = phase_gan_path(smi)
     torch.cuda.empty_cache()
     phase_train_step_time(smi)
     rows = phase_timing(main_config(), launches, train_launches, errs,
                         mel_lens, mrf_runs)
-    for row in rows[:2]:   # attention (rows 1, 1f), mrf_stage (2, 2f)
-        row["launches_serving"] = {dname: serving_launches[dname][row["name"]]
-                                   for dname in ("bf16", "f32")}
-        # the CWT model's 3 speak calls (f32) and its training run
-        # (validation's attention)
-        row["launches_cwt"] = {p: cwt_launches[p][row["name"]]
+    attn, mrf_row = rows[0], rows[1]  # rows 1 and 1f, rows 2 and 2f
+    # serving: both servers' FastSpeech2 computes in f32 (row 1f); the f32
+    # server's vocoder runs row 2f, the bf16 server's row 2
+    attn["launches_serving"] = {
+        f"{d}_server": serving_launches[d]["attention_bf16"]
+        for d in ("f32", "bf16")}
+    attn["f32"]["launches_serving"] = {
+        f"{d}_server": serving_launches[d]["attention"]
+        - serving_launches[d]["attention_bf16"] for d in ("f32", "bf16")}
+    mrf_row["launches_serving"] = serving_launches["bf16"]["mrf_stage"]
+    mrf_row["f32"]["launches_serving"] = serving_launches["f32"]["mrf_stage"]
+    for row, name in ((attn["f32"], "attention"),
+                      (mrf_row["f32"], "mrf_stage")):
+        # the CWT model's 3 speak calls and its training run (validation's
+        # attention); all f32
+        row["launches_cwt"] = {p: cwt_launches[p][name]
                                for p in ("speak", "train")}
     rows[-1]["launches_cwt"] = {k: cwt_launches["train"][k]
                                 for k in ("flash_fwd", "flash_bwd")}
     # the GAN path's export check: one fused Generator call per dtype
-    rows[1]["launches_gan"] = gan_launches["bf16"]
-    rows[1]["f32"]["launches_gan"] = gan_launches["f32"]
+    mrf_row["launches_gan"] = gan_launches["bf16"]
+    mrf_row["f32"]["launches_gan"] = gan_launches["f32"]
+    # the fine-tuning path (f32 but its export's bf16 call): attention in
+    # the training run's validation and previews, make_base_mels and the
+    # CLIs; the MRF passes in the previews, the export and the CLIs; flash
+    # in the training steps
+    stages = ("train", "base_mels", "train_vocoder", "synthesize",
+              "evaluate")
+    attn["f32"]["launches_finetune"] = {
+        k: ft_launches[k]["attention"] for k in stages}
+    mrf_row["f32"]["launches_finetune"] = {
+        **{k: ft_launches[k]["mrf_stage"] for k in stages},
+        "export": ft_launches["export"]["f32"]}
+    mrf_row["launches_finetune"] = {"export": ft_launches["export"]["bf16"]}
+    rows[-1]["launches_finetune"] = {k: ft_launches["train"][k]
+                                     for k in ("flash_fwd", "flash_bwd")}
     rows.insert(2, int8_timing_row(main_config(), int8_launches,
                                    errs["mrf_stage_int8"]["bf16"]))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -147,6 +147,106 @@ def test_ragged_batch_and_speakers():
         am.generate(phonemes, speaker_name=[0, 1, 2])
 
 
+def _seeded_fs2_variables(cfg, n_speakers, seed=0):
+    """Seeded numpy FS2 weights in the flax layout (BatchNorm running stats
+    included), with a duration head that gives each phoneme ~5 frames."""
+    import math
+
+    from tts_king_torch.models.fs2 import build_fastspeech2
+    from tts_king_torch.weights import seeded_state_dict, torch_to_flax
+
+    stats = {"pitch": [-3.0, 9.5], "energy": [-1.5, 6.1]}
+    with torch.device("meta"):
+        module = build_fastspeech2(cfg.model, stats, n_speakers)
+    variables = torch_to_flax(seeded_state_dict(module, seed))
+    head = variables["params"]["variance_adaptor"]["duration_predictor"]
+    head["linear_layer"]["kernel"] *= 0.1
+    head["linear_layer"]["bias"][:] = math.log(6.0)
+    return variables
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_acoustic_model_dtype_matches_jax(dtype):
+    """AcousticModel(dtype=...) against the JAX AcousticModel on the same
+    seeded flax variables, a ragged batch of two speakers. In bf16 JAX
+    rounds the variable tree (params and batch_stats) to bf16 and computes
+    in f32 on it; the port must do the same: equal rounded durations and
+    lengths, mels at golden_fs2's 1e-5."""
+    import jax.numpy as jnp
+
+    from tts_king_torch.config import micro_config
+    from tts_king_torch.pipeline import AcousticModel
+    from tts_king_tpu.config import micro_config as jax_micro_config
+    from tts_king_tpu.pipeline import AcousticModel as JaxAcousticModel
+
+    variables = _seeded_fs2_variables(micro_config(), 3)
+    rng = np.random.RandomState(1)
+    phonemes = rng.randint(1, 200, (3, 21))
+    phonemes[1, 15:] = 0
+    phonemes[2, 9:] = 0
+    kw = dict(speaker_name=[0, 2, 1], src_lens=[21, 15, 9],
+              duration_control=1.1)
+    want = JaxAcousticModel(jax_micro_config(), variables, n_speakers=3,
+                            dtype=getattr(jnp, dtype)).generate(phonemes,
+                                                                **kw)
+    am = AcousticModel(micro_config(), variables, n_speakers=3,
+                       dtype=getattr(torch, dtype), device="cpu")
+    got = am.generate(phonemes, **kw)
+    assert got["mel_bucket"] == want["postnet_mel"].shape[1]
+    for key in ("duration_rounded", "mel_lens", "mel_lens_raw"):
+        np.testing.assert_array_equal(got[key].numpy(),
+                                      np.asarray(want[key]), err_msg=key)
+    assert int(got["mel_lens"].min()) > 20
+    for key in ("log_duration_prediction", "mel", "postnet_mel"):
+        assert got[key].dtype == torch.float32
+        np.testing.assert_allclose(got[key].numpy(),
+                                   np.asarray(want[key], np.float32),
+                                   rtol=1e-5, atol=1e-5, err_msg=key)
+    # the sinusoid table and the variance bins are no variables: unrounded
+    pos = am.model.encoder._pos(8, torch.device("cpu"), torch.float32)
+    assert not torch.equal(pos, pos.to(torch.bfloat16).float())
+    bins = am.model.variance_adaptor._bins["pitch"]
+    assert not torch.equal(bins, bins.to(torch.bfloat16).float())
+
+
+def test_bf16_fs2_bench_form_computes_in_bf16():
+    """FastSpeech2 cast to bf16 (the JAX bench's build_fastspeech2(dtype=
+    bf16)) stays reachable and computes in bf16."""
+    from tts_king_torch.config import micro_config
+    from tts_king_torch.models.fs2 import build_fastspeech2
+    from tts_king_torch.weights import flax_to_torch, load_into
+
+    cfg = micro_config()
+    stats = {"pitch": [-3.0, 9.5], "energy": [-1.5, 6.1]}
+    model = load_into(build_fastspeech2(cfg.model, stats, 3), flax_to_torch(
+        _seeded_fs2_variables(cfg, 3))).to(torch.bfloat16).eval()
+    texts = torch.from_numpy(np.random.RandomState(2).randint(1, 200, (2, 16)))
+    with torch.no_grad():
+        out = model(torch.tensor([0, 1]), texts, torch.tensor([16, 16]),
+                    max_mel_len=128)
+    assert out["postnet_mel"].dtype == torch.bfloat16
+    assert bool(torch.isfinite(out["postnet_mel"].float()).all())
+
+
+def test_attention_probs_bf16_refused_on_every_route():
+    """The JAX XLA attention rounds the softmax probabilities to bf16 with
+    attention_probs_bf16=True, at inference too; the port's FastSpeech2
+    refuses the flag wherever it is built: AcousticModel (generate,
+    speak, serving), TTSKing, and the training and evaluation paths."""
+    from tts_king_torch.config import micro_config
+    from tts_king_torch.models.fs2 import build_fastspeech2
+    from tts_king_torch.pipeline import AcousticModel, TTSKing
+
+    cfg = micro_config()
+    cfg.model = dataclasses.replace(cfg.model, attention_probs_bf16=True)
+    stats = {"pitch": [-3.0, 9.5], "energy": [-1.5, 6.1]}
+    for make in (lambda: build_fastspeech2(cfg.model, stats, 1),
+                 lambda: AcousticModel(cfg, device="cpu"),
+                 lambda: TTSKing(cfg, device="cpu")):
+        with pytest.raises(NotImplementedError, match="attention_probs_bf16"):
+            make()
+
+
 def test_entry_points_default_to_cuda():
     """With no device argument the port asks for CUDA, and raises where
     there is none; the CPU is used only when asked for."""

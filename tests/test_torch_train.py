@@ -417,20 +417,8 @@ def test_unported_training_paths_raise(tmp_path):
     bf16 = dataclasses.replace(cfg.model, attention_probs_bf16=True)
     with pytest.raises(NotImplementedError, match="bf16"):
         train(dataclasses.replace(cfg, model=bf16), device="cpu")
-    with pytest.raises(NotImplementedError, match="vocoder"):
-        train(cfg, vocoder=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="parallelism"):
         main(["--distributed"])
-    voc = tmp_path / "generator.npz"
-    voc.write_bytes(b"")
-    cfg.vocoder.weights_path = str(voc)
-    path = tmp_path / "cfg.yaml"
-    with open(path, "w") as f:
-        import yaml
-
-        yaml.safe_dump(json.loads(json.dumps(dataclasses.asdict(cfg))), f)
-    with pytest.raises(NotImplementedError, match="--no-vocoder"):
-        main([str(path), "--device", "cpu"])
     # an orbax directory (no train_state.pt) names the export script
     os.makedirs(tmp_path / "orbax" / "step_00000007")
     with pytest.raises(NotImplementedError, match="export_flax_variables"):

@@ -7,7 +7,11 @@ path and the kernel's test oracle. The package imports torch, numpy and the
 standard library only; nothing of JAX or of tts_king_tpu.
 
 Entry points: ``tts_king_torch.pipeline.TTSKing`` / ``AcousticModel`` /
-``Vocoder``, and the server ``tts_king_torch.serve.SynthesisServer``
-(``python -m tts_king_torch.serve``). They run on CUDA unless given
-``device="cpu"``.
+``Vocoder``, the server ``tts_king_torch.serve.SynthesisServer``
+(``python -m tts_king_torch.serve``), the data, training and vocoder
+training CLIs (``python -m tts_king_torch.data``, ``.train``,
+``.train.vocoder_loop``), the tools (``python -m
+tts_king_torch.tools.make_base_mels``, ``.synthesize``, ``.evaluate``,
+``.speaker_stats``) and the examples (``tts_king_torch.examples``). They
+run on CUDA unless given ``device="cpu"`` (``--device cpu``).
 """

@@ -95,6 +95,9 @@ class FS2Dataset:
         with open(os.path.join(self.root, "speakers.json")) as f:
             self.speaker_map = json.load(f)
 
+    def __len__(self):
+        return len(self.meta)
+
     def _npy_path(self, kind, speaker, name):
         subdir = "pitch" if "pitch" in kind else kind
         return os.path.join(self.root, subdir, f"{speaker}-{kind}-{name}.npy")

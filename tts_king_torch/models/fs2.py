@@ -239,6 +239,15 @@ class FastSpeech2(nn.Module):
                  n_mel_channels=80):
         super().__init__()
         mc = model_config
+        if mc.attention_probs_bf16:
+            # the JAX package's XLA attention (use_pallas_attention and
+            # use_flash_attention False) rounds the normalized softmax
+            # probabilities to bf16 before P.V, in training, evaluation
+            # and inference alike; the port's kernels do not
+            raise NotImplementedError(
+                "attention_probs_bf16=True: attention with bf16 "
+                "probabilities is not ported yet; it comes with the bf16 "
+                "attention slice of the port")
         tc = mc.transformer
         self.model_config = mc
         self.encoder = Encoder(

@@ -86,10 +86,16 @@ class BatchNorm(nn.BatchNorm1d):
 
     def __init__(self, num_features, eps=LN_EPS):
         super().__init__(num_features, eps=eps, momentum=1.0 - BN_MOMENTUM)
+        # None, or the eval-mode multiplier fixed by
+        # pipeline.round_variables (flax's on variables rounded to bf16)
+        self.register_buffer("eval_mul", None, persistent=False)
 
     def forward(self, x):
         if not self.training:
-            return super().forward(x)
+            if self.eval_mul is None:
+                return super().forward(x)
+            return ((x - self.running_mean[:, None]) * self.eval_mul[:, None]
+                    + self.bias[:, None])
         mean = x.mean(dim=(0, 2))
         var = ((x * x).mean(dim=(0, 2)) - mean * mean).clamp(min=0.0)
         with torch.no_grad():

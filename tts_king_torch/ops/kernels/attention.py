@@ -4,7 +4,8 @@ plain PyTorch version.
 Port of ``fused_attention`` (tts_king_tpu/ops/pallas/attention.py). The
 wrapper dispatches on where its tensors lie: CPU tensors go to
 ``attention_plain``; CUDA tensors launch the kernel, or raise. ``launches``
-counts the kernel's launches.
+counts the kernel's launches, ``launches_bf16`` those of them on bf16
+inputs.
 """
 
 import math
@@ -15,6 +16,7 @@ from tts_king_torch.ops.kernels import _build
 
 NEG_INF = -1e9
 launches = 0
+launches_bf16 = 0
 
 
 def attention_plain(q, k, v, key_pad_mask):
@@ -93,4 +95,6 @@ def attention(q, k, v, key_pad_mask):
         st, osb, osh, ost, 1.0 / math.sqrt(D), _build.current_stream(q.device))
     _build.check(lib, err, "attention")
     _build.count_launch(globals())
+    if q.dtype == torch.bfloat16:
+        _build.count_launch(globals(), "launches_bf16")
     return out

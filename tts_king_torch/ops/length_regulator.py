@@ -41,6 +41,13 @@ def length_regulate(x, durations, max_mel_len):
     return out, mel_len
 
 
+def expand_values(values, durations, max_mel_len):
+    """Frame-expand per-phoneme scalars (pitch, energy) the same way:
+    (B, L) -> (B, T) (tools.expand, fs_two/utils/tools.py:134)."""
+    out, _ = length_regulate(values[:, :, None], durations, max_mel_len)
+    return out[:, :, 0]
+
+
 def round_durations(log_duration_pred, d_control):
     """Inference duration rounding, bit-matching the reference:
     clamp(round((exp(logd) - 1)) * d_control, min=0)

@@ -16,8 +16,16 @@ fsapi.py FSTWOapi, hifiapi.py HIFIapi), inference with HiFi-GAN or MelGAN:
 
 Every entry point takes ``device`` (default "cuda", which raises when CUDA is
 missing; the CPU is used only when asked for) and ``dtype`` (float32 or
-bfloat16: the dtype of the weights and activations, as in the JAX bench's
-``build_fastspeech2(dtype=...)`` and ``Generator(dtype=...)``).
+bfloat16), with the JAX package's meaning:
+  * ``AcousticModel(dtype=bf16)`` rounds the FastSpeech2 variables (the
+    parameters and the BatchNorm running statistics) to bf16 and computes
+    in f32 on them, as the JAX AcousticModel casts its variable tree and
+    keeps its f32 flax modules; the sinusoid table and the pitch/energy
+    bins are no variables and stay f32;
+  * ``Vocoder(dtype=bf16)`` holds and computes the Generator in bf16, as
+    ``Generator(dtype=bf16)`` does.
+FastSpeech2 computed in bf16 (the JAX bench's ``build_fastspeech2(dtype=
+bf16)``) is ``build_fastspeech2(...).to(torch.bfloat16)``.
 
 Weights come from ``variables=`` (a flax-style tree of numpy arrays, or a
 state dict) or from a weights path: an ``.npz`` export (``var::`` naming,
@@ -136,10 +144,31 @@ def _weights_from_path(path, what, convert_torch):
     return convert_torch(path)
 
 
-def _materialize(build, variables, weights_path, device, dtype, seed, what,
+def round_variables(module, dtype):
+    """Round ``module``'s floating parameters and buffers to ``dtype`` in
+    place, keeping their f32 storage (the JAX AcousticModel's cast of its
+    variable tree), and fix each BatchNorm's eval multiplier as flax
+    computes it on such variables: rsqrt(var + eps) in ``dtype`` (eps, the
+    sum and the rsqrt each rounded), its product with the scale in f32,
+    unrounded."""
+    from tts_king_torch.models.layers import BatchNorm
+
+    with torch.no_grad():
+        for t in list(module.parameters()) + list(module.buffers()):
+            if t.is_floating_point():
+                t.copy_(t.to(dtype))
+        for m in module.modules():
+            if isinstance(m, BatchNorm):
+                eps = float(torch.tensor(m.eps, dtype=dtype))
+                inv = torch.rsqrt((m.running_var + eps).to(dtype).float())
+                m.eval_mul = inv.to(dtype).float() * m.weight
+    return module
+
+
+def _materialize(build, variables, weights_path, device, seed, what,
                  convert_torch):
     """Build a module on the meta device (no init, no global RNG), allocate
-    it on ``device``, fill it, cast it to ``dtype`` and set eval mode."""
+    it on ``device``, fill it and set eval mode."""
     with torch.device("meta"):
         module = build()
     if variables is not None:
@@ -150,7 +179,7 @@ def _materialize(build, variables, weights_path, device, dtype, seed, what,
         sd = seeded_state_dict(module, seed)
     module = module.to_empty(device=device)
     load_into(module, sd)
-    return module.to(dtype).eval()
+    return module.eval()
 
 
 class AcousticModel:
@@ -185,10 +214,12 @@ class AcousticModel:
         tc = config.model.transformer
         self.model = _materialize(
             lambda: build_fastspeech2(config.model, stats, n_spk),
-            variables, weights_path, self.device, self.dtype, 0,
+            variables, weights_path, self.device, 0,
             "AcousticModel", lambda path: convert_fs2_checkpoint(
                 path, tc.encoder_layer, tc.decoder_layer,
                 config.model.use_cwt))
+        if self.dtype != torch.float32:
+            round_variables(self.model, self.dtype)
         self.phone_buckets = None   # optional tuned L-padding grid
 
     def check_ids(self, phonemes, speaker_ids):
@@ -308,8 +339,8 @@ class Vocoder:
             raise ValueError(f"unknown vocoder {self.kind!r} (HiFi-GAN or "
                              "MelGAN)")
         self.model = _materialize(build, variables, v.weights_path,
-                                  self.device, self.dtype, 1, "Vocoder",
-                                  convert)
+                                  self.device, 1, "Vocoder",
+                                  convert).to(self.dtype)
 
     def _mel(self, mel):
         mel = (mel.to(self.device) if isinstance(mel, torch.Tensor)

@@ -5,8 +5,10 @@ one process, one device):
                                   [--device cuda|cpu]
 
 The config is the JAX package's YAML (native or reference layout). Training
-runs on the card unless ``--device cpu`` is given. Synthesis previews and
-``--distributed`` are not ported yet and raise ``NotImplementedError``.
+runs on the card unless ``--device cpu`` is given. Synthesis previews go
+through a ``Vocoder`` built from ``vocoder.weights_path`` where that file
+exists, unless ``--no-vocoder`` is given. ``--distributed`` is not ported
+yet and raises ``NotImplementedError``.
 """
 
 import argparse
@@ -35,12 +37,14 @@ def main(argv=None):
     from tts_king_torch.train.loop import train
 
     cfg = load_config(args.config) if args.config else TTSConfig()
+    vocoder = None
     if (not args.no_vocoder and cfg.vocoder.weights_path
             and os.path.exists(cfg.vocoder.weights_path)):
-        raise NotImplementedError(
-            "synthesis previews through the vocoder are not ported yet; "
-            "pass --no-vocoder")
-    state = train(cfg, max_steps=args.steps, device=args.device)
+        from tts_king_torch.pipeline import Vocoder
+
+        vocoder = Vocoder(cfg, device=args.device)
+    state = train(cfg, max_steps=args.steps, vocoder=vocoder,
+                  device=args.device)
     print(f"trained to step {state.step}; checkpoints under "
           f"{cfg.train.ckpt_path}")
     return 0

@@ -13,11 +13,17 @@ through the inference kernel. ``ModelConfig.use_flash_attention`` selects
 between the JAX package's two training attentions, which compute one
 function; it does not matter here.
 
+Synthesis previews: with a ``vocoder`` (pipeline.Vocoder), every
+``synth_step`` steps one validation utterance, rotating through the split,
+is synthesized free-running and written as ``step_<n>.wav`` under
+``result_path``, with ``step_<n>.png`` (predicted and ground-truth mels)
+where matplotlib imports; without it one log line says the plot was
+skipped.
+
 Not ported yet, and raising ``NotImplementedError``: a device mesh
 (``MeshConfig`` other than one device, or ``--distributed``; the
-parallelism slice), ``attention_probs_bf16=True`` (a bf16 training slice)
-and synthesis previews through a ``vocoder`` (a later slice; they need
-matplotlib).
+parallelism slice) and ``attention_probs_bf16=True`` (FastSpeech2 refuses
+it; the bf16 attention slice).
 """
 
 import json
@@ -53,27 +59,20 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
         (int(s[0]) << 31) ^ int(s[1]))
 
 
-def _check_ported(cfg: TTSConfig, vocoder):
+def _check_ported(cfg: TTSConfig):
     if cfg.mesh.tp != 1 or cfg.mesh.dp not in (-1, 1):
         raise NotImplementedError(
             f"mesh dp={cfg.mesh.dp} tp={cfg.mesh.tp}: data and tensor "
             "parallel training is not ported yet; it comes with the "
             "parallelism slice of the port")
-    if cfg.model.attention_probs_bf16:
-        raise NotImplementedError(
-            "attention_probs_bf16=True: bf16 training is not ported yet; it "
-            "comes with a bf16 training slice of the port")
-    if vocoder is not None:
-        raise NotImplementedError(
-            "synthesis previews through a vocoder are not ported yet; they "
-            "come in a later slice of the port (pass vocoder=None)")
 
 
 def train(cfg: TTSConfig, max_steps: Optional[int] = None, vocoder=None,
           device="cuda") -> TrainState:
     """Run FS2 training from a preprocessed corpus; returns the final state.
-    ``device`` defaults to the card; the CPU is used only when asked for."""
-    _check_ported(cfg, vocoder)
+    ``device`` defaults to the card; the CPU is used only when asked for.
+    ``vocoder`` (pipeline.Vocoder or None) writes the synthesis previews."""
+    _check_ported(cfg)
     device = resolve_device(device)
     pp, tc = cfg.preprocess, cfg.train
     root = pp.preprocessed_path
@@ -130,7 +129,7 @@ def train(cfg: TTSConfig, max_steps: Optional[int] = None, vocoder=None,
     progress = {"step": state.step}
     try:
         _run_epochs(cfg, state, total, epoch, start_batch, train_ds, val_ds,
-                    train_step, eval_step, logger, device, progress)
+                    train_step, eval_step, logger, device, progress, vocoder)
     except BaseException:
         # failure containment (the reference has none, SURVEY.md §5.3):
         # save the last completed step so the run can resume, then re-raise
@@ -153,7 +152,7 @@ def train(cfg: TTSConfig, max_steps: Optional[int] = None, vocoder=None,
 
 
 def _run_epochs(cfg, state, total, epoch, start_batch, train_ds, val_ds,
-                train_step, eval_step, logger, device, progress):
+                train_step, eval_step, logger, device, progress, vocoder):
     tc = cfg.train
     t_last = time.time()
     while state.step < total:
@@ -183,8 +182,62 @@ def _run_epochs(cfg, state, total, epoch, start_batch, train_ds, val_ds,
                         max_utts=tc.objective_val_utts,
                         max_mel_len=cfg.model.max_seq_len)
                     logger.log(step, obj, prefix="objective")
+            if step % tc.step.synth_step == 0 and vocoder is not None:
+                synth_preview(cfg, state.model, val_ds, vocoder, step,
+                              device)
             if step % tc.step.save_step == 0:
                 save_train_state(tc.ckpt_path, step, state)
             if step >= total:
                 return
         start_batch = 0   # the fast-forward applies to the resume epoch only
+
+
+def synth_preview(cfg, model, val_ds, vocoder, step, device):
+    """Synthesize one validation utterance free-running and write
+    ``step_<step>.wav`` (and ``step_<step>.png``, predicted beside
+    ground-truth mel, where matplotlib imports) under ``result_path``
+    (tools.synth_one_sample, fs_two/utils/tools.py:141-206). The utterance
+    rotates through the split with the preview step, and is padded to the
+    batch loaders' quantized lengths, as the JAX loop's is."""
+    from scipy.io import wavfile
+
+    from tts_king_torch.data.dataset import L_STEP, T_STEP, _quantize
+    from tts_king_torch.utils.plotting import (matplotlib_available,
+                                               plot_mel, save_plot)
+    from tts_king_torch.utils.synthesis import pitch_stats_of, skipped_plots
+
+    n_val = len(val_ds.meta)
+    if n_val == 0:
+        return
+    k = (step // max(cfg.train.step.synth_step, 1)) % n_val
+    e = val_ds._entry(int(k))
+    L = _quantize(len(e[3]), L_STEP)
+    T = _quantize(val_ds._mel_len(e[1], e[0]), T_STEP, val_ds.max_mel_len)
+    batch = to_device(val_ds._collate([val_ds._item_from_entry(e)], L, T),
+                      device)
+    model.eval()
+    with torch.no_grad():
+        out = model(batch["speakers"], batch["texts"], batch["src_lens"],
+                    max_mel_len=cfg.model.max_seq_len)
+    n = int(out["mel_lens"][0])
+    mel_pred = out["postnet_mel"][0, :n].float().cpu().numpy()
+    gt_n = int(batch["mel_lens"][0])
+    mel_gt = batch["mels"][0, :gt_n].cpu().numpy()
+
+    result = cfg.train.result_path
+    os.makedirs(result, exist_ok=True)
+    if matplotlib_available():
+        save_plot(plot_mel([(mel_pred.T, np.zeros(n), np.zeros(n)),
+                            (mel_gt.T, np.zeros(gt_n), np.zeros(gt_n))],
+                           pitch_stats_of(cfg),
+                           ["Synthesized", "Ground truth"]),
+                  os.path.join(result, f"step_{step}.png"))
+    else:
+        skipped_plots(1, f"train step {step}")
+    hop = cfg.preprocess.stft.hop_length
+    # an utterance of no frames is an empty wav (the vocoder's first conv
+    # needs at least one frame)
+    wav = (vocoder.generate(mel_pred[None], lengths=[n * hop])[0] if n
+           else np.zeros(0, np.int16))
+    wavfile.write(os.path.join(result, f"step_{step}.wav"),
+                  cfg.preprocess.audio.sampling_rate, wav)
