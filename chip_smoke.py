@@ -4,7 +4,8 @@ synthesis (TTSKing.speak, speak_streaming, batched generate + vocode), the
 int8 vocoder (Generator(mrf_backend="fused_int8")), the other vocoder paths
 (MelGAN, upstream .pth.tar checkpoints), FastSpeech2 training (train()
 from a preprocessed corpus, with resume), the data-preparation path and the
-CWT model, and HiFi-GAN GAN training (VocoderTrainer, train_vocoder).
+CWT model, HiFi-GAN GAN training (VocoderTrainer, train_vocoder), and data,
+tensor and sequence parallelism (tts_king_torch/parallel).
 
 Run from the root of a checkout, with one card and no arguments:
 
@@ -80,7 +81,15 @@ non-zero exit (nothing is caught):
                weight-norm route, with 3 MRF launches a call;
   8. train step — the sustained ms per optimizer step at the superbatch of
                bench.py:286-301 (acc 4 x B 16, L = 96, T = 640, f32);
-  9. kernels — kernel time, plain time, library time and the card's bound at
+  9. parallel path — two gloo ranks sharing the card (spawned, joined with
+               a timeout): the collectives on CUDA tensors, a dp=2 and a
+               tp=2 FastSpeech2 step, Vocoder.generate_long of a 4000-frame
+               utterance 2 ways (f32, bf16), train() and train_vocoder on 2
+               ranks; NCCL at world size 1 (train() through the
+               distributed route); AcousticModel and a SynthesisServer over
+               2 replicas on the card; each held to one process
+               (phase_parallel_path says how);
+ 10. kernels — kernel time, plain time, library time and the card's bound at
                the bench shapes (attention also at speak's f32 call, the
                MRF kernel's f32 route, 3xTF32 passes of (tile, branch)
                blocks, at speak's 192-frame sentence; f32 bounds as 3xTF32
@@ -92,7 +101,8 @@ non-zero exit (nothing is caught):
                the int8 row its cluster plan per stage and the fused bf16
                kernel at the same stages (bf16_kernel_ms); the MRF rows
                the GAN export's launches (launches_gan), and rows 1f, 2f, 2
-               and 3 those of the fine-tuning path (launches_finetune).
+               and 3 those of the fine-tuning path (launches_finetune),
+               every row those of the parallel path (launches_parallel).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout, it prints no result and exits 1. The JAX package is not imported.
@@ -150,10 +160,12 @@ TOL = {("attention", "f32"): 1e-4, ("attention", "bf16"): 2e-2,
 # instantiate (16, 32, 64, 128), and the flash kernels the train-step
 # golden's D = 4.
 BENCH_B, BENCH_L, BENCH_T = 32, 128, 1000
+# H = 1 is the shipped 2 heads split over tp = 2 (the parallel path).
 ATTN_CHECKS = [(8, 2, 128, 128, "suffix"), (8, 2, 1000, 128, "suffix"),
                (3, 2, 77, 16, "suffix"), (5, 2, 200, 128, "edge"),
                (5, 2, 77, 16, "edge"), (5, 2, 100, 64, "edge"),
-               (5, 1, 50, 32, "edge")]
+               (5, 1, 50, 32, "edge"), (8, 1, 1000, 128, "suffix"),
+               (5, 1, 200, 128, "edge")]
 MRF_CHECKS = [(2, 128, 64000), (2, 64, 128000), (2, 32, 256000),
               (3, 16, 4001)]
 # Training: the superbatch of bench.py:286-301, and the flash kernels'
@@ -161,7 +173,9 @@ MRF_CHECKS = [(2, 128, 64000), (2, 64, 128000), (2, 32, 256000),
 TRAIN_ACC, TRAIN_B, TRAIN_L, TRAIN_T = 4, 16, 96, 640
 FLASH_CHECKS = [(16, 2, 640, 128, "suffix"), (16, 2, 96, 128, "suffix"),
                 (3, 2, 77, 16, "suffix"), (5, 2, 200, 128, "edge"),
-                (5, 2, 77, 16, "edge"), (5, 2, 50, 4, "edge")]
+                (5, 2, 77, 16, "edge"), (5, 2, 50, 4, "edge"),
+                (8, 1, 640, 128, "suffix"), (8, 1, 96, 128, "suffix"),
+                (5, 1, 200, 128, "edge")]
 TRAIN_STEPS = 4
 
 SENTENCES = ["Привет, мир!",
@@ -997,24 +1011,25 @@ def port_train_steps(model_cfg, opt_cfg, variables, superbatches,
     return out
 
 
-def compare_train_step(got, want, lr, stats_atol=1e-6):
+def compare_train_step(got, want, lr, stats_atol=1e-6, loss_rtol=1e-5):
     """A port step (numpy, state-dict names) against a JAX step (flax trees:
     losses, params, batch_stats, count, mu, nu); raises on a mismatch and
     returns the largest errors.
 
     Tolerances, f32 on both sides with sums in other orders: losses rtol
-    1e-5; the Adam moments and the clipped grads mu / (1 - b1) rtol 1e-4
-    with an atol of 1e-5 of the largest magnitude over all parameters
-    (entries near 0 carry the rounding of the large ones); running stats
-    rtol 1e-5, atol ``stats_atol``; new params atol 1e-3 * lr. Adam moves
-    each weight by lr * m_hat / (sqrt(v_hat) + eps), which a gradient error
-    d moves by up to lr * d / eps: the optimizers of these checks use eps =
-    1e-3, so that the gradients' rounding (d < 1e-8 here; the weights whose
-    gradient is 0 in exact arithmetic, the key projection's bias and the
-    conv biases in front of BatchNorm, get such rounding noise as their
-    whole gradient) moves a weight by ~1e-4 * lr at most (5e-5 * lr
-    measured on the CPU), while a wrong learning rate, bias correction or
-    decay moves it by a visible share of lr."""
+    ``loss_rtol`` (1e-5; a parallel step's, 1e-4 as the JAX package holds its
+    sharded step, tests/test_train.py:163-189); the Adam moments and the
+    clipped grads mu / (1 - b1) rtol 1e-4 with an atol of 1e-5 of the largest
+    magnitude over all parameters (entries near 0 carry the rounding of the
+    large ones); running stats rtol 1e-5, atol ``stats_atol``; new params atol
+    1e-3 * lr. Adam moves each weight by lr * m_hat / (sqrt(v_hat) + eps),
+    which a gradient error d moves by up to lr * d / eps: the optimizers of
+    these checks use eps = 1e-3, so that the gradients' rounding (d < 1e-8
+    here; the weights whose gradient is 0 in exact arithmetic, the key
+    projection's bias and the conv biases in front of BatchNorm, get such
+    rounding noise as their whole gradient) moves a weight by ~1e-4 * lr at
+    most (5e-5 * lr measured on the CPU), while a wrong learning rate, bias
+    correction or decay moves it by a visible share of lr."""
     import numpy as np
 
     from tts_king_torch.weights import flax_adam_to_torch, flax_to_torch
@@ -1022,7 +1037,7 @@ def compare_train_step(got, want, lr, stats_atol=1e-6):
     errs = {"loss_rel": 0.0, "param_abs": 0.0, "stats_abs": 0.0,
             "grad_rel_top": 0.0}
     for name, v in want["losses"].items():
-        np.testing.assert_allclose(got["losses"][name], v, rtol=1e-5,
+        np.testing.assert_allclose(got["losses"][name], v, rtol=loss_rtol,
                                    atol=1e-7, err_msg=f"loss {name}")
         errs["loss_rel"] = max(errs["loss_rel"], abs(
             got["losses"][name] - float(v)) / max(abs(float(v)), 1e-30))
@@ -2714,6 +2729,9 @@ def phase_finetune_path(smi, raw, features, tmp):
     return {name: stage["launches"] for name, stage in stages.items()}
 
 
+WIDTH_STATS = {"pitch": [-7.0, 9.5], "energy": [-1.4, 6.1]}
+
+
 def train_state_at_width(device="cuda"):
     """A TrainState of TTSConfig()'s FastSpeech2 on the card, initialized as
     train() does, with the bench's pitch/energy bins."""
@@ -2725,9 +2743,8 @@ def train_state_at_width(device="cuda"):
     import torch
 
     cfg = main_config()
-    stats = {"pitch": [-7.0, 9.5], "energy": [-1.4, 6.1]}
     with torch.device("meta"):
-        model = build_fastspeech2(cfg.model, stats, 66)
+        model = build_fastspeech2(cfg.model, WIDTH_STATS, 66)
     model = load_into(model.to_empty(device=device),
                       init_state_dict(model, cfg.train.seed))
     optimizer = Optimizer(cfg.train.optimizer,
@@ -3309,6 +3326,1008 @@ def flash_timing_row(cfg, launches, max_err):
                 "from the training path's run"}
 
 
+# ---------------------------------------------------------- parallel path
+
+# Ranks of the parallel path: two gloo processes sharing the one card (NCCL
+# refuses two ranks on one device; gloo reduces CUDA tensors in place and
+# gathers them through pinned host memory, parallel/comm.py), and NCCL at
+# world size 1. Each rank's wall time ends in a join with a timeout.
+PAR_RANKS = 2
+PAR_TIMEOUT_S = 420
+PAR_LONG_FRAMES = 4000     # one utterance, ~46 s of audio
+# part (d)'s train_vocoder after its first step: each net's distance to one
+# process, relative to the length of one process's step, at most this.
+# AdamW's first step moves nearly every weight by +-lr, so rounding moves
+# only the few weights whose gradient is ~0 (one process's own two runs,
+# cuDNN deterministic, read 0; dp=2 at half the batch reads 0.0128 for
+# the generator, 3.5e-4 and 1.3e-5 for the MPD and MSD); the planted
+# fault, a generator whose gradients are not averaged over dp, moves a
+# large share (0.61) and must read above it
+PAR_VOC_STEP_REL = 0.05
+
+
+def worker_device(spec):
+    """A rank's device: the CPU, or the card with TF32 off (as the parent
+    runs)."""
+    import torch
+
+    device = torch.device(spec.get("device", "cpu"))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return device
+
+
+def _host(tree):
+    return {k: v.detach().float().cpu().numpy().copy()
+            for k, v in tree.items()}
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def collectives_check(rank, spec):
+    """The mesh and its collectives on one rank of the group, on
+    ``spec["device"]``: each rank's (dp, tp) position on a dp x tp mesh of
+    the world (spec["tp"]), a store barrier used twice under one name,
+    all_reduce and all_gather (staged through host memory on gloo with
+    CUDA tensors) over each mesh axis and over the whole group (an axis
+    of size 1 has no group: the world axis runs the backend's collectives
+    at world size 1 too), and the gradients of copy_to, reduce_from and
+    sum_over. Returns what each produced, as numpy, and the backend."""
+    import torch
+    import torch.distributed as dist
+
+    from tts_king_torch.parallel import comm, lockstep
+    from tts_king_torch.parallel.mesh import build_mesh
+
+    device = worker_device(spec)
+    mesh = build_mesh(dp=-1, tp=spec["tp"])
+    for _ in range(2):
+        lockstep.coordination_barrier("collectives_check")
+    out = {"position": (mesh.dp_axis.index, mesh.tp_axis.index),
+           "backend": dist.get_backend()}
+    world = comm.Axis(dist.group.WORLD, dist.get_world_size(), rank)
+    out["grouped"] = {}
+    for name in ("dp", "tp", "world"):
+        ax = world if name == "world" else mesh.axis(name)
+        out["grouped"][name] = ax.group is not None
+        x = torch.arange(3, dtype=torch.float32, device=device) + rank
+        out[f"all_reduce_{name}"] = comm.all_reduce(x.clone(), ax).cpu()
+        out[f"all_gather_{name}"] = torch.stack(
+            comm.all_gather(x, ax)).cpu()
+        # d/dx of sum(f(x) * (rank + 1)) through each autograd function
+        for fn in ("copy_to", "reduce_from", "sum_over"):
+            leaf = x.clone().requires_grad_(True)
+            y = getattr(comm, fn)(leaf, ax)
+            (y * (rank + 1)).sum().backward()
+            out[f"{fn}_{name}"] = (y.detach().cpu(), leaf.grad.cpu())
+    return {k: (tuple(t.numpy() for t in v) if isinstance(v, tuple)
+                and hasattr(v[0], "numpy") else
+                v.numpy() if hasattr(v, "numpy") else v)
+            for k, v in out.items()}
+
+
+def fs2_parallel_steps(rank, spec):
+    """FastSpeech2 train steps of one rank of a dp x tp mesh (``spec["dp"]``
+    None: one process, no mesh). The model: ``spec["model_cfg"]`` (a
+    ModelConfig or a dict of its fields) with ``spec["variables"]`` (a flax
+    tree or a state dict), ``stats`` and ``n_speakers``; dropout at the
+    config's rates where ``spec["dropout"]``, else off. One optimizer step
+    per global numpy superbatch of ``spec["superbatches"]``, each rank on
+    its rows, dropout from step_generator(spec["seed"], i). ``spec["naive"]``
+    replaces the global-batch loss by the average of each rank's own means
+    (DDP's reduction; the tests' guard). Returns the losses of each step,
+    the launch counts and, on rank 0, the full state after the last step
+    (chip_smoke.compare_train_step's ``got``)."""
+    import torch
+
+    from tts_king_torch import config as pcfg
+    from tts_king_torch.models.fs2 import build_fastspeech2
+    from tts_king_torch.models.layers import Dropout
+    from tts_king_torch.parallel.mesh import (build_mesh, shard_batch,
+                                              shard_train_state,
+                                              unshard_state_dict)
+    from tts_king_torch.pipeline import _state_dict
+    from tts_king_torch.train import step as step_mod
+    from tts_king_torch.train.loop import step_generator
+    from tts_king_torch.train.loss import FS2Losses
+    from tts_king_torch.train.state import Optimizer, TrainState
+    from tts_king_torch.weights import load_into
+
+    device = worker_device(spec)
+    mc = spec["model_cfg"]
+    if isinstance(mc, dict):
+        mc = pcfg._build(pcfg.ModelConfig, mc)
+    opt_cfg = spec["opt_cfg"]
+    if isinstance(opt_cfg, dict):
+        opt_cfg = pcfg._build(pcfg.OptimizerConfig, opt_cfg)
+    mesh = (build_mesh(dp=spec["dp"], tp=spec["tp"])
+            if spec.get("dp") else None)
+    with torch.device("meta"):
+        model = build_fastspeech2(mc, spec["stats"], spec["n_speakers"])
+    if not spec.get("dropout"):
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+    model = load_into(model.to_empty(device=device),
+                      _state_dict(spec["variables"]))
+    optimizer = Optimizer(opt_cfg, mc.transformer.encoder_hidden)
+    state = TrainState(model, optimizer.init(model))
+    if mesh is not None:
+        shard_train_state(state, mesh)
+    exact = step_mod.forward_loss
+    if spec.get("naive"):
+        def naive(model, batch, generator, dp):
+            own = exact(model, batch, generator)
+            return FS2Losses(*(t / dp.size for t in own))
+
+        step_mod.forward_loss = naive
+    step = step_mod.make_train_step(optimizer, mesh)
+    losses_each = []
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        for i, sb in enumerate(spec["superbatches"]):
+            t = step_mod.to_device(sb, device)
+            if mesh is not None:
+                t = shard_batch(t, mesh, extra_leading_axis=True)
+            losses = step(state, t, step_generator(spec["seed"], i, device))
+            losses_each.append(dict(zip(losses._fields,
+                                        (float(x) for x in losses))))
+    finally:
+        step_mod.forward_loss = exact
+    _sync(device)
+    out = {"losses_each": losses_each, "launches": launch_counts(),
+           "wall_s": time.perf_counter() - t0}
+    if mesh is not None:
+        out["position"] = (mesh.dp_axis.index, mesh.tp_axis.index)
+    sd, mu, nu = (state.model.state_dict(), state.opt_state.mu,
+                  state.opt_state.nu)
+    if mesh is not None:
+        sd, mu, nu = (unshard_state_dict(t, mesh) for t in (sd, mu, nu))
+    if rank == 0:
+        out.update(losses=losses_each[-1], state_dict=_host(sd),
+                   count=state.opt_state.count, mu=_host(mu), nu=_host(nu))
+    return out
+
+
+def compare_perturbed_step(got, want, pert, lr):
+    """A port step (fs2_parallel_steps' result) against one process's step
+    ``want``, where the step's arithmetic is reassociated throughout (tp's
+    row-split products and their all-reduces): the losses at rtol 1e-4;
+    each parameter, running stat and Adam moment within compare_train_step's
+    bound or within twice the largest move of its kind between ``want``
+    and ``pert``, one process's step from the same weights with one
+    encoder weight perturbed by 1e-7 relative, whichever is larger. At the
+    shipped width such a perturbation flips ReLU kinks in the variance
+    predictors, which moves a few hundred of their weights by ~4e-3 lr
+    (measured on the CPU: the same tensors and counts as tp=2's); a wrong
+    reduction moves every weight downstream by a share of lr. Returns the
+    largest error of each kind and its bound."""
+    import numpy as np
+
+    for k, v in want["losses"].items():
+        np.testing.assert_allclose(got["losses"][k], v, rtol=1e-4, atol=1e-7,
+                                   err_msg=f"loss {k}")
+    out = {}
+    for coll in ("state_dict", "mu", "nu"):
+        top = max(float(np.abs(v).max()) for v in want[coll].values())
+        move = max(float(np.abs(pert[coll][k] - v).max())
+                   for k, v in want[coll].items())
+        worst = 0.0
+        for k, v in want[coll].items():
+            if coll == "state_dict":
+                stat = "running" in k
+                rtol, atol = (1e-5, 1e-6) if stat else (0.0, 1e-3 * lr)
+            else:
+                rtol, atol = 1e-4, 1e-5 * top
+            np.testing.assert_allclose(got[coll][k], v, rtol=rtol,
+                                       atol=max(atol, 2 * move),
+                                       err_msg=f"{coll} {k}")
+            worst = max(worst, float(np.abs(got[coll][k] - v).max()))
+        out[coll] = {"max_abs_err": worst, "perturbed_move": move}
+    return out
+
+
+def port_step_as_want(res):
+    """A port step's result (fs2_parallel_steps) in the layout of a JAX
+    one, for compare_train_step."""
+    from tts_king_torch.weights import torch_to_flax
+
+    tree = torch_to_flax(res["state_dict"])
+    return {"losses": res["losses"], "params": tree["params"],
+            "batch_stats": tree["batch_stats"], "count": res["count"],
+            "mu": torch_to_flax(res["mu"])["params"],
+            "nu": torch_to_flax(res["nu"])["params"]}
+
+
+def time_sharded_vocode(rank, spec):
+    """One rank's time-sharded vocoding (ops/time_parallel.py) over a dp
+    mesh of every rank of the group, or, with ``spec["devices"]``, a
+    single-process mesh over those devices. The Vocoder of ``spec["cfg"]``
+    (``spec["variables"]``, ``spec["dtype"]``) on ``spec["mel"]``:
+    ``spec["what"]`` "float" is vocoder_time_sharded on the generator (the
+    mel as given, ``spec["halo"]`` or the HiFi-GAN receptive field),
+    "int16" is Vocoder.generate_long. With ``spec["melgan"]`` (the
+    MelGANGenerator's arguments) the generator is that MelGAN, "float"
+    only. Returns the waveform (numpy) and the launch counts."""
+    import numpy as np
+    import torch
+
+    from tts_king_torch.models.melgan import MelGANGenerator
+    from tts_king_torch.ops.streaming import generator_receptive_field
+    from tts_king_torch.ops.time_parallel import vocoder_time_sharded
+    from tts_king_torch.parallel.mesh import build_mesh
+    from tts_king_torch.pipeline import Vocoder, _state_dict
+    from tts_king_torch.weights import load_into
+
+    device = worker_device(spec)
+    cfg = spec["cfg"]
+    if "melgan" in spec:
+        with torch.device("meta"):
+            gen = MelGANGenerator(**spec["melgan"])
+        gen = load_into(gen.to_empty(device=device),
+                        _state_dict(spec["variables"])).eval()
+        up = int(np.prod(spec["melgan"]["ratios"]))
+    else:
+        voc = Vocoder(cfg, variables=spec["variables"],
+                      dtype=getattr(torch, spec.get("dtype", "float32")),
+                      device=device)
+        gen, up = voc.model, int(np.prod(cfg.vocoder.upsample_rates))
+    mesh = build_mesh(dp=-1, devices=spec.get("devices"))
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    if spec.get("what", "int16") == "int16":
+        wav = voc.generate_long(spec["mel"], mesh)
+    else:
+        halo = spec.get("halo") or generator_receptive_field(cfg.vocoder)
+        with torch.inference_mode():
+            wav = vocoder_time_sharded(
+                gen, torch.from_numpy(spec["mel"]).to(device), mesh,
+                halo_frames=halo, upsample=up)
+            wav = wav[0].float().cpu().numpy()
+    _sync(device)
+    return {"wav": wav, "launches": launch_counts(),
+            "wall_s": time.perf_counter() - t0}
+
+
+def dp_generate(rank, spec):
+    """AcousticModel.generate over a dp mesh of every rank of the group:
+    ``spec["cfg"]``, ``spec["variables"]``, ``spec["n_speakers"]``, on
+    ``spec["phonemes"]`` and ``spec["speakers"]``. Returns the mel lengths
+    and the postnet mel (numpy), the whole batch on every rank."""
+    from tts_king_torch.parallel.mesh import build_mesh
+    from tts_king_torch.pipeline import AcousticModel
+
+    device = worker_device(spec)
+    am = AcousticModel(spec["cfg"], variables=spec["variables"],
+                       n_speakers=spec["n_speakers"], device=device,
+                       mesh=build_mesh(dp=-1))
+    out = am.generate(spec["phonemes"], speaker_name=spec["speakers"])
+    return {"mel_lens": out["mel_lens"].cpu().numpy(),
+            "postnet_mel": out["postnet_mel"].float().cpu().numpy()}
+
+
+def train_loop_runs(rank, spec):
+    """train() of ``spec["cfg"]`` on one rank: each (restore_step, steps)
+    of ``spec["runs"]`` in turn. Returns the launch counts of each run and,
+    on rank 0, the metrics records."""
+    from tts_king_torch.train.loop import train
+
+    device = worker_device(spec)
+    cfg = spec["cfg"]
+    runs = []
+    for restore, steps in spec["runs"]:
+        cfg.acoustic.restore_step = restore
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        state = train(cfg, max_steps=steps, device=device)
+        _sync(device)
+        runs.append({"restore_step": restore, "steps": steps,
+                     "step": state.step, "launches": launch_counts(),
+                     "wall_s": time.perf_counter() - t0})
+    out = {"runs": runs}
+    if rank == 0:
+        with open(os.path.join(cfg.train.result_path,
+                               f"{cfg.exp_name}.metrics.jsonl")) as f:
+            out["records"] = [json.loads(line) for line in f]
+    return out
+
+
+def vocoder_loop_run(rank, spec):
+    """train_vocoder of ``spec["cfg"]`` on ``spec["wavs"]`` (the first two
+    validate), data-parallel over the group where ``spec["distributed"]``:
+    ``spec["steps"]`` steps, after a first run of one step and a resume
+    where ``spec["first"]``. ``spec["fault"]`` plants a fault, the guard
+    of the comparisons: the generator's gradients are not averaged over dp
+    (each rank steps on its own rows). ``spec["deterministic"]``: cuDNN's
+    deterministic algorithms, benchmark off, for the run. Returns the
+    launch counts, and each net's (gen, mpd, msd) state digest on this rank
+    after each run; on rank 0 also the metrics records, the final
+    generator's state dict and, where ``spec["first"]``, every net's state
+    dict after the first step (the generator's alone under a fault)."""
+    import hashlib
+
+    import torch
+
+    from tts_king_torch.train import vocoder as vmod
+    from tts_king_torch.train.vocoder_loop import train_vocoder
+
+    device = worker_device(spec)
+    cfg, wavs = spec["cfg"], spec["wavs"]
+    runs = ([(None, 1), (1, spec["steps"])] if spec.get("first")
+            else [(None, spec["steps"])])
+    exact = vmod._mean_over
+    calls = []
+
+    def unreduced_gen(tensors, dp):
+        # per step: the discriminators' gradients, then the generator's
+        tensors = list(tensors)
+        if len(tensors) > 1:
+            calls.append(None)
+            if len(calls) % 2 == 0:
+                return tensors
+        return exact(tensors, dp)
+
+    if spec.get("fault") == "gen":
+        vmod._mean_over = unreduced_gen
+    cudnn = torch.backends.cudnn
+    flags = cudnn.deterministic, cudnn.benchmark
+    if spec.get("deterministic"):
+        cudnn.deterministic, cudnn.benchmark = True, False
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    out = {"digests": []}
+    try:
+        for restore, steps in runs:
+            state = train_vocoder(cfg, wavs[2:], val_paths=wavs[:2],
+                                  max_steps=steps, log_every=1,
+                                  save_every=steps, restore_step=restore,
+                                  device=device,
+                                  distributed=spec.get("distributed", False),
+                                  **spec.get("disc", {}))
+            _sync(device)
+            nets = {"gen": state.gen, "mpd": state.disc.mpd,
+                    "msd": state.disc.msd}
+            # every rank's nets must be the same after a dp step, the
+            # spectral norms' power-iteration buffers included
+            out["digests"].append({k: hashlib.sha1(b"".join(
+                v.detach().cpu().numpy().tobytes() for v in
+                m.state_dict().values())).hexdigest() for k, m in nets.items()})
+            if rank == 0 and steps == 1:
+                out["first"] = {k: _host(dict(m.named_parameters()))
+                                for k, m in nets.items()
+                                if k == "gen" or not spec.get("fault")}
+    finally:
+        vmod._mean_over = exact
+        cudnn.deterministic, cudnn.benchmark = flags
+    out.update(launches=launch_counts(), wall_s=time.perf_counter() - t0,
+               step=state.step)
+    if rank == 0:
+        out["gen"] = _host(state.gen.state_dict())
+        with open(os.path.join(cfg.train.result_path,
+                               f"{cfg.exp_name}_vocoder.metrics.jsonl")) as f:
+            out["records"] = [json.loads(line) for line in f]
+    return out
+
+
+def parallel_tasks(rank, tasks):
+    """Several of the workers above in one process of a group, in turn:
+    ``tasks`` is a list of (name, spec), every rank running them in one
+    order. Returns {name: result}."""
+    return {name: globals()[name.split(":")[0]](rank, spec)
+            for name, spec in tasks}
+
+
+def _width_state_dict(cfg):
+    """The initial FastSpeech2 weights of train_state_at_width, as numpy."""
+    import torch
+
+    from tts_king_torch.models.fs2 import build_fastspeech2
+    from tts_king_torch.train.state import init_state_dict
+
+    with torch.device("meta"):
+        model = build_fastspeech2(cfg.model, WIDTH_STATS, 66)
+    return {k: v.numpy() for k, v in
+            init_state_dict(model, cfg.train.seed).items()}
+
+
+def _max_errs(got, want):
+    """Largest |got - want| of each kind between two fs2_parallel_steps
+    results (rank 0's)."""
+    import numpy as np
+
+    out = {"loss_rel": max(abs(got["losses"][k] - v) / max(abs(v), 1e-30)
+                           for k, v in want["losses"].items())}
+    for key in ("state_dict", "mu", "nu"):
+        out[key] = max(float(np.abs(got[key][k] - v).max())
+                       for k, v in want[key].items())
+    return out
+
+
+def width_step_spec(cfg, device):
+    """fs2_parallel_steps' spec of parts (a) and (b): train_state_at_width's
+    weights, dropout on, the bench superbatch, one process (``dp`` None)."""
+    import dataclasses
+
+    opt = dataclasses.asdict(cfg.train.optimizer)
+    # eps 1e-3 as compare_train_step's checks use: with Adam's 1e-9 a
+    # weight whose gradient is rounding noise moves by a full lr either way
+    opt["eps"] = 1e-3
+    # a learning rate the parameter check can see (1e-3 of it, at f32
+    # weights of order 0.1): the tests' warm-up of 4 steps
+    opt["warm_up_step"] = 4
+    spec = {"model_cfg": cfg.model, "opt_cfg": opt,
+            "variables": _width_state_dict(cfg),
+            "superbatches": [bench_train_superbatch()], "seed": 0,
+            "dropout": True, "stats": WIDTH_STATS, "n_speakers": 66,
+            "device": device, "dp": None, "tp": 1}
+    return spec
+
+
+def phase_parallel_path(smi, tmp, device="cuda:0"):
+    """Data, tensor and sequence parallelism at the shipped width, on
+    PAR_RANKS gloo processes sharing the one card (one launch, the parts in
+    turn on every rank), then NCCL at world size 1, then a single-process
+    mesh of two replicas on the card. Each part is held to one process:
+
+      (a) a dp=2 FastSpeech2 step on the bench superbatch (acc 4 x 16,
+          L = 96, T = 640; 8 rows a rank) from train_state_at_width's
+          weights, dropout on: losses rtol 1e-4, parameters, Adam moments
+          and BatchNorm stats at compare_train_step's tolerances, 40 flash
+          launches each way a rank;
+      (b) the same step at dp=1 x tp=2 (one head a rank): the losses and
+          launches as (a), the state within compare_train_step's bound or
+          twice one process's own move under a 1e-7 nudge of one weight
+          (compare_perturbed_step: tp reassociates every FFT block's
+          products, which flips ReLU kinks in the variance predictors);
+      (c) Vocoder.generate_long over 2 ranks on one 4000-frame utterance
+          (~46 s), f32 (row 2f) and bf16 (row 2), against Vocoder.generate
+          of the whole and of the whole between halo zero frames (the
+          time-sharded contract at the ends: mel-space zero padding): in
+          f32 the interior within 1 LSB of the whole, and every sample
+          within 1 LSB of the zero-halo pass (the streaming phase's bound:
+          cuDNN may pick another algorithm at a window's length); in bf16,
+          whose every conv rounds, the RMS error to the f32 pass within
+          1.25 times the whole bf16 pass's, in the interior and at the
+          ends; the ends against the whole pass reported (this mel sits at
+          -5, so a zero frame is far from its frames, unlike the JAX
+          test's N(0, 1) mel whose 0.2 bound assumes near ones);
+      (d) train() on 2 ranks (4 steps of 16 x 4 on train_corpus_config's
+          corpus, validation, checkpoints, a resume to 5) against one
+          process: every train and val loss rtol 1e-4; train_vocoder on 2
+          ranks (batch 8, the published discriminators, cuDNN
+          deterministic; one step, a resume to 4) against one process run
+          twice, by vocoder_dp_check: both ranks' nets equal, each net
+          after the first step within PAR_VOC_STEP_REL of one process's
+          step, a planted fault (the generator's gradients not averaged)
+          above it, the first losses at 1e-5, the later losses reported
+          beside one process's own spread;
+      (e) NCCL at world size 1: collectives_check (NCCL's all_reduce and
+          all_gather over the group, on the card) and train() for 2 steps
+          through the distributed route, its losses at rtol 1e-4 of (d)'s
+          one-process run's first two;
+      (f) AcousticModel over a mesh of two replicas on the card against
+          one device on a ragged batch of 6 (mel lengths equal, mels rtol
+          1e-4 / atol 1e-5), and a SynthesisServer over that mesh against
+          the single-device server on one batch of 8 requests: served
+          mels at rtol 1e-4 / atol 1e-5 with equal lengths, and the wavs
+          bit for bit where the mels are (else within the streaming
+          phase's 1 LSB: FastSpeech2's half batch may round otherwise in
+          cuBLAS's and cuDNN's algorithms for that shape; the witness,
+          each replica's rows bit for bit one device's at the half
+          batch, must hold).
+
+    Every rank zeroes the launch counts just before each part and reads
+    them just after. Returns the launches of each kernel row."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tts_king_torch import config as pcfg
+    from tts_king_torch.config import MeshConfig
+    from tts_king_torch.data.synthetic import generate_corpus
+    from tts_king_torch.parallel import launch
+    from tts_king_torch.train.state import Optimizer
+
+    cfg = main_config()
+    t_phase = time.perf_counter()
+    spec = width_step_spec(cfg, device)
+
+    # (d)'s corpus and configs
+    dcfg = train_corpus_config(os.path.join(tmp, "fs2"))
+    one_cfg = dataclasses.replace(dcfg, train=dataclasses.replace(
+        dcfg.train, ckpt_path=os.path.join(tmp, "one_ckpt"),
+        result_path=os.path.join(tmp, "one_result")))
+    par_cfg = dataclasses.replace(dcfg, mesh=MeshConfig(dp=PAR_RANKS))
+    nccl_cfg = dataclasses.replace(dcfg, train=dataclasses.replace(
+        dcfg.train, ckpt_path=os.path.join(tmp, "nccl_ckpt"),
+        result_path=os.path.join(tmp, "nccl_result")))
+    vcfg = main_config()
+    vcfg.vocoder.batch_size = GAN_LOOP_BATCH
+    raw = os.path.join(tmp, "wavs")
+    generate_corpus(raw, **GAN_CORPUS)
+    wavs = sorted(os.path.join(root, n) for root, _, names in os.walk(raw)
+                  for n in names if n.endswith(".wav"))
+    # train_vocoder's own (the published) discriminators, cuDNN's
+    # deterministic algorithms on both sides: one step, a resume to 4
+    voc_spec = {"cfg": vcfg, "wavs": wavs, "steps": TRAIN_STEPS,
+                "first": True, "deterministic": True, "device": device}
+
+    def voc_cfg(name):
+        return dataclasses.replace(vcfg, train=dataclasses.replace(
+            vcfg.train, ckpt_path=os.path.join(tmp, name),
+            result_path=os.path.join(tmp, name + "_r")))
+
+    long_mel = (np.random.RandomState(11).randn(1, PAR_LONG_FRAMES, 80)
+                * 2.0 - 5.0).astype(np.float32)
+    long_spec = {"cfg": cfg, "variables": None, "mel": long_mel,
+                 "what": "int16", "device": device}
+
+    tasks = [("collectives_check", {"tp": PAR_RANKS, "device": device}),
+             ("fs2_parallel_steps:a", dict(spec, dp=PAR_RANKS, tp=1)),
+             ("fs2_parallel_steps:b", dict(spec, dp=1, tp=PAR_RANKS)),
+             ("time_sharded_vocode:f32", dict(long_spec, dtype="float32")),
+             ("time_sharded_vocode:bf16", dict(long_spec, dtype="bfloat16")),
+             ("train_loop_runs", {"cfg": par_cfg, "device": device,
+                                  "runs": [(0, TRAIN_STEPS),
+                                           (TRAIN_STEPS, TRAIN_STEPS + 1)]}),
+             ("vocoder_loop_run", dict(voc_spec, distributed=True,
+                                       cfg=voc_cfg("voc_par"))),
+             ("vocoder_loop_run:fault", dict(
+                 voc_spec, distributed=True, steps=1, first=False,
+                 fault="gen", cfg=voc_cfg("voc_fault")))]
+    t0 = time.perf_counter()
+    ranks = launch.run(parallel_tasks, PAR_RANKS, (tasks,),
+                       timeout_s=PAR_TIMEOUT_S, threads=0)
+    launch_s = time.perf_counter() - t0
+    walls = {name: [r[name].get("wall_s") for r in ranks]
+             for name, _ in tasks}
+    emit({"phase": "parallel_path", "part": "launch", "ranks": PAR_RANKS,
+          "backend": "gloo", "device": device, "wall_s": launch_s,
+          "task_wall_s": walls, "ok": True})
+
+    check_collectives(ranks, PAR_RANKS, device)
+
+    # (a), (b): against one process from the same weights and superbatch
+    ref = fs2_parallel_steps(0, spec)
+    lr = Optimizer(pcfg._build(pcfg.OptimizerConfig, spec["opt_cfg"]),
+                   cfg.model.transformer.encoder_hidden).lr(0)
+    tc = cfg.model.transformer
+    per_step = (tc.encoder_layer + tc.decoder_layer) * TRAIN_ACC
+    key = "encoder.layer_0.slf_attn.fc.weight"
+    rng = np.random.RandomState(0)
+    nudged = dict(spec["variables"])
+    nudged[key] = (nudged[key] * (1 + 1e-7 * rng.standard_normal(
+        nudged[key].shape))).astype(np.float32)
+    pert = fs2_parallel_steps(0, dict(spec, variables=nudged))
+    for part, name in (("a", "fs2_parallel_steps:a"),
+                       ("b", "fs2_parallel_steps:b")):
+        got = ranks[0][name]
+        if any(r[name]["losses_each"] != got["losses_each"] for r in ranks):
+            fail(f"parallel {part}: the ranks report other losses")
+        if part == "a":
+            compare_train_step(got, port_step_as_want(ref), lr,
+                               loss_rtol=1e-4)
+            bounds = None
+        else:
+            bounds = compare_perturbed_step(got, ref, pert, lr)
+        per_rank = [r[name]["launches"] for r in ranks]
+        if any(c["flash_fwd"] != per_step or c["flash_bwd"] != per_step
+               for c in per_rank):
+            fail(f"parallel {part}: flash launches {per_rank}, want "
+                 f"{per_step} each way a rank")
+        emit({"phase": "parallel_path", "part": part,
+              "mesh": {"dp": PAR_RANKS, "tp": 1} if part == "a" else
+              {"dp": 1, "tp": PAR_RANKS},
+              "heads_per_rank": tc.encoder_head // (1 if part == "a"
+                                                    else PAR_RANKS),
+              "rows_per_rank": TRAIN_B // (PAR_RANKS if part == "a" else 1),
+              "loss_total": got["losses"]["total"],
+              "one_process_loss_total": ref["losses"]["total"],
+              "max_err": _max_errs(got, ref), "perturbed_bounds": bounds,
+              "wall_s": [r[name]["wall_s"] for r in ranks],
+              "one_process_wall_s": ref["wall_s"],
+              "launches": per_rank, "ok": True})
+
+    # (c): against the whole utterance on one device
+    from tts_king_torch.ops.streaming import generator_receptive_field
+    from tts_king_torch.pipeline import Vocoder
+
+    hop = cfg.preprocess.stft.hop_length
+    halo = generator_receptive_field(cfg.vocoder)
+    edge = halo * hop
+    # the whole utterance on one device, and the whole utterance between
+    # halo zero frames (the time-sharded contract at the sequence's ends:
+    # mel-space zero padding), its centre
+    pad_mel = np.pad(long_mel, ((0, 0), (halo, halo), (0, 0)))
+    full, zero_halo = {}, {}
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        voc = Vocoder(cfg, dtype=dtype, device=device)
+        full[dname] = voc.generate(long_mel)[0].astype(np.int32)
+        zero_halo[dname] = voc.generate(pad_mel)[0][edge:-edge].astype(
+            np.int32)
+
+    def rms(a):
+        return float(np.sqrt(np.mean(a.astype(np.float64) ** 2)))
+
+    for dname in ("f32", "bf16"):
+        name = f"time_sharded_vocode:{dname}"
+        wav = ranks[0][name]["wav"].astype(np.int32)
+        diff = np.abs(wav - full[dname])
+        inner = diff[edge:-edge]
+        # against the zero-halo pass everywhere, the ends included
+        ends = np.abs(wav - zero_halo[dname])
+        # bf16 rounds every conv's output, and cuDNN picks its algorithm by
+        # the window's length: a window is another rounding of the same
+        # bf16 computation, held to the whole bf16 pass's own error
+        # against f32, in the interior and at the ends
+        to_f32 = {"time_sharded": rms((wav - full["f32"])[edge:-edge]),
+                  "whole": rms((full[dname] - full["f32"])[edge:-edge]),
+                  "time_sharded_ends": rms(np.concatenate([
+                      (wav - zero_halo["f32"])[:edge],
+                      (wav - zero_halo["f32"])[-edge:]])),
+                  "zero_halo_ends": rms(np.concatenate([
+                      (zero_halo[dname] - zero_halo["f32"])[:edge],
+                      (zero_halo[dname] - zero_halo["f32"])[-edge:]]))}
+        per_rank = [r[name]["launches"] for r in ranks]
+        ok = (wav.shape == full[dname].shape == (PAR_LONG_FRAMES * hop,)
+              and all(np.array_equal(r[name]["wav"], wav) for r in ranks)
+              and (int(inner.max()) <= 1 and int(ends.max()) <= 1
+                   if dname == "f32" else
+                   to_f32["time_sharded"] <= 1.25 * to_f32["whole"]
+                   and to_f32["time_sharded_ends"]
+                   <= 1.25 * to_f32["zero_halo_ends"])
+              and all(c["mrf_stage"] == 3 for c in per_rank))
+        emit({"phase": "parallel_path", "part": "c", "dtype": dname,
+              "frames": PAR_LONG_FRAMES, "audio_s": len(wav) / 22050.0,
+              "halo_frames": halo,
+              "interior_max_lsb": int(inner.max()),
+              "interior_frac_off": float(np.mean(inner > 0)),
+              "zero_halo_max_lsb": int(ends.max()),
+              "zero_halo_edge_max_lsb": int(max(ends[:edge].max(),
+                                                ends[-edge:].max())),
+              "edge_max_lsb_to_whole": int(max(diff[:edge].max(),
+                                               diff[-edge:].max())),
+              "rms_lsb_to_f32": to_f32,
+              "wall_s": [r[name]["wall_s"] for r in ranks],
+              "launches": per_rank, "ok": ok})
+        if not ok:
+            fail(f"parallel c {dname}: shape {wav.shape}, interior "
+                 f"{int(inner.max())} LSB, zero-halo {int(ends.max())} LSB, "
+                 f"rms to f32 {to_f32}, launches {per_rank}")
+
+    # (d): train() and train_vocoder against one process
+    t0 = time.perf_counter()
+    one = train_loop_runs(0, {"cfg": one_cfg, "device": device,
+                              "runs": [(0, TRAIN_STEPS),
+                                       (TRAIN_STEPS, TRAIN_STEPS + 1)]})
+    one_s = time.perf_counter() - t0
+    got_recs = ranks[0]["train_loop_runs"]["records"]
+    errs = _compare_records(got_recs, one["records"], "parallel d train()")
+    per_rank = [[run["launches"] for run in r["train_loop_runs"]["runs"]]
+                for r in ranks]
+    for runs in per_rank:
+        for run, n in zip(runs, (TRAIN_STEPS, 1)):
+            if (run["flash_fwd"] != per_step * n
+                    or run["flash_bwd"] != per_step * n):
+                fail(f"parallel d: flash launches {per_rank}")
+        if runs[0]["attention"] == 0:
+            fail("parallel d: validation launched no attention kernel")
+    emit({"phase": "parallel_path", "part": "d", "call": "train",
+          "max_rel_err": errs,
+          "val_total": [r["total"] for r in got_recs if r["phase"] == "val"],
+          "wall_s": [[run["wall_s"] for run in r["train_loop_runs"]["runs"]]
+                     for r in ranks], "one_process_wall_s": one_s,
+          "launches": per_rank, "ok": True})
+    # one process twice: the dp run's distance after one step is held to
+    # the length of one process's step, beside one process's own spread
+    voc_one = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        voc_one.append(vocoder_loop_run(0, dict(voc_spec,
+                                                cfg=voc_cfg(f"voc_one{i}"))))
+        voc_one_s = time.perf_counter() - t0
+    voc_check = vocoder_dp_check(ranks, voc_one, voc_spec)
+    emit({"phase": "parallel_path", "part": "d", "call": "train_vocoder",
+          "batch": GAN_LOOP_BATCH, **voc_check,
+          "wall_s": [r["vocoder_loop_run"]["wall_s"] for r in ranks],
+          "one_process_wall_s": voc_one_s,
+          "launches": [r["vocoder_loop_run"]["launches"] for r in ranks],
+          "ok": True})
+
+    # (e): NCCL at world size 1 through the distributed route
+    # (a mesh axis of size 1 runs no collective: collectives_check's world
+    # axis puts NCCL's all_reduce and all_gather on the card)
+    t0 = time.perf_counter()
+    nccl_tasks = [("collectives_check", {"tp": 1, "device": device}),
+                  ("train_loop_runs", {"cfg": nccl_cfg, "device": device,
+                                       "runs": [(0, 2)]})]
+    nccl_all = launch.run(parallel_tasks, 1, (nccl_tasks,),
+                          timeout_s=PAR_TIMEOUT_S, threads=0,
+                          backend=("nccl" if torch.device(device).type
+                                   == "cuda" else "gloo"))[0]
+    nccl_s = time.perf_counter() - t0
+    check_collectives([nccl_all], 1, device)
+    nccl = nccl_all["train_loop_runs"]
+    got = [r for r in nccl["records"] if r["phase"] == "train"]
+    ref = [r for r in one["records"] if r["phase"] == "train"][:2]
+    errs = _compare_records(got, ref, "parallel e NCCL train()")
+    run = nccl["runs"][0]
+    if run["step"] != 2 or run["launches"]["flash_fwd"] != 2 * per_step:
+        fail(f"parallel e: {run}")
+    emit({"phase": "parallel_path", "part": "e",
+          "backend": nccl_all["collectives_check"]["backend"],
+          "world_size": 1, "steps": 2, "max_rel_err": errs,
+          "wall_s": nccl_s, "launches": run["launches"], "ok": True})
+
+    # (f): a single-process mesh of two replicas on the card
+    f_launches = parallel_replicas(cfg, device)
+    rows = _parallel_rows(ranks, nccl, f_launches)
+    emit({"phase": "parallel_path", "part": "done",
+          "wall_s": time.perf_counter() - t_phase, "launches_by_row": rows,
+          "nvidia_smi": smi, "ok": True})
+    return rows
+
+
+def check_collectives(results, n, device):
+    """collectives_check's results on the ``n`` ranks of a dp=1 x tp=n
+    mesh, rank r holding arange(3) + r: over tp and the world, the sum,
+    every rank's tensor in rank order and sum_over's gradient (the sum of
+    every rank's rank + 1); over dp (size 1, no group) the rank's own."""
+    import numpy as np
+
+    x = [np.arange(3, dtype=np.float32) + r for r in range(n)]
+    for rank, res in enumerate(results):
+        c = res["collectives_check"]
+        ok = (np.array_equal(c["all_reduce_dp"], x[rank])
+              and np.array_equal(c["all_gather_dp"], x[rank][None]))
+        for name in ("tp", "world"):
+            ok = ok and (
+                np.array_equal(c[f"all_reduce_{name}"], sum(x))
+                and np.array_equal(c[f"all_gather_{name}"], np.stack(x))
+                and np.array_equal(c[f"sum_over_{name}"][1], np.full(
+                    3, n * (n + 1) / 2, np.float32)))
+        if not ok:
+            fail(f"parallel collectives on {device} ({c['backend']}, {n} "
+                 f"ranks): {c}")
+
+
+def vocoder_dp_check(ranks, voc_one, spec):
+    """Part (d)'s train_vocoder on 2 ranks (``ranks``' vocoder_loop_run
+    and its planted fault, vocoder_loop_run's ``spec``) against one process
+    run twice (``voc_one``), all from one seed on the same data:
+      * both ranks' nets (parameters and spectral-norm buffers) equal
+        after each run;
+      * after the first step, each net's (generator, MPD, MSD) distance
+        to one process over the length of one process's step at most
+        PAR_VOC_STEP_REL, and the planted fault's generator above it;
+      * the first step's losses at rtol 1e-5 (the same data and start).
+    The later steps are reported, not held: the adversarial steps carry
+    the first step's flipped weights on (the curves part by 3.5e-3 at
+    step 4 while one process's own two runs are bit for bit equal), so
+    what holds them to one process is the first step and the ranks'
+    equality after the last. Returns the readings; fails on any miss."""
+    import numpy as np
+
+    from tts_king_torch.train.vocoder import VocoderTrainer
+
+    got = ranks[0]["vocoder_loop_run"]
+    fault = ranks[0]["vocoder_loop_run:fault"]
+    want, again = voc_one
+    if not got["step"] == want["step"] == spec["steps"]:
+        fail(f"parallel d train_vocoder: steps {got['step']}, {want['step']}")
+    vc = spec["cfg"].vocoder
+    init = VocoderTrainer(vc, steps_per_epoch=1, device=spec["device"],
+                          **spec.get("disc", {})).init_state(vc.seed)
+    init = {k: _host(dict(m.named_parameters())) for k, m in
+            (("gen", init.gen), ("mpd", init.disc.mpd),
+             ("msd", init.disc.msd))}
+
+    def rel(a, b, net):   # |a - b| / |b - init| over one net
+        d = sum(float(np.sum((a[k].astype(np.float64) - v) ** 2))
+                for k, v in b.items())
+        step = sum(float(np.sum((v.astype(np.float64) - init[net][k]) ** 2))
+                   for k, v in b.items())
+        return float(np.sqrt(d / step))
+
+    first = {net: rel(got["first"][net], want["first"][net], net)
+             for net in init}
+    own = {net: rel(again["first"][net], want["first"][net], net)
+           for net in init}
+    fault_rel = rel(fault["first"]["gen"], want["first"]["gen"], "gen")
+    digests = [r["vocoder_loop_run"]["digests"] for r in ranks]
+    ranks_equal = all(d == digests[0] for d in digests)
+    fault_ranks_equal = all(r["vocoder_loop_run:fault"]["digests"]
+                            == ranks[0]["vocoder_loop_run:fault"]["digests"]
+                            for r in ranks)
+    curves = {k: [[r[k] for r in rec["records"] if r["phase"] == "vocoder"]
+                  for rec in (got, want, again)]
+              for k in ("disc", "gen", "mel_l1")}
+    first_losses = [(c[0][0], c[1][0]) for c in curves.values()]
+
+    def curve_rel(i, j):
+        return max(abs(a - b) / abs(b) for c in curves.values()
+                   for a, b in zip(c[i], c[j]))
+
+    # the generator after the last step, over the length of its whole run
+    last = {"gen": rel({k: got["gen"][k] for k in init["gen"]},
+                       {k: want["gen"][k] for k in init["gen"]}, "gen")}
+    out = {"step1_rel_to_step": first, "step1_rel_own_spread": own,
+           "last_step_rel_to_run": last,
+           "step1_rel_fault_gen": fault_rel, "step1_bound": PAR_VOC_STEP_REL,
+           "ranks_equal": ranks_equal, "fault_ranks_equal": fault_ranks_equal,
+           "losses": curves, "max_rel_loss_err": curve_rel(0, 1),
+           "own_max_rel_loss_spread": curve_rel(2, 1)}
+    ok = (ranks_equal and max(first.values()) <= PAR_VOC_STEP_REL
+          and fault_rel > PAR_VOC_STEP_REL and not fault_ranks_equal
+          and all(np.isclose(a, b, rtol=1e-5, atol=0)
+                  for a, b in first_losses))
+    if not ok:
+        fail(f"parallel d train_vocoder: {out}")
+    return out
+
+
+def _compare_records(got, want, what, keys=("total", "mel", "pitch",
+                                            "energy", "duration")):
+    """Metrics records of two runs, phase by phase, each loss at rtol
+    1e-4; returns the largest relative error."""
+    if [r["phase"] for r in got] != [r["phase"] for r in want]:
+        fail(f"{what}: records {[r['phase'] for r in got]} vs "
+             f"{[r['phase'] for r in want]}")
+    worst = 0.0
+    for a, b in zip(got, want):
+        for k in keys:
+            if k not in b:
+                continue
+            err = abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+            if err > 1e-4:
+                fail(f"{what}: {b['phase']} {k} {a[k]} vs {b[k]}")
+            worst = max(worst, err)
+    return worst
+
+
+def parallel_replicas(cfg, device):
+    """Part (f) of phase_parallel_path: FastSpeech2 inference and a
+    SynthesisServer over a single-process mesh of two replicas on
+    ``device`` against one device, with main_path_variables' weights.
+    Returns the launch counts of the mesh's runs, summed."""
+    import numpy as np
+    import torch
+
+    from tts_king_torch.parallel.mesh import build_mesh
+    from tts_king_torch.pipeline import TTSKing
+    from tts_king_torch.serve import SynthesisServer
+
+    fs2_vars, voc_vars = main_path_variables(cfg)
+    mesh = build_mesh(dp=2, devices=[device] * 2)
+    one, par = (TTSKing(cfg, device=device, acoustic_variables=fs2_vars,
+                        vocoder_variables=voc_vars, n_speakers=66, mesh=m)
+                for m in (None, mesh))
+    rng = np.random.RandomState(13)
+    phonemes = rng.randint(1, 206, (6, 48))
+    src_lens = rng.randint(16, 49, 6)
+    speakers = list(rng.randint(0, 66, 6))
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    got = par.tts.generate(phonemes, speaker_name=speakers, src_lens=src_lens)
+    torch.cuda.synchronize()
+    am_launches = launch_counts()
+    am_s = time.perf_counter() - t0
+    want = one.tts.generate(phonemes, speaker_name=speakers,
+                            src_lens=src_lens)
+    lens_equal = torch.equal(got["mel_lens"], want["mel_lens"])
+    mel_err = float((got["postnet_mel"] - want["postnet_mel"]).abs().max())
+    close = torch.allclose(got["postnet_mel"], want["postnet_mel"],
+                           rtol=1e-4, atol=1e-5)
+    emit({"phase": "parallel_path", "part": "f", "call": "generate",
+          "replicas": 2, "batch": 6, "mel_bucket": got["mel_bucket"],
+          "mel_lens_equal": lens_equal, "mel_max_abs_err": mel_err,
+          "wall_s": am_s, "launches": am_launches,
+          "ok": lens_equal and close and am_launches["attention"] > 0})
+    if not (lens_equal and close and am_launches["attention"] > 0):
+        fail(f"parallel f generate: lengths equal {lens_equal}, mel err "
+             f"{mel_err}, launches {am_launches}")
+
+    requests = [(rng.randint(1, 206, 32), i % 3) for i in range(8)]
+
+    def serve(king, return_wav=True):
+        # one window of 8: the same batch on both servers
+        server = SynthesisServer(king, max_batch=8, max_wait_ms=2000,
+                                 policy="window", return_wav=return_wav)
+        try:
+            futures = [server.submit(phonemes=p, speaker=s)
+                       for p, s in requests]
+            return [f.result(timeout=120) for f in futures], list(
+                server._trace_batches)
+        finally:
+            server.close()
+
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    wavs, trace = serve(par)
+    torch.cuda.synchronize()
+    srv_launches = launch_counts()
+    srv_s = time.perf_counter() - t0
+    ref, ref_trace = serve(one)
+    # the served mels: FastSpeech2's rows at half the batch can round
+    # otherwise in cuBLAS's and cuDNN's algorithms for that shape
+    mels, mel_ref = serve(par, False)[0], serve(one, False)[0]
+    lens_equal = all(a[1] == b[1] for a, b in zip(mels, mel_ref))
+    mel_bitwise = lens_equal and all(np.array_equal(a[0], b[0])
+                                     for a, b in zip(mels, mel_ref))
+    mel_close = lens_equal and all(np.allclose(a[0], b[0], rtol=1e-4,
+                                               atol=1e-5)
+                                   for a, b in zip(mels, mel_ref))
+    # the witness: each replica's rows of the batch are one device's at
+    # that replica's batch of 4, bit for bit, so a difference from the
+    # single-device server is the batch shape's rounding, not the mesh's
+    batch = np.stack([p for p, _ in requests])
+    spk = [s for _, s in requests]
+    whole = par.tts.generate(batch, speaker_name=spk)
+    half = len(requests) // 2
+    witness = all(torch.equal(
+        whole["postnet_mel"][i:i + half], one.tts.generate(
+            batch[i:i + half], speaker_name=spk[i:i + half],
+            max_mel_len=whole["mel_bucket"])["postnet_mel"])
+        for i in (0, half))
+    equal = [bool(np.array_equal(a, b)) for a, b in zip(wavs, ref)]
+    lsb = max(int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+              if a.shape == b.shape else -1 for a, b in zip(wavs, ref))
+    # bit for bit where the mels are; else within the streaming phase's
+    # 1 LSB (the same vocoder call on mels a few ulps apart)
+    ok = (mel_close and witness
+          and (all(equal) if mel_bitwise else 0 <= lsb <= 1)
+          and srv_launches["attention"] > 0
+          and srv_launches["mrf_stage"] > 0)
+    emit({"phase": "parallel_path", "part": "f", "call": "SynthesisServer",
+          "replicas": 2, "requests": len(requests), "batches": trace,
+          "single_batches": ref_trace, "mel_lens_equal": lens_equal,
+          "mels_bitwise_equal": mel_bitwise,
+          "replica_rows_bitwise_one_device_at_half_batch": witness,
+          "mel_max_abs_err": max(float(np.abs(a[0] - b[0]).max())
+                                 for a, b in zip(mels, mel_ref)),
+          "wavs_bitwise_equal": sum(equal), "max_lsb": lsb,
+          "samples": [len(w) for w in wavs], "wall_s": srv_s,
+          "launches": srv_launches, "ok": ok})
+    if not ok:
+        fail(f"parallel f server: mels close {mel_close} (bitwise "
+             f"{mel_bitwise}; half-batch witness {witness}), {sum(equal)} "
+             f"of {len(equal)} wavs bitwise "
+             f"equal (max {lsb} LSB), launches {srv_launches}")
+    return {k: am_launches[k] + srv_launches[k] for k in am_launches}
+
+
+def _parallel_rows(ranks, nccl, replicas):
+    """The parallel path's launches by kernel row, summed over its parts
+    and ranks."""
+    def tot(name, key):
+        return sum(r[name]["launches"][key] for r in ranks)
+
+    train = [run["launches"] for r in ranks
+             for run in r["train_loop_runs"]["runs"]] + [
+        nccl["runs"][0]["launches"]]
+    flash = {k: (tot("fs2_parallel_steps:a", k)
+                 + tot("fs2_parallel_steps:b", k)
+                 + sum(t[k] for t in train)) for k in ("flash_fwd",
+                                                       "flash_bwd")}
+    attention = sum(t["attention"] for t in train) + replicas["attention"]
+    attention_bf16 = (sum(t["attention_bf16"] for t in train)
+                      + replicas["attention_bf16"])
+    return {"1": attention_bf16, "1f": attention - attention_bf16,
+            "2": tot("time_sharded_vocode:bf16", "mrf_stage"),
+            "2f": (tot("time_sharded_vocode:f32", "mrf_stage")
+                   + replicas["mrf_stage"]),
+            "2b": 0, "3": flash}
+
+
 def main():
     try:
         import torch
@@ -3373,6 +4392,12 @@ def main():
     gan_launches = phase_gan_path(smi)
     torch.cuda.empty_cache()
     phase_train_step_time(smi)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        par_launches = phase_parallel_path(smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
     rows = phase_timing(main_config(), launches, train_launches, errs,
                         mel_lens, mrf_runs)
     attn, mrf_row = rows[0], rows[1]  # rows 1 and 1f, rows 2 and 2f
@@ -3411,8 +4436,17 @@ def main():
     mrf_row["launches_finetune"] = {"export": ft_launches["export"]["bf16"]}
     rows[-1]["launches_finetune"] = {k: ft_launches["train"][k]
                                      for k in ("flash_fwd", "flash_bwd")}
+    # the parallel path (gloo ranks on the card, NCCL at world size 1,
+    # replicas): FastSpeech2 in f32 (rows 1f, 3), the long utterance in
+    # both dtypes (rows 2, 2f)
+    attn["launches_parallel"] = par_launches["1"]
+    attn["f32"]["launches_parallel"] = par_launches["1f"]
+    mrf_row["launches_parallel"] = par_launches["2"]
+    mrf_row["f32"]["launches_parallel"] = par_launches["2f"]
+    rows[-1]["launches_parallel"] = par_launches["3"]
     rows.insert(2, int8_timing_row(main_config(), int8_launches,
                                    errs["mrf_stage_int8"]["bf16"]))
+    rows[2]["launches_parallel"] = par_launches["2b"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's main paths, on one CUDA card.
 
-Synthesis (the default): builds the bf16 TTSKing of chip_smoke.py (shipped
-width, seeded weights, 66 speakers), warms it up, and runs one batched
-``generate`` + vocoder at the bench shape (B=32, L=128, T_mel=1000).
+Batched synthesis (the default): chip_smoke.py's batched bf16 call, the
+form of the JAX bench: FastSpeech2 built and run in bf16
+(``chip_smoke.bench_fs2``, shipped width, seeded weights, 66 speakers) at
+the bench shape (B=32, L=128, T_mel=1000), then the bf16 Vocoder on its
+mel.
 Training (``--train``): one f32 optimizer step of TTSConfig()'s
 FastSpeech2 at the superbatch of bench.py:286-301 (acc 4 x B 16, L = 96,
 T = 640), after two warm-up steps, as chip_smoke.py times it. The int8
@@ -156,17 +158,23 @@ def main(argv=None):
         def run():
             return gan_step(gan_state, batch)
     else:
+        from tts_king_torch.pipeline import Vocoder
+
         cfg = chip_smoke.main_config()
-        king = chip_smoke.main_path_kings(cfg)["bf16"]
-        am, voc = king.tts, king.vocoder
+        fs2 = chip_smoke.bench_fs2(cfg)
+        voc = Vocoder(cfg, variables=chip_smoke.main_path_variables(cfg)[1],
+                      dtype=torch.bfloat16, device="cuda")
         phonemes, speakers = chip_smoke.bench_batch()
-        shape = {"B": chip_smoke.BENCH_B, "L": chip_smoke.BENCH_L,
-                 "T_mel": chip_smoke.BENCH_T, "dtype": "bf16"}
+        B, L, T = chip_smoke.BENCH_B, chip_smoke.BENCH_L, chip_smoke.BENCH_T
+        bench_in = (torch.tensor(speakers, device="cuda"),
+                    torch.from_numpy(phonemes).cuda(),
+                    torch.full((B,), L, dtype=torch.int32, device="cuda"))
+        shape = {"B": B, "L": L, "T_mel": T, "fs2": "bench_fs2 (bf16)",
+                 "vocoder": "bf16"}
 
         def run():
-            out = am.generate(phonemes, speaker_name=speakers,
-                              max_mel_len=chip_smoke.BENCH_T)
-            return voc(out["postnet_mel"])
+            with torch.inference_mode():
+                return voc(fs2(*bench_in, max_mel_len=T)["postnet_mel"])
 
     for _ in range(2):
         run()

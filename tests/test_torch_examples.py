@@ -44,9 +44,20 @@ def test_voice_over_example_micro(tmp_path):
     assert sr == 22050 and track.dtype.name == "int16" and len(track) > sr / 4
 
 
+def test_voice_over_time_shard_micro(tmp_path):
+    """--time-shard: one mel track vocoded through Vocoder.generate_long
+    on a mesh of the local devices (the CPU here)."""
+    path = str(tmp_path / "vo.wav")
+    out = _run_example("voice_over", "--line", "0|привет мир",
+                       "--line", "1|тест", "--out", path, "--time-shard")
+    assert "2 lines" in out and "time-sharded over 1 devices" in out
+    sr, track = wavfile.read(path)
+    assert sr == 22050 and track.dtype.name == "int16" and len(track) > sr / 4
+
+
 def test_examples_default_to_cuda():
     """Without --device the examples ask for the card, and fail where there
-    is none; --time-shard names the parallelism slice."""
+    is none, --time-shard too."""
     import torch
 
     from tts_king_torch.examples import basic_usage, voice_over
@@ -55,5 +66,5 @@ def test_examples_default_to_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         basic_usage.main(["--micro"])
-    with pytest.raises(NotImplementedError, match="parallelism"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         voice_over.main(["--micro", "--line", "0|тест", "--time-shard"])

@@ -2,7 +2,7 @@
 
 Three groups:
   * the behaviours tests/test_serve.py pins, each mirrored on the port's
-    server (all but the dp-mesh test: the port has no mesh yet);
+    server (the dp-mesh test is in test_torch_parallel_inference.py);
   * the port against the JAX package on the same seeded inputs and the same
     weights: optimal_buckets and _phone_pad exactly, generate(
     defer_overflow=True) (same mel bucket, mel MAE < 1e-3),

@@ -404,7 +404,7 @@ def test_cli_trains_from_a_yaml_config(tmp_path):
     assert os.listdir(cfg.train.ckpt_path) == ["step_00000001"]
 
 
-def test_unported_training_paths_raise(tmp_path):
+def test_unported_training_paths_raise(tmp_path, monkeypatch):
     from tts_king_torch.config import MeshConfig
     from tts_king_torch.train.__main__ import main
     from tts_king_torch.train.checkpoint import restore_train_state
@@ -412,13 +412,16 @@ def test_unported_training_paths_raise(tmp_path):
 
     root = _write_corpus(tmp_path / "corpus", n_train=6)
     cfg = _loop_config(root, tmp_path / "ckpt")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # a mesh needs processes: one process names how to launch them
+    with pytest.raises(ValueError, match="--distributed or torchrun"):
         train(dataclasses.replace(cfg, mesh=MeshConfig(dp=2)), device="cpu")
     bf16 = dataclasses.replace(cfg.model, attention_probs_bf16=True)
     with pytest.raises(NotImplementedError, match="bf16"):
         train(dataclasses.replace(cfg, model=bf16), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        main(["--distributed"])
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="torchrun"):
+        main(["--distributed", "--device", "cpu"])
     # an orbax directory (no train_state.pt) names the export script
     os.makedirs(tmp_path / "orbax" / "step_00000007")
     with pytest.raises(NotImplementedError, match="export_flax_variables"):

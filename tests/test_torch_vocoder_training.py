@@ -339,10 +339,10 @@ def _loop_env(tmp_path):
 
 
 def test_train_vocoder_loop_checkpoint_and_resume(tmp_path):
-    """tests/test_vocoder_loop.py on the port (CPU): the errors (parallel
-    runs raise, naming the parallelism slice; fewer training wavs than a
-    batch), 2 steps with validation on a cycled val split, a checkpoint
-    whose folded params drive the inference Generator and whose GAN state
+    """tests/test_vocoder_loop.py on the port (CPU): the errors (a parallel
+    run outside a process group; fewer training wavs than a batch), 2
+    steps with validation on a cycled val split, a checkpoint whose folded
+    params drive the inference Generator and whose GAN state
     resumes (weights, spectral buffers, Adam counts and moments), the
     metrics' phases; then a resume for one more step."""
     from tts_king_torch.models.hifigan import Generator
@@ -351,7 +351,7 @@ def test_train_vocoder_loop_checkpoint_and_resume(tmp_path):
 
     cfg, wavs = _loop_env(tmp_path)
     vc = cfg.vocoder
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
+    with pytest.raises(ValueError, match="process group"):
         train_vocoder(cfg, wavs, max_steps=2, distributed=True, device="cpu",
                       **DISC)
     with pytest.raises(ValueError, match="training wavs"):
@@ -400,8 +400,8 @@ def test_train_vocoder_emergency_checkpoint(tmp_path, monkeypatch):
 
     make = vocoder_mod.VocoderTrainer.make_train_step
 
-    def failing(self):
-        step = make(self)
+    def failing(self, mesh=None):
+        step = make(self, mesh)
 
         def run(state, batch):
             if state.step == 1:
@@ -423,8 +423,8 @@ def test_train_vocoder_emergency_checkpoint(tmp_path, monkeypatch):
 def test_vocoder_cli(tmp_path, monkeypatch):
     """python -m tts_king_torch.train.vocoder_loop: every wav under
     --wavs-dir, sorted, the first --val-frac (at least one) for validation,
-    the flags passed on; --distributed and --coordinator raise; an empty
-    directory exits."""
+    the flags passed on; --distributed without a coordinator or torchrun's
+    environment raises; an empty directory exits."""
     from tts_king_torch.train import vocoder_loop
 
     calls = []
@@ -438,9 +438,13 @@ def test_vocoder_cli(tmp_path, monkeypatch):
     assert [os.path.basename(w) for w in kw["val_paths"]] == ["w0.wav"]
     assert len(wavs) == 4 and kw["max_steps"] == 3
     assert kw["restore_step"] == 2 and kw["device"] == "cpu"
-    for flag in (["--distributed"], ["--coordinator", "localhost:1"]):
-        with pytest.raises(NotImplementedError, match="parallelism slice"):
-            vocoder_loop.main(["--wavs-dir", str(tmp_path)] + flag)
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    for flag in (["--distributed"], ["--distributed", "--coordinator",
+                                     "localhost:1"]):
+        with pytest.raises(ValueError, match="torchrun"):
+            vocoder_loop.main(["--wavs-dir", str(tmp_path), "--device",
+                               "cpu"] + flag)
     empty = tmp_path / "empty"
     empty.mkdir()
     with pytest.raises(SystemExit):

@@ -22,6 +22,12 @@ Grapheme masking is applied per epoch at batch assembly, keyed by (epoch
 seed, item index), with the reference's two bugs fixed as in the JAX
 package (the ``> 1`` gate that left a ratio of 0.15 dead,
 fs_two/dataset.py:149, and the once-at-load application).
+
+Data parallelism: ``shard=(rank, count)`` (rank = the process's dp index).
+Every rank computes the same global batch plan (permutation, grouping,
+sorting, masks and padded lengths, from the metadata and the .npy headers
+alone) and loads the features of its own contiguous row block of each
+microbatch only, so the blocks of all ranks make the unsharded batch.
 """
 
 import json
@@ -69,7 +75,8 @@ class FS2Dataset:
     def __init__(self, metadata_file: str, preprocess: PreprocessConfig,
                  train: TrainConfig, drop_last: bool = True,
                  max_mel_len: Optional[int] = 1000, apply_masking=None,
-                 use_native_loader: Optional[bool] = None):
+                 use_native_loader: Optional[bool] = None,
+                 shard: tuple = (0, 1)):
         self.root = preprocess.preprocessed_path
         self.cleaners = list(preprocess.text_cleaners)
         self.batch_size = train.optimizer.batch_size
@@ -79,6 +86,10 @@ class FS2Dataset:
                               if apply_masking is None else apply_masking)
         self.drop_last = drop_last
         self.max_mel_len = max_mel_len
+        rank, count = shard
+        if not (0 <= rank < count):
+            raise ValueError(f"bad shard {shard}: need 0 <= rank < count")
+        self.shard = (int(rank), int(count))
         self._mel_len_cache: Dict[tuple, int] = {}
         self.use_native_loader = (native.available()
                                   if use_native_loader is None
@@ -256,9 +267,19 @@ class FS2Dataset:
             return full
         return full + (1 if tail >= self.batch_size else 0)
 
+    def _rows(self, entries, bs):
+        """This shard's contiguous block of a batch's entries."""
+        rank, count = self.shard
+        if bs % count:
+            raise ValueError(
+                f"batch_size={bs} not divisible by shard count {count}")
+        k = bs // count
+        return entries[rank * k:(rank + 1) * k]
+
     def epoch_superbatches(self, seed: int = 0, start_batch: int = 0
                            ) -> Iterator[Dict[str, np.ndarray]]:
-        """Yield (acc, B, ...) superbatches for one epoch.
+        """Yield (acc, B, ...) superbatches for one epoch (B = batch_size
+        // count on a shard: its rows of each microbatch).
 
         Groups of batch_size * group_size items are sorted by phoneme count
         (longest first) and sliced into ``group_size`` microbatches, padded
@@ -291,6 +312,7 @@ class FS2Dataset:
             T = _quantize(max(self._mel_len(e[1], e[0])
                               for m in micro for e in m),
                           T_STEP, self.max_mel_len)
+            micro = [self._rows(m, bs) for m in micro]
             if self.use_native_loader:
                 collated = [self._collate_native(m, L, T) for m in micro]
             else:
@@ -302,15 +324,20 @@ class FS2Dataset:
 
     def batches(self) -> Iterator[Dict[str, np.ndarray]]:
         """Plain (B, ...) batches in metadata order (no accumulation axis),
-        unmasked, for evaluation."""
+        unmasked, for evaluation. A shard yields its row block of each
+        batch and drops the ragged tail (every shard must see the same
+        batches)."""
         bs = self.batch_size
+        count = self.shard[1]
         for start in range(0, len(self.meta), bs):
             idxs = range(start, min(start + bs, len(self.meta)))
-            if len(idxs) < bs and self.drop_last:
+            if len(idxs) < bs and (self.drop_last or count > 1):
                 break
             entries = [self._entry(i) for i in idxs]
             L = _quantize(max(len(e[3]) for e in entries), L_STEP)
             T = _quantize(max(self._mel_len(e[1], e[0]) for e in entries),
                           T_STEP, self.max_mel_len)
+            if count > 1:
+                entries = self._rows(entries, bs)
             yield self._collate([self._item_from_entry(e) for e in entries],
                                 L, T)

@@ -45,6 +45,7 @@ from tts_king_torch.models.layers import (CNNScalar, FFTBlock, PostNet,
 from tts_king_torch.ops.cwt import inverse_batch_cwt
 from tts_king_torch.ops.length_regulator import length_regulate, round_durations
 from tts_king_torch.ops.masks import mask_from_lengths
+from tts_king_torch.parallel.comm import Axis
 from tts_king_torch.text.symbols import VOCAB_SIZE
 
 CWT_CHANNELS = 11   # the CWT scales of the pitch spectrogram
@@ -136,6 +137,7 @@ class VarianceAdaptor(nn.Module):
         vp = predictor or VariancePredictorConfig()
         self.n_bins = n_bins
         self.use_cwt = use_cwt
+        self.dp = Axis()   # the mesh's dp axis: the CWT pitch's global batch
         for name in ("duration_predictor", "pitch_predictor",
                      "energy_predictor"):
             self.add_module(name, VariancePredictor(
@@ -187,7 +189,7 @@ class VarianceAdaptor(nn.Module):
             xd, pd = x.detach(), pitch_prediction.detach()
             pitch_mean = self.pitch_mean(xd, pd)
             pitch_std = self.pitch_std(xd, pd)
-            pitch = inverse_batch_cwt(pitch_prediction)
+            pitch = inverse_batch_cwt(pitch_prediction, dp=self.dp)
             pitch_target = (pitch * pitch_std + pitch_mean) * p_control
         elif pitch_target is None:
             pitch_prediction = pitch_prediction * p_control

@@ -34,6 +34,7 @@ from torch import nn
 
 from tts_king_torch.ops.kernels.attention import attention
 from tts_king_torch.ops.kernels.flash_attention import flash_attention
+from tts_king_torch.parallel.comm import Axis, copy_to, reduce_from, sum_over
 
 LN_EPS = 1e-5  # torch LayerNorm/BatchNorm default
 BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
@@ -65,14 +66,20 @@ class Dropout(nn.Module):
     def __init__(self, p):
         super().__init__()
         self.p = float(p)
+        self.dp = Axis()   # the mesh's dp axis (parallel.mesh.shard_fs2)
 
     def forward(self, x, generator):
         if not self.training or self.p == 0.0:
             return x
         if generator is None:
             raise ValueError("dropout in training mode needs a generator")
-        keep = torch.rand(x.shape, generator=generator, device=x.device,
-                          dtype=torch.float32) < 1.0 - self.p
+        # the global batch's mask, this rank's rows of it: dp = N draws
+        # what one process draws at the same seed
+        B = x.shape[0]
+        keep = torch.rand((B * self.dp.size,) + tuple(x.shape[1:]),
+                          generator=generator, device=x.device,
+                          dtype=torch.float32)[
+            self.dp.index * B:(self.dp.index + 1) * B] < 1.0 - self.p
         return torch.where(keep, x / (1.0 - self.p), x.new_zeros(()))
 
 
@@ -82,13 +89,17 @@ class BatchNorm(nn.BatchNorm1d):
     E[x^2] - E[x]^2 (biased, clipped at 0) over every (B, T) position, and
     running stats updated with that biased variance at momentum 0.9. torch's
     own training mode updates the running variance with the unbiased one.
-    Eval mode normalizes with the running stats, as BatchNorm1d does."""
+    Eval mode normalizes with the running stats, as BatchNorm1d does.
+    Under data parallelism (``dp``, the mesh's axis) the statistics are the
+    global batch's: the sums over every rank's rows, all-reduced, and every
+    rank updates its running stats alike."""
 
     def __init__(self, num_features, eps=LN_EPS):
         super().__init__(num_features, eps=eps, momentum=1.0 - BN_MOMENTUM)
         # None, or the eval-mode multiplier fixed by
         # pipeline.round_variables (flax's on variables rounded to bf16)
         self.register_buffer("eval_mul", None, persistent=False)
+        self.dp = Axis()
 
     def forward(self, x):
         if not self.training:
@@ -96,8 +107,11 @@ class BatchNorm(nn.BatchNorm1d):
                 return super().forward(x)
             return ((x - self.running_mean[:, None]) * self.eval_mul[:, None]
                     + self.bias[:, None])
-        mean = x.mean(dim=(0, 2))
-        var = ((x * x).mean(dim=(0, 2)) - mean * mean).clamp(min=0.0)
+        n = x.shape[0] * x.shape[2] * self.dp.size
+        sums = sum_over(torch.stack([x.sum(dim=(0, 2)),
+                                     (x * x).sum(dim=(0, 2))]), self.dp)
+        mean, mean_sq = sums[0] / n, sums[1] / n
+        var = (mean_sq - mean * mean).clamp(min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=self.momentum)
             self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=self.momentum)
@@ -112,7 +126,12 @@ class MultiHeadAttention(nn.Module):
     one) the attention is ``flash_attention``, whose backward is a kernel
     too; otherwise it is the inference kernel's function (``attention``).
     Both compute softmax(q k^T / sqrt(d_k), padded keys at -1e9) v with an
-    f32 softmax."""
+    f32 softmax.
+
+    Under tensor parallelism (``tp``, the mesh's axis; parallel.mesh.
+    shard_fs2) this rank holds ``n_head`` of the heads: w_qs/w_ks/w_vs
+    split on their output features, ``fc`` on its input features, whose
+    partial products are all-reduced before ``fc``'s bias is added once."""
 
     def __init__(self, n_head, d_model, d_k, d_v, dropout=0.1):
         super().__init__()
@@ -125,6 +144,7 @@ class MultiHeadAttention(nn.Module):
         self.fc = nn.Linear(n_head * d_v, d_model)
         self.dropout = Dropout(dropout)
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.tp = Axis()
 
     def forward(self, x, key_pad_mask, generator=None):
         B, T, _ = x.shape
@@ -133,18 +153,23 @@ class MultiHeadAttention(nn.Module):
         def heads(t):  # (B, T, H*D) -> (B, H, T, D) view
             return t.view(B, T, H, D).transpose(1, 2)
 
-        q, k, v = heads(self.w_qs(x)), heads(self.w_ks(x)), heads(self.w_vs(x))
+        xs = copy_to(x, self.tp)
+        q, k, v = (heads(self.w_qs(xs)), heads(self.w_ks(xs)),
+                   heads(self.w_vs(xs)))
         if torch.is_grad_enabled() and q.requires_grad:
             out = flash_attention(q, k, v, key_pad_mask)
         else:
             out = attention(q, k, v, key_pad_mask)
-        out = self.fc(out.transpose(1, 2).reshape(B, T, H * D))
+        out = reduce_from(F.linear(out.transpose(1, 2).reshape(B, T, H * D),
+                                   self.fc.weight), self.tp) + self.fc.bias
         return self.layer_norm(self.dropout(out, generator) + x)
 
 
 class PositionwiseFeedForward(nn.Module):
     """Conv1d FFN: k=9 expand, k=1 project, post-LN
-    (fs_two/transformer/SubLayers.py:68-100)."""
+    (fs_two/transformer/SubLayers.py:68-100). Under tensor parallelism
+    (``tp``) w_1 is split on its filters and w_2 on its input channels;
+    w_2's partial sums are all-reduced before its bias is added once."""
 
     def __init__(self, d_in, d_hid, kernel_size=(9, 1), dropout=0.1):
         super().__init__()
@@ -153,9 +178,13 @@ class PositionwiseFeedForward(nn.Module):
         self.w_2 = nn.Conv1d(d_hid, d_in, k2, padding=(k2 - 1) // 2)
         self.dropout = Dropout(dropout)
         self.layer_norm = nn.LayerNorm(d_in, eps=LN_EPS)
+        self.tp = Axis()
 
     def forward(self, x, generator=None):
-        h = _conv(self.w_2, F.relu(_conv(self.w_1, x)))
+        h = F.relu(_conv(self.w_1, copy_to(x, self.tp)))
+        h = F.conv1d(h.transpose(1, 2), self.w_2.weight, None,
+                     padding=self.w_2.padding).transpose(1, 2)
+        h = reduce_from(h, self.tp) + self.w_2.bias
         return self.layer_norm(self.dropout(h, generator) + x)
 
 

@@ -18,6 +18,8 @@ import math
 import numpy as np
 import torch
 
+from tts_king_torch.parallel.comm import Axis, sum_over
+
 CWT_DT = 0.005
 CWT_DJ = 1.0
 CWT_S0 = 2 * CWT_DT  # 0.01
@@ -82,11 +84,16 @@ def inverse_cwt(coefs, num_scales=10):
     return ((rec - rec.mean()) / torch.clamp(std, min=1e-12)).to(coefs.dtype)
 
 
-def inverse_batch_cwt(coefs, num_scales=10):
+def inverse_batch_cwt(coefs, num_scales=10, dp: Axis = Axis()):
     """Batched recomposition, standardized over the batch axis with the
     population std + 1e-12 (the reference's quirk, cwt_utils.py:54-66):
-    (B, T, >=num_scales) -> (B, T)."""
+    (B, T, >=num_scales) -> (B, T). ``dp`` (a mesh axis) makes the batch
+    the global one: the mean and the squared deviations are summed over
+    every rank's rows (parallel.comm.sum_over), in two passes as
+    torch.std's."""
     rec = _recompose(coefs, num_scales)
-    mean = rec.mean(dim=0, keepdim=True)
-    std = torch.std(rec, dim=0, keepdim=True, correction=0)
+    n = rec.shape[0] * dp.size
+    mean = sum_over(rec.sum(dim=0, keepdim=True), dp) / n
+    std = torch.sqrt(sum_over(((rec - mean) ** 2).sum(
+        dim=0, keepdim=True), dp) / n)
     return ((rec - mean) / (std + 1e-12)).to(coefs.dtype)

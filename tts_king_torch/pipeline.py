@@ -27,6 +27,17 @@ bfloat16), with the JAX package's meaning:
 FastSpeech2 computed in bf16 (the JAX bench's ``build_fastspeech2(dtype=
 bf16)``) is ``build_fastspeech2(...).to(torch.bfloat16)``.
 
+Data parallelism: ``AcousticModel(mesh=)`` (parallel/mesh.py; TTSKing
+passes its ``mesh`` there) splits each batch's rows over the mesh's dp
+replicas, padding the batch to a multiple of dp and trimming the result
+(the JAX AcousticModel's mesh path): on a single-process mesh each
+replica is the model on its device, run one after another; on a mesh of processes each rank runs its dp index's rows and the
+outputs are gathered, so every rank returns the whole batch. Each row's
+outputs are its single-device ones, the mel bucket escalating on the whole
+batch's longest raw length. ``Vocoder.generate_long`` splits one long
+utterance's time axis over the mesh instead (ops/time_parallel.py). A CWT
+model is not split (its pitch standardizes over the batch).
+
 Weights come from ``variables=`` (a flax-style tree of numpy arrays, or a
 state dict) or from a weights path: an ``.npz`` export (``var::`` naming,
 see scripts/export_flax_variables.py) for either model, or an upstream
@@ -165,6 +176,33 @@ def round_variables(module, dtype):
     return module
 
 
+def _rows_over_dp(mesh, module, fn, inputs, device):
+    """fn(replica, *rows) for each dp replica of ``mesh`` on its rows of
+    ``inputs`` (tensors whose batch is a multiple of dp); the outputs, dicts
+    of tensors and Nones, concatenated on ``device``."""
+    from tts_king_torch.parallel.comm import all_gather
+
+    k = inputs[0].shape[0] // mesh.dp
+    if mesh.local:
+        outs = [fn(mesh.replica(module, dev),
+                   *(x[i * k:(i + 1) * k].to(dev) for x in inputs))
+                for i, dev in enumerate(mesh.dp_devices())]
+    else:
+        i = mesh.dp_axis.index
+        mine = fn(module, *(x[i * k:(i + 1) * k] for x in inputs))
+        gathered = {key: (all_gather(v, mesh.dp_axis) if v is not None
+                          else None) for key, v in mine.items()}
+        outs = [{key: (v[r] if v is not None else None)
+                 for key, v in gathered.items()} for r in range(mesh.dp)]
+    return {key: (torch.cat([o[key].to(device) for o in outs])
+                  if outs[0][key] is not None else None) for key in outs[0]}
+
+
+def _pad_rows(x, n):
+    """``x`` with ``n`` rows of zeros appended."""
+    return np.concatenate([x, np.zeros((n,) + x.shape[1:], x.dtype)])
+
+
 def _materialize(build, variables, weights_path, device, seed, what,
                  convert_torch):
     """Build a module on the meta device (no init, no global RNG), allocate
@@ -186,10 +224,16 @@ class AcousticModel:
     """FastSpeech2 inference driver (FSTWOapi equivalent, fsapi.py:9-82)."""
 
     def __init__(self, config: TTSConfig, variables=None, n_speakers=None,
-                 stats=None, dtype=torch.float32, device="cuda"):
+                 stats=None, dtype=torch.float32, device="cuda", mesh=None):
         self.device = resolve_device(device)
         self.dtype = _check_dtype(dtype)
         self.config = config
+        if mesh is not None and config.model.use_cwt:
+            raise NotImplementedError(
+                "a CWT model on a mesh: its pitch standardizes over the "
+                "batch, which split rows would change; run it on one device")
+        # mesh: optional parallel.mesh.Mesh for data-parallel inference
+        self.mesh = mesh
         weights_path = config.acoustic.weights_path
         model_dir = os.path.dirname(weights_path) if weights_path else None
 
@@ -273,18 +317,30 @@ class AcousticModel:
             buckets = ([b for b in MEL_BUCKETS if b >= start]
                        or [self.config.model.max_seq_len])
 
+        speaker_ids = speaker_ids.astype(np.int64)
+        pad = -B % self.mesh.dp if self.mesh is not None else 0
+        if pad:
+            texts = _pad_rows(texts, pad)
+            src_lens = np.concatenate([src_lens, np.ones((pad,), np.int32)])
+            speaker_ids = _pad_rows(speaker_ids, pad)
         dev = self.device
-        texts_t = to_device(texts, dev)
-        src_lens_t = to_device(src_lens, dev)
-        speakers_t = to_device(speaker_ids.astype(np.int64), dev)
+        inputs = (to_device(speaker_ids, dev), to_device(texts, dev),
+                  to_device(src_lens, dev))
         out = None
         for T in buckets:
-            out = self.model(speakers_t, texts_t, src_lens_t, max_mel_len=T,
+            def fs2(model, speakers, texts, src_lens):
+                return model(speakers, texts, src_lens, max_mel_len=T,
                              p_control=pitch_control, e_control=energy_control,
                              d_control=duration_control)
+
+            out = (fs2(self.model, *inputs) if self.mesh is None else
+                   _rows_over_dp(self.mesh, self.model, fs2, inputs, dev))
             # escalate on the RAW length: mel_lens is clamped to T in-model
             if defer_overflow or int(out["mel_lens_raw"].max()) <= T:
                 break
+        if pad:
+            out = {k: (v[:B] if isinstance(v, torch.Tensor) else v)
+                   for k, v in out.items()}
         out["mel_bucket"] = T
         return out
 
@@ -364,6 +420,23 @@ class Vocoder:
         return wav_to_int16(self.model(self._mel(mel)),
                             self.config.vocoder.max_wav_value)
 
+    @torch.inference_mode()
+    def generate_long(self, mel, mesh, axis="dp"):
+        """ONE long utterance, its time axis split over ``mesh[axis]`` with
+        a halo exchange (ops/time_parallel.py): audiobook-length audio
+        vocoded n ways. mel: (1, T, M) natural-log mel (MelGAN's divided by
+        ln 10). The halo is the HiFi-GAN generator's receptive field,
+        whatever the vocoder, as in the JAX package. Returns the
+        (T * hop,) int16 numpy waveform."""
+        from tts_king_torch.ops.time_parallel import vocoder_time_sharded
+
+        v = self.config.vocoder
+        wav = vocoder_time_sharded(
+            self.model, self._mel(mel), mesh,
+            halo_frames=generator_receptive_field(v),
+            upsample=int(np.prod(v.upsample_rates)), axis=axis)
+        return wav_to_int16(wav, v.max_wav_value)[0].cpu().numpy()
+
     def generate(self, mel, lengths=None):
         """mel -> int16 numpy waveform (hifiapi.py:40-52); optional
         per-item sample lengths trim it into a list."""
@@ -378,7 +451,10 @@ class TTSKing:
 
     def __init__(self, config="./config.yaml", lexicon_path=None,
                  dtype=torch.float32, device="cuda", acoustic_variables=None,
-                 vocoder_variables=None, n_speakers=None):
+                 vocoder_variables=None, n_speakers=None, mesh=None):
+        # mesh: FastSpeech2's batch rows split over its dp replicas, as the
+        # JAX TTSKing gives its mesh to the AcousticModel alone; the vocoder
+        # runs each batch whole
         device = resolve_device(device)
         if isinstance(config, str):
             from tts_king_torch.config import load_config
@@ -387,7 +463,7 @@ class TTSKing:
         self.cfg = config
         self.tts = AcousticModel(config, variables=acoustic_variables,
                                  n_speakers=n_speakers, dtype=dtype,
-                                 device=device)
+                                 device=device, mesh=mesh)
         self.vocoder = Vocoder(config, variables=vocoder_variables,
                                dtype=dtype, device=device)
         self.speakers = self.tts.speaker_names

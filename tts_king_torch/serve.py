@@ -20,6 +20,11 @@ Scheduling (policy="continuous", the default):
     completer that fetches wav(i-1): dispatch, FS2, vocoder and fetch all
     overlap.
 
+A king built over a dp mesh (``TTSKing(mesh=...)``, parallel/mesh.py)
+serves each batch's rows across the mesh's replicas; its results are the
+single-device server's, and ``stream()`` then runs FastSpeech2 and the first
+window as two dispatches (the fused head is off, as in the JAX server).
+
 policy="window" is the older scheduler (wait out max_wait_ms per batch) for
 A/B runs. Requests with identical control knobs are batched together:
 mixing controls within a batch would change per-item outputs.
@@ -487,10 +492,12 @@ class SynthesisServer:
         """FS2 forward and the first vocoder window, queued back to back
         with no host sync between them: one dispatch sequence produces
         (mel, lens, first audio window). Returns (out_dict, window_wav,
-        mel_bucket), or None where it does not apply (MelGAN, or a first
-        bucket shorter than chunk + halo frames). Whether the window is
-        exact is decided in stream()."""
-        if self.king.vocoder.kind == "MelGAN":
+        mel_bucket), or None where it does not apply (a mesh, whose
+        inference splits the batch's rows; MelGAN; or a first bucket
+        shorter than chunk + halo frames). Whether the window is exact is
+        decided in stream()."""
+        if (getattr(self.king.tts, "mesh", None) is not None
+                or self.king.vocoder.kind == "MelGAN"):
             return None
         L = len(phonemes)
         guess = int(L * pipeline._FRAMES_PER_PHONE_GUESS * controls[0])

@@ -9,6 +9,12 @@ across speaker sets). The port writes it with ``torch.save`` as
 ``train_state.pt`` in that directory; orbax directories written by the JAX
 package are not read (scripts/export_flax_variables.py exports their
 weights to npz).
+
+On a mesh (parallel/mesh.py) the file is the same: every tp line gathers
+its split parameters and Adam moments, rank 0 writes the full state, and
+every rank waits for the file; a restore reads the full state on every
+rank and slices it by the rules. So a run saved at dp=2 or tp=2 resumes on
+one process, and the other way round.
 """
 
 import os
@@ -49,16 +55,30 @@ def _adam_state(payload, device) -> AdamState:
                      {k: v.to(device) for k, v in payload["nu"].items()})
 
 
-def save_train_state(path: str, step: int, state: TrainState):
-    sd = _cpu(state.model.state_dict())
-    speaker_emb = {k: sd.pop(k) for k in list(sd)
-                   if k.startswith(_SPEAKER_PREFIX)}
-    _write(path, step, {
-        "model": sd,
-        "speaker_emb": speaker_emb,
-        "opt_state": _adam_payload(state.opt_state),
-        "step": int(step),
-    })
+def save_train_state(path: str, step: int, state: TrainState, mesh=None):
+    """Write ``state`` at ``step``; on a ``mesh`` every rank calls this and
+    rank 0 writes the gathered full state."""
+    sd = state.model.state_dict()
+    opt = state.opt_state
+    if mesh is not None:
+        from tts_king_torch.parallel.lockstep import coordination_barrier
+        from tts_king_torch.parallel.mesh import unshard_state_dict
+
+        sd = unshard_state_dict(sd, mesh)
+        opt = AdamState(opt.count, unshard_state_dict(opt.mu, mesh),
+                        unshard_state_dict(opt.nu, mesh))
+    if mesh is None or mesh.rank == 0:
+        sd = _cpu(sd)
+        speaker_emb = {k: sd.pop(k) for k in list(sd)
+                       if k.startswith(_SPEAKER_PREFIX)}
+        _write(path, step, {
+            "model": sd,
+            "speaker_emb": speaker_emb,
+            "opt_state": _adam_payload(opt),
+            "step": int(step),
+        })
+    if mesh is not None:
+        coordination_barrier(f"save:{os.path.abspath(path)}:{step}")
 
 
 def save_vocoder_state(path: str, step: int, state, params):
@@ -126,10 +146,19 @@ def restore_train_state(path: str, step: Optional[int] = None):
     return payload
 
 
-def load_train_state(state: TrainState, payload) -> TrainState:
-    """Copy a restored payload into ``state`` (on the model's device)."""
-    state.model.load_state_dict(payload["model"], strict=True)
+def load_train_state(state: TrainState, payload, mesh=None) -> TrainState:
+    """Copy a restored payload into ``state`` (on the model's device), this
+    rank's slice of it on a ``mesh``."""
+    model_sd, opt = payload["model"], payload["opt_state"]
+    if mesh is not None:
+        from tts_king_torch.parallel.mesh import shard_state_dict
+
+        model_sd = shard_state_dict(model_sd, mesh)
+        opt = {"count": opt["count"],
+               "mu": shard_state_dict(opt["mu"], mesh),
+               "nu": shard_state_dict(opt["nu"], mesh)}
+    state.model.load_state_dict(model_sd, strict=True)
     device = next(state.model.parameters()).device
-    state.opt_state = _adam_state(payload["opt_state"], device)
+    state.opt_state = _adam_state(opt, device)
     state.step = int(payload["step"])
     return state

@@ -20,10 +20,22 @@ is synthesized free-running and written as ``step_<n>.wav`` under
 where matplotlib imports; without it one log line says the plot was
 skipped.
 
-Not ported yet, and raising ``NotImplementedError``: a device mesh
-(``MeshConfig`` other than one device, or ``--distributed``; the
-parallelism slice) and ``attention_probs_bf16=True`` (FastSpeech2 refuses
-it; the bf16 attention slice).
+Multi-process: in a ``torch.distributed`` run (``python -m
+tts_king_torch.train --distributed``, or torchrun) the processes form a
+dp x tp mesh from ``cfg.mesh`` (parallel/mesh.py, rank r at (r // tp,
+r % tp)), with JAX's checks: tp divides the ranks of a host, dp is a
+multiple of the hosts, and the batch size of dp. Each rank loads its dp
+index's rows of every batch (FS2Dataset(shard=...)); the step computes the
+global batch's loss and gradients (train/step.py); validation runs over dp;
+checkpoints hold the full state in the single-process format
+(train/checkpoint.py). Rank 0 alone logs, and runs the previews and the
+objective validation where its model computes alone (tp = 1 and no CWT
+pitch, whose standardization is over the global batch); elsewhere they are
+skipped with a line on stderr. A single process trains on one device.
+
+Not ported yet, and raising ``NotImplementedError``:
+``attention_probs_bf16=True`` (FastSpeech2 refuses it; the bf16 attention
+slice).
 """
 
 import json
@@ -59,21 +71,62 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
         (int(s[0]) << 31) ^ int(s[1]))
 
 
-def _check_ported(cfg: TTSConfig):
-    if cfg.mesh.tp != 1 or cfg.mesh.dp not in (-1, 1):
-        raise NotImplementedError(
-            f"mesh dp={cfg.mesh.dp} tp={cfg.mesh.tp}: data and tensor "
-            "parallel training is not ported yet; it comes with the "
-            "parallelism slice of the port")
+def build_train_mesh(cfg: TTSConfig, device):
+    """The dp x tp mesh of a multi-process run (None in one process), with
+    the JAX loop's checks (tts_king_tpu/train/loop.py:66-90); a host is
+    the LOCAL_WORLD_SIZE ranks torchrun starts there (every rank of a run
+    launched by --num-processes). One process asked for every device
+    (``mesh.dp`` -1) on a host of several cards is told on stderr that it
+    trains on ``device`` alone."""
+    import torch.distributed as dist
+
+    from tts_king_torch.parallel.lockstep import local_world_size
+    from tts_king_torch.parallel.mesh import build_mesh, note_one_card
+
+    if not dist.is_initialized():
+        if cfg.mesh.tp != 1 or cfg.mesh.dp not in (-1, 1):
+            raise ValueError(
+                f"mesh dp={cfg.mesh.dp} x tp={cfg.mesh.tp} needs "
+                f"{max(cfg.mesh.dp, 1) * cfg.mesh.tp} processes: launch "
+                "them with --distributed or torchrun (one process trains "
+                "on one device)")
+        if cfg.mesh.dp == -1:
+            note_one_card(device, "train()")
+        return None
+    mesh = build_mesh(dp=cfg.mesh.dp, tp=cfg.mesh.tp)
+    local = local_world_size()
+    hosts = max(dist.get_world_size() // local, 1)
+    if local % mesh.tp:
+        raise ValueError(
+            f"tp={mesh.tp} must divide the {local} ranks per host so tp "
+            f"stays inside a host and the dp axis crosses hosts in "
+            f"contiguous blocks.")
+    if mesh.dp % hosts:
+        raise ValueError(
+            f"dp={mesh.dp} must be a multiple of the {hosts} hosts for "
+            f"per-host batch sharding.")
+    if cfg.train.optimizer.batch_size % mesh.dp:
+        raise ValueError(
+            f"batch_size={cfg.train.optimizer.batch_size} does not shard "
+            f"evenly over the data axis (dp={mesh.dp}). Pick a batch_size "
+            f"divisible by dp, or set mesh.dp to a divisor of the batch "
+            f"size.")
+    if mesh.rank is None:
+        raise ValueError(f"rank {dist.get_rank()} is outside the dp="
+                         f"{mesh.dp} x tp={mesh.tp} mesh")
+    return mesh
 
 
 def train(cfg: TTSConfig, max_steps: Optional[int] = None, vocoder=None,
           device="cuda") -> TrainState:
     """Run FS2 training from a preprocessed corpus; returns the final state.
     ``device`` defaults to the card; the CPU is used only when asked for.
-    ``vocoder`` (pipeline.Vocoder or None) writes the synthesis previews."""
-    _check_ported(cfg)
+    ``vocoder`` (pipeline.Vocoder or None) writes the synthesis previews.
+    In a multi-process run every rank calls this, on its own device."""
     device = resolve_device(device)
+    mesh = build_train_mesh(cfg, device)
+    shard = (mesh.dp_axis.index, mesh.dp) if mesh is not None else (0, 1)
+    rank0 = mesh is None or mesh.rank == 0
     pp, tc = cfg.preprocess, cfg.train
     root = pp.preprocessed_path
     with open(os.path.join(root, "stats.json")) as f:
@@ -82,10 +135,10 @@ def train(cfg: TTSConfig, max_steps: Optional[int] = None, vocoder=None,
         n_speakers = len(json.load(f))
 
     train_ds = FS2Dataset("train.txt", pp, tc,
-                          max_mel_len=cfg.model.max_seq_len)
+                          max_mel_len=cfg.model.max_seq_len, shard=shard)
     val_ds = FS2Dataset("val.txt", pp, tc, drop_last=False,
                         apply_masking=False,
-                        max_mel_len=cfg.model.max_seq_len)
+                        max_mel_len=cfg.model.max_seq_len, shard=shard)
     if train_ds.superbatches_per_epoch() == 0:
         raise RuntimeError(
             f"training set produces no batches: {len(train_ds.meta)} "
@@ -96,6 +149,12 @@ def train(cfg: TTSConfig, max_steps: Optional[int] = None, vocoder=None,
         model = build_fastspeech2(cfg.model, stats, n_speakers,
                                   pp.mel.n_mel_channels)
     sd = init_state_dict(model, tc.seed)
+    if mesh is not None:
+        from tts_king_torch.parallel.mesh import (shard_fs2,
+                                                  shard_state_dict)
+
+        shard_fs2(model, mesh)
+        sd = shard_state_dict(sd, mesh)
     model = load_into(model.to_empty(device=device), sd)
     optimizer = Optimizer(tc.optimizer, cfg.model.transformer.encoder_hidden)
     state = TrainState(model, optimizer.init(model),
@@ -109,13 +168,26 @@ def train(cfg: TTSConfig, max_steps: Optional[int] = None, vocoder=None,
                 f"restore_step={cfg.acoustic.restore_step} but checkpoint "
                 f"directory {tc.ckpt_path!r} does not exist")
         load_train_state(state, restore_train_state(
-            tc.ckpt_path, cfg.acoustic.restore_step))
+            tc.ckpt_path, cfg.acoustic.restore_step), mesh)
 
-    train_step = make_train_step(optimizer)
-    eval_step = make_eval_step()
-    logger = MetricsLogger(tc.result_path, cfg.exp_name,
-                           cfg.logger.wandb_key, cfg.logger.offline)
+    train_step = make_train_step(optimizer, mesh)
+    eval_step = make_eval_step(mesh)
+    logger = (MetricsLogger(tc.result_path, cfg.exp_name,
+                            cfg.logger.wandb_key, cfg.logger.offline)
+              if rank0 else _NullLogger())
     os.makedirs(tc.ckpt_path, exist_ok=True)
+    # rank 0's model computes alone only without tp and the CWT pitch
+    alone = rank0 and (mesh is None or (mesh.tp == 1
+                                        and not cfg.model.use_cwt))
+    if not alone and rank0 and (vocoder is not None
+                                or tc.objective_val_utts):
+        import sys
+
+        sys.stderr.write("[train] previews and objective validation "
+                         "skipped: the model is split over tp or its CWT "
+                         "pitch standardizes over the global batch\n")
+    if not alone:
+        vocoder = None
 
     if cfg.run_debug_eval:
         val = evaluate(eval_step, state, val_ds, device, max_batches=4)
@@ -129,30 +201,50 @@ def train(cfg: TTSConfig, max_steps: Optional[int] = None, vocoder=None,
     progress = {"step": state.step}
     try:
         _run_epochs(cfg, state, total, epoch, start_batch, train_ds, val_ds,
-                    train_step, eval_step, logger, device, progress, vocoder)
+                    train_step, eval_step, logger, device, progress, vocoder,
+                    mesh, alone)
     except BaseException:
         # failure containment (the reference has none, SURVEY.md §5.3):
-        # save the last completed step so the run can resume, then re-raise
+        # save the last completed step so the run can resume, then re-raise.
+        # One process only, as in the JAX loop: a mesh's save gathers over
+        # tp and waits for every rank, and a failure need not be every
+        # rank's
         try:
-            try:
-                save_train_state(tc.ckpt_path, progress["step"], state)
-                logger.log(progress["step"], {"emergency_checkpoint": 1.0},
-                           prefix="failure")
-            except Exception as save_err:
-                import sys
+            if mesh is None:
+                try:
+                    save_train_state(tc.ckpt_path, progress["step"], state)
+                    logger.log(progress["step"],
+                               {"emergency_checkpoint": 1.0},
+                               prefix="failure")
+                except Exception as save_err:
+                    import sys
 
-                sys.stderr.write(
-                    f"[train] emergency checkpoint failed: {save_err}\n")
+                    sys.stderr.write(
+                        f"[train] emergency checkpoint failed: {save_err}\n")
         finally:
             logger.close()
         raise
-    save_train_state(tc.ckpt_path, state.step, state)
+    save_train_state(tc.ckpt_path, state.step, state, mesh)
     logger.close()
     return state
 
 
+class _NullLogger:
+    """The metrics sink of every rank but 0."""
+
+    def log_losses(self, *a, **k):
+        pass
+
+    def log(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
+
+
 def _run_epochs(cfg, state, total, epoch, start_batch, train_ds, val_ds,
-                train_step, eval_step, logger, device, progress, vocoder):
+                train_step, eval_step, logger, device, progress, vocoder,
+                mesh=None, alone=True):
     tc = cfg.train
     t_last = time.time()
     while state.step < total:
@@ -171,7 +263,7 @@ def _run_epochs(cfg, state, total, epoch, start_batch, train_ds, val_ds,
             if step % tc.step.val_step == 0:
                 val = evaluate(eval_step, state, val_ds, device)
                 logger.log_losses(step, val, prefix="val")
-                if tc.objective_val_utts:
+                if tc.objective_val_utts and alone:
                     # free-running MCD / duration MAE (train/metrics.py); F0
                     # metrics need a vocoder (scripts/evaluate.py has them)
                     from tts_king_torch.train.metrics import \
@@ -186,7 +278,7 @@ def _run_epochs(cfg, state, total, epoch, start_batch, train_ds, val_ds,
                 synth_preview(cfg, state.model, val_ds, vocoder, step,
                               device)
             if step % tc.step.save_step == 0:
-                save_train_state(tc.ckpt_path, step, state)
+                save_train_state(tc.ckpt_path, step, state, mesh)
             if step >= total:
                 return
         start_batch = 0   # the fast-forward applies to the resume epoch only

@@ -109,9 +109,12 @@ class Optimizer:
             {n: torch.zeros_like(p) for n, p in model.named_parameters()})
 
     @torch.no_grad()
-    def apply(self, model, grads: Dict[str, torch.Tensor], state: AdamState):
+    def apply(self, model, grads: Dict[str, torch.Tensor], state: AdamState,
+              grad_norm=None):
         """One update of ``model``'s parameters from ``grads`` (keyed by
-        parameter name; consumed), advancing ``state``."""
+        parameter name; consumed), advancing ``state``. ``grad_norm``: the
+        gradient's global norm for the clip, where the parameters are split
+        over a mesh (train/step.py), else computed here."""
         names = [n for n, _ in model.named_parameters()]
         params = [p for _, p in model.named_parameters()]
         g = [grads[n] for n in names]
@@ -119,7 +122,9 @@ class Optimizer:
         nu = [state.nu[n] for n in names]
 
         if self.clip is not None:
-            g_norm = torch.stack(torch._foreach_norm(g)).square().sum().sqrt()
+            g_norm = (grad_norm if grad_norm is not None else
+                      torch.stack(torch._foreach_norm(g)).square().sum()
+                      .sqrt())
             factor = torch.where(g_norm < self.clip, torch.ones_like(g_norm),
                                  self.clip / g_norm)
             torch._foreach_mul_(g, factor)

@@ -29,6 +29,13 @@ In f32 the convs follow the process's TF32 setting
 (``torch.backends.cudnn.allow_tf32``, on by default in PyTorch); the
 golden replays and the timed f32 step of chip_smoke.py turn it off.
 
+Data parallelism (``make_train_step(mesh)``, parallel/mesh.py): each rank
+computes its rows' losses, means over equal row blocks, so the mean of the
+ranks' gradients is the global batch's; the generator's and both
+discriminators' gradients are averaged over dp before each update, the
+losses too. The spectral norm's power iteration reads the weights only, so
+it stays replicated and equal on every rank.
+
 Everything lives on ``device`` (the card unless the caller asks for the
 CPU). Initial weights come from a numpy RandomState (``init_state``): the
 generator's v ~ N(0, 0.01), the discriminators' v and weight_orig lecun
@@ -51,6 +58,7 @@ from tts_king_torch.models.hifigan import (Generator,
                                            discriminator_loss, feature_loss,
                                            fold_weight_norm, generator_loss)
 from tts_king_torch.ops.stft import hifigan_mel
+from tts_king_torch.parallel.comm import Axis, all_reduce_many
 from tts_king_torch.pipeline import resolve_device
 from tts_king_torch.train.schedule import exponential_decay
 from tts_king_torch.train.state import AdamState, Optimizer
@@ -211,11 +219,13 @@ class VocoderTrainer:
                            c.hop_size, c.win_size, c.mel_fmin,
                            c.mel_fmax_loss or c.mel_fmax)
 
-    def make_train_step(self):
+    def make_train_step(self, mesh=None):
         """train_step(state, batch) -> VocoderLosses (0-dim tensors on the
         device); ``batch`` holds "mel" (B, frames, mels), "wav" (B, T) and
-        "mel_loss" (B, frames, mels) tensors on the device."""
+        "mel_loss" (B, frames, mels) tensors on the device, this rank's
+        rows on a ``mesh`` (whose losses are the global batch's)."""
         gen_opt, disc_opt = self.gen_opt, self.disc_opt
+        dp = mesh.dp_axis if mesh is not None else Axis()
 
         def train_step(state: VocoderTrainState, batch):
             gen, disc = state.gen, state.disc
@@ -233,7 +243,8 @@ class VocoderTrainer:
             loss_s, _, _ = discriminator_loss(r_s, g_s)
             d_loss = loss_p + loss_s
             d_params = dict(disc.named_parameters())
-            d_grads = torch.autograd.grad(d_loss, list(d_params.values()))
+            d_grads = _mean_over(
+                torch.autograd.grad(d_loss, list(d_params.values())), dp)
             disc_opt.apply(disc, dict(zip(d_params, d_grads)),
                            state.disc_opt)
             del d_grads
@@ -254,24 +265,30 @@ class VocoderTrainer:
             finally:
                 disc.requires_grad_(True)
             g_params = dict(gen.named_parameters())
-            g_grads = torch.autograd.grad(total, list(g_params.values()))
+            g_grads = _mean_over(
+                torch.autograd.grad(total, list(g_params.values())), dp)
             gen_opt.apply(gen, dict(zip(g_params, g_grads)), state.gen_opt)
             state.step += 1
-            return VocoderLosses(d_loss.detach(), total.detach(),
-                                 l_mel.detach(), l_fm.detach(),
-                                 l_adv.detach())
+            losses = torch.stack([d_loss, total, l_mel, l_fm, l_adv]).detach()
+            return VocoderLosses(*_mean_over([losses], dp)[0])
 
         return train_step
 
-    def make_eval_step(self):
+    def make_eval_step(self, mesh=None):
         """eval_step(state, batch) -> the validation mel L1 (unweighted,
         upstream hifi-gan's val metric) of the generator on a training-
-        shaped batch."""
+        shaped batch (the global batch's on a ``mesh``)."""
+        dp = mesh.dp_axis if mesh is not None else Axis()
 
         def eval_step(state: VocoderTrainState, batch):
             with torch.no_grad():
                 y = state.gen(batch["mel"])
-                return torch.mean(torch.abs(self.loss_mel(y)
-                                            - batch["mel_loss"]))
+                return _mean_over([torch.mean(torch.abs(
+                    self.loss_mel(y) - batch["mel_loss"]))], dp)[0]
 
         return eval_step
+
+
+def _mean_over(tensors, dp):
+    """The tensors averaged over the dp axis, in one flat all-reduce."""
+    return [t / dp.size for t in all_reduce_many(tensors, dp)]
