@@ -26,7 +26,9 @@ non-zero exit (nothing is caught):
                at stages 1-3's widths, a small-tile case with a
                time-varying gain and the edges of its cluster plan; the flash
                kernels forward and backward against the plain version and
-               autograd;
+               autograd; the attention and flash kernels' bf16-probability
+               mode (ModelConfig.attention_probs_bf16) at the same checks,
+               within PROBS_TOL's max and mean, its control outside;
   4. goldens — golden_fs2, golden_vocoder, golden_trained_vocoder and the
                JAX int8 vocoder (golden_int8_vocoder.npz) through the port
                in f32 at the CPU tests' tolerances, the upstream MelGAN
@@ -49,7 +51,11 @@ non-zero exit (nothing is caught):
                16 x 4 on a synthetic preprocessed corpus written to a
                temporary directory (L = 96, T = 640), with validation,
                objective metrics and a checkpoint, then a resume for one
-               more step. Every kernel launch count is zeroed just before
+               more step; (d) attention_probs_bf16 (phase_probs_bf16_path):
+               TTSKing.speak, the f32 batched generate at the bench shape
+               and train() for 4 steps with validation, every attention
+               and flash launch in the kernels' mode, a batch of 4 against
+               the CPU. Every kernel launch count is zeroed just before
                each path and read just after, and must show the path's
                kernels ran (training: 40 flash forward and 40 flash
                backward launches per step; int8: 3 per Generator call);
@@ -87,9 +93,14 @@ non-zero exit (nothing is caught):
                utterance 2 ways (f32, bf16), train() and train_vocoder on 2
                ranks; NCCL at world size 1 (train() through the
                distributed route); AcousticModel and a SynthesisServer over
-               2 replicas on the card; each held to one process
+               2 replicas on the card; the tp=2 step with
+               attention_probs_bf16; a CWT model over the 2 ranks and 2
+               replicas, pad row included; each held to one process
                (phase_parallel_path says how);
- 10. kernels — kernel time, plain time, library time and the card's bound at
+ 11. validation tools — tools/validate_training.py and
+               validate_vocoder_training.py at VALIDATION_STEPS steps:
+               finite, the mel loss falling;
+ 12. kernels — kernel time, plain time, library time and the card's bound at
                the bench shapes (attention also at speak's f32 call, the
                MRF kernel's f32 route, 3xTF32 passes of (tile, branch)
                blocks, at speak's 192-frame sentence; f32 bounds as 3xTF32
@@ -102,7 +113,10 @@ non-zero exit (nothing is caught):
                kernel at the same stages (bf16_kernel_ms); the MRF rows
                the GAN export's launches (launches_gan), and rows 1f, 2f, 2
                and 3 those of the fine-tuning path (launches_finetune),
-               every row those of the parallel path (launches_parallel).
+               every row those of the parallel path (launches_parallel);
+               rows 1p and 3p the kernels' bf16-probability mode at the
+               batched and speak shapes and the train step's (library:
+               none; SDPA's f32 time beside).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout, it prints no result and exits 1. The JAX package is not imported.
@@ -148,6 +162,16 @@ PEAK_BYTES = 3.35e12
 TOL = {("attention", "f32"): 1e-4, ("attention", "bf16"): 2e-2,
        ("mrf_stage", "f32"): 1e-4, ("mrf_stage", "bf16"): 2.0 ** -5,
        ("flash_attention", "f32"): 1e-4}
+# The kernels' bf16-probability mode (ModelConfig.attention_probs_bf16),
+# attention and flash forward and backward, against its plain version: the
+# kernel's exp (ex2.approx) and sums differ from torch's by ulps, so a
+# probability (or dP) next to a bf16 rounding boundary may round the other
+# way, which moves an output by up to 2^-8 of p |v|. So the max and the mean
+# of |kernel - plain| are held. Readings on an NVIDIA H100 80GB HBM3 (700 W)
+# at ATTN_CHECKS and FLASH_CHECKS: max 1.34e-3, mean 7.9e-7 at most; the
+# control, the unrounded function against the mode's plain version, reads a
+# mean of 6.9e-5 at least, and must miss the mean bound in every check.
+PROBS_TOL = {"max": 4e-3, "mean": 5e-6}
 
 # Shapes: the bench shape of bench.py:134-171 and the main-path shapes the
 # kernels are checked at (attention: encoder- and decoder-like T, ragged;
@@ -1452,16 +1476,27 @@ def compare_feature_trees(got, want, yin, max_flipped_share=1 / 6):
 # ---------------------------------------------------------------- phase 5
 
 
+_SEEDED = {}   # seeded_flax_variables' draws, by seed and shapes
+
+
 def seeded_flax_variables(build, seed):
     """Seeded numpy weights in the flax layout, for a module built by
-    ``build`` (on the meta device: shapes only)."""
+    ``build`` (on the meta device: shapes only). The draw depends on the
+    seed and the state dict's names and shapes alone, so each is drawn once
+    and handed out as copies (callers adjust them in place)."""
+    import copy
+
     import torch
 
     from tts_king_torch.weights import seeded_state_dict, torch_to_flax
 
     with torch.device("meta"):
         module = build()
-    return torch_to_flax(seeded_state_dict(module, seed))
+    key = (seed, tuple((k, tuple(v.shape))
+                       for k, v in module.state_dict().items()))
+    if key not in _SEEDED:
+        _SEEDED[key] = torch_to_flax(seeded_state_dict(module, seed))
+    return copy.deepcopy(_SEEDED[key])
 
 
 def main_config():
@@ -1554,9 +1589,12 @@ def launch_counts():
 
     return {"attention": attention.launches,
             "attention_bf16": attention.launches_bf16,
+            "attention_probs_bf16": attention.launches_probs_bf16,
             "mrf_stage": mrf.launches, "mrf_stage_int8": mrf_int8.launches,
             "flash_fwd": flash_attention.launches_fwd,
-            "flash_bwd": flash_attention.launches_bwd}
+            "flash_bwd": flash_attention.launches_bwd,
+            "flash_fwd_probs_bf16": flash_attention.launches_fwd_probs_bf16,
+            "flash_bwd_probs_bf16": flash_attention.launches_bwd_probs_bf16}
 
 
 def zero_launch_counts():
@@ -1564,8 +1602,11 @@ def zero_launch_counts():
                                             mrf_int8)
 
     attention.launches = attention.launches_bf16 = 0
+    attention.launches_probs_bf16 = 0
     mrf.launches = mrf_int8.launches = 0
     flash_attention.launches_fwd = flash_attention.launches_bwd = 0
+    flash_attention.launches_fwd_probs_bf16 = 0
+    flash_attention.launches_bwd_probs_bf16 = 0
 
 
 def phase_main_path():
@@ -3236,7 +3277,7 @@ def phase_timing(cfg, launches, train_launches, errs, mel_lens, mrf_runs):
     return rows
 
 
-def flash_timing_row(cfg, launches, max_err):
+def flash_timing_row(cfg, launches, max_err, probs_bf16=False):
     """The flash kernels at the decoder's call of the bench training step
     (B=16, H=2, T=640, D=128, key mask from the bench superbatch's mel
     lengths): forward, backward (dQ then dK/dV), the plain version forward
@@ -3246,7 +3287,13 @@ def flash_timing_row(cfg, launches, max_err):
     needs: 4 D operations per (row, valid key) forward and 10 backward (S
     and dP recomputed, dV, dQ, dK), as 3xTF32 (3 x operations over the TF32
     peak), with the f32 CUDA-core bound beside it; bytes: each input read
-    and each output written once, K and V read at the valid keys only."""
+    and each output written once, K and V read at the valid keys only.
+
+    probs_bf16: row 3p, the kernels' bf16-probability mode, held at
+    PROBS_TOL. Its bound counts the function's products as row 3 does, so
+    the forward's second sweep and dQ's Delta sweep show as a gap; no
+    PyTorch call rounds the normalized probabilities, so library_ms is
+    None and SDPA's f32 time stands beside it as sdpa_f32_ms."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3260,27 +3307,32 @@ def flash_timing_row(cfg, launches, max_err):
     (q, k, v), mask, g = flash_inputs(B, H, T, D, seed=11, lens=lens)
     qd, kd, vd = q.detach(), k.detach(), v.detach()
     m8 = mask.to(torch.uint8)
-    o, lse = fa._forward_cuda(qd, kd, vd, m8)
+    pb = probs_bf16
+    o, lse = fa._forward_cuda(qd, kd, vd, m8, pb)
     g = fa._out_like(qd).copy_(g)
-    got = (o,) + fa._backward_cuda(qd, kd, vd, m8, o, lse, g)
-    ref = fa.flash_attention_plain(q, k, v, mask)
+    got = (o,) + fa._backward_cuda(qd, kd, vd, m8, o, lse, g, pb)
+    ref = fa.flash_attention_plain(q, k, v, mask, pb)
     ref = (ref,) + torch.autograd.grad(ref, (q, k, v), g)
     errs = {name: float((a - b).detach().abs().max())
             for name, a, b in zip(("o", "dq", "dk", "dv"), got, ref)}
+    means = {name: float((a - b).detach().abs().mean())
+             for name, a, b in zip(("o", "dq", "dk", "dv"), got, ref)}
     pad = mask[:, None, :, None].expand_as(got[2])
-    tol = TOL[("flash_attention", "f32")]
-    if not (max(errs.values()) <= tol and all(
-            bool(torch.isfinite(t).all()) for t in got)
+    tol = PROBS_TOL["max"] if pb else TOL[("flash_attention", "f32")]
+    if not (max(errs.values()) <= tol
+            and (not pb or max(means.values()) <= PROBS_TOL["mean"])
+            and all(bool(torch.isfinite(t).all()) for t in got)
             and not bool(got[2][pad].any()) and not bool(got[3][pad].any())):
-        fail(f"flash_attention {[B, H, T, D]} timed inputs: errors {errs}")
+        fail(f"flash_attention {[B, H, T, D]} probs_bf16 {pb} timed inputs: "
+             f"errors {errs}, mean {means}")
     del got, ref
-    fwd_ms = cuda_ms(lambda: fa._forward_cuda(qd, kd, vd, m8), warmup=2,
+    fwd_ms = cuda_ms(lambda: fa._forward_cuda(qd, kd, vd, m8, pb), warmup=2,
                      reps=10)
-    bwd_ms = cuda_ms(lambda: fa._backward_cuda(qd, kd, vd, m8, o, lse, g),
-                     warmup=2, reps=10)
+    bwd_ms = cuda_ms(lambda: fa._backward_cuda(qd, kd, vd, m8, o, lse, g,
+                                               pb), warmup=2, reps=10)
 
     def plain():
-        out = fa.flash_attention_plain(q, k, v, mask)
+        out = fa.flash_attention_plain(q, k, v, mask, pb)
         torch.autograd.grad(out, (q, k, v), g)
 
     keep = (~mask)[:, None, None, :]
@@ -3306,13 +3358,16 @@ def flash_timing_row(cfg, launches, max_err):
     def bound(ops, nbytes, peak):
         return max(ops / peak, nbytes / PEAK_BYTES) * 1e3
 
+    mode = "_probs_bf16" if pb else ""
     return {
-        "name": "flash_attention", "route": "cuda",
+        "name": "flash_attention" + mode, "route": "cuda",
         "source": "tts_king_torch/csrc/flash_attention.cu",
         "replaces": "tts_king_tpu/ops/pallas/attention.py:102",
-        "launches": launches["flash_fwd"], "launches_fwd":
-        launches["flash_fwd"], "launches_bwd": launches["flash_bwd"],
+        "launches": launches["flash_fwd" + mode], "launches_fwd":
+        launches["flash_fwd" + mode], "launches_bwd":
+        launches["flash_bwd" + mode],
         "max_abs_err": max(errs.values()), "checks_max_abs_err": max_err,
+        **({"mean_abs_err": max(means.values())} if pb else {}),
         "ms": fwd_ms + bwd_ms,
         "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -3321,9 +3376,324 @@ def flash_timing_row(cfg, launches, max_err):
         "bound_f32_ffma_ms": bound(ops_f + ops_b, bytes_f + bytes_b,
                                    PEAK_F32_OPS),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": lib_ms, "dtype": "f32", "shape": [B, H, T, D],
+        "library_ms": None if pb else lib_ms,
+        **({"sdpa_f32_ms": lib_ms} if pb else {}),
+        "dtype": "f32", "shape": [B, H, T, D],
         "note": "ms, plain_ms, library_ms: forward + backward; launches "
-                "from the training path's run"}
+                "from the training path's run" + (
+                    " with attention_probs_bf16; library: none (no "
+                    "PyTorch call rounds the normalized probabilities), "
+                    "SDPA's f32 time as sdpa_f32_ms" if pb else "")}
+
+
+# ------------------------------------------- bf16 attention probabilities
+
+
+def _mode_errs(got, ref):
+    d = (got.detach().float() - ref.detach().float()).abs()
+    return float(d.max()), float(d.mean())
+
+
+def phase_probs_bf16_vs_plain():
+    """The kernels' bf16-probability mode (attention_probs_bf16) against
+    the plain versions: the inference kernel at ATTN_CHECKS (f32), the
+    flash kernels forward and backward at FLASH_CHECKS (against
+    flash_attention_plain and autograd), within PROBS_TOL's max and mean;
+    the control, the unrounded function against the mode's plain version,
+    must miss the mean bound, so the check tells the two apart. Returns
+    the largest errors per kernel."""
+    import torch
+
+    from tts_king_torch.ops.kernels import attention as attn
+    from tts_king_torch.ops.kernels import flash_attention as fa
+
+    worst = {"attention": [0.0, 0.0], "flash_attention": [0.0, 0.0]}
+    for B, H, T, D, kind in ATTN_CHECKS:
+        (q, k, v), mask = attention_inputs(B, H, T, D, torch.float32, seed=T,
+                                           kind=kind)
+        got = attn.attention(q, k, v, mask, probs_bf16=True)
+        ref = attn.attention_plain(q, k, v, mask, probs_bf16=True)
+        control = _mode_errs(attn.attention_plain(q, k, v, mask), ref)
+        torch.cuda.synchronize()
+        err = _mode_errs(got, ref)
+        ok = (bool(torch.isfinite(got).all()) and err[0] <= PROBS_TOL["max"]
+              and err[1] <= PROBS_TOL["mean"]
+              and control[1] > PROBS_TOL["mean"])
+        emit({"phase": "kernel_vs_plain", "kernel": "attention",
+              "mode": "probs_bf16", "dtype": "f32", "shape": [B, H, T, D],
+              "mask": kind, "max_abs_err": err[0], "mean_abs_err": err[1],
+              "control_mean_abs_err": control[1], "tol": PROBS_TOL,
+              "ok": ok})
+        if not ok:
+            fail(f"attention probs_bf16 {[B, H, T, D]} {kind}: errors {err},"
+                 f" control {control}")
+        worst["attention"] = [max(a, b) for a, b in
+                              zip(worst["attention"], err)]
+    for B, H, T, D, kind in FLASH_CHECKS:
+        (q, k, v), mask, g = flash_inputs(B, H, T, D, seed=T, kind=kind)
+        out = fa.flash_attention(q, k, v, mask, probs_bf16=True)
+        got = (out,) + torch.autograd.grad(out, (q, k, v), g)
+        ref = fa.flash_attention_plain(q, k, v, mask, probs_bf16=True)
+        ref = (ref,) + torch.autograd.grad(ref, (q, k, v), g)
+        f32 = fa.flash_attention_plain(q, k, v, mask)
+        f32 = (f32,) + torch.autograd.grad(f32, (q, k, v), g)
+        torch.cuda.synchronize()
+        names = ("o", "dq", "dk", "dv")
+        errs = {n: _mode_errs(a, b) for n, a, b in zip(names, got, ref)}
+        control = {n: _mode_errs(a, b)[1] for n, a, b in zip(names, f32, ref)}
+        pad = mask[:, None, :, None].expand_as(got[2])
+        pad_zero = not bool(got[2][pad].any()) and not bool(got[3][pad].any())
+        ok = (pad_zero and all(bool(torch.isfinite(t).all()) for t in got)
+              and max(e[0] for e in errs.values()) <= PROBS_TOL["max"]
+              and max(e[1] for e in errs.values()) <= PROBS_TOL["mean"]
+              and min(control.values()) > PROBS_TOL["mean"])
+        emit({"phase": "kernel_vs_plain", "kernel": "flash_attention",
+              "mode": "probs_bf16", "dtype": "f32", "shape": [B, H, T, D],
+              "mask": kind, "max_abs_err": {n: e[0] for n, e in errs.items()},
+              "mean_abs_err": {n: e[1] for n, e in errs.items()},
+              "control_mean_abs_err": control,
+              "padded_key_grads_zero": pad_zero, "tol": PROBS_TOL, "ok": ok})
+        if not ok:
+            fail(f"flash_attention probs_bf16 {[B, H, T, D]} {kind}: errors "
+                 f"{errs}, control {control}, padded key grads zero "
+                 f"{pad_zero}")
+        worst["flash_attention"] = [
+            max(worst["flash_attention"][0], *(e[0] for e in errs.values())),
+            max(worst["flash_attention"][1], *(e[1] for e in errs.values()))]
+    return worst
+
+
+def attention_probs_timing_row(cfg, launches, errs, mel_lens):
+    """Row 1p: the inference kernel's bf16-probability mode, f32, at the
+    batched decoder call's shape (B=32, H=2, T=1000, D=128, the batched
+    run's mel lengths: the f32 AcousticModel's batched call with the flag)
+    and at speak's decoder call (B=1, T=256, 192 valid keys), held against
+    attention_probs_bf16_plain on these inputs first, beside the plain
+    version, the unrounded kernel (one sweep) and SDPA's f32 time (no
+    PyTorch call rounds the normalized probabilities: library_ms None).
+    The bound counts the function's products as row 1f does (4 D
+    operations per query row and valid key, 3xTF32), so the second sweep
+    shows as a gap."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tts_king_torch.ops.kernels import attention as attn
+
+    tc = cfg.model.transformer
+    H = tc.decoder_head
+    D = tc.decoder_hidden // H
+    out = {}
+    for where, B, T, lens in (("batched", BENCH_B, BENCH_T, mel_lens),
+                              ("speak", 1, SPEAK_T, [SPEAK_LEN])):
+        (q, k, v), _ = attention_inputs(B, H, T, D, torch.float32, seed=7)
+        mask = torch.from_numpy(np.arange(T)[None] >=
+                                np.asarray(lens)[:, None]).cuda()
+        additive = torch.zeros((B, 1, 1, T), device="cuda")
+        additive.masked_fill_(mask[:, None, None, :], -1e9)
+        err = _mode_errs(attn.attention(q, k, v, mask, probs_bf16=True),
+                         attn.attention_plain(q, k, v, mask, True))
+        if err[0] > PROBS_TOL["max"] or err[1] > PROBS_TOL["mean"]:
+            fail(f"attention probs_bf16 {[B, H, T, D]} timed inputs: "
+                 f"errors {err}")
+        ms = cuda_ms(lambda: attn.attention(q, k, v, mask, probs_bf16=True),
+                     warmup=3, reps=20)
+        one_sweep_ms = cuda_ms(lambda: attn.attention(q, k, v, mask),
+                               warmup=3, reps=20)
+        plain_ms = cuda_ms(lambda: attn.attention_plain(q, k, v, mask, True),
+                           warmup=3, reps=20)
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=additive), warmup=3, reps=20)
+        n_keys = float(np.sum(lens))
+        ops = 4.0 * H * D * T * n_keys
+        nbytes = 4.0 * (2.0 * B * H * T * D + 2.0 * H * D * n_keys) + B * T
+        t_ops, t_bytes = 3 * ops / PEAK_TF32_OPS, nbytes / PEAK_BYTES
+        out[where] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "sdpa_f32_ms": sdpa_ms, "unrounded_kernel_ms": one_sweep_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": err[0], "mean_abs_err": err[1],
+            "shape": [B, H, T, D], "valid_keys": int(n_keys)}
+        del q, k, v
+    return {"name": "attention_probs_bf16", "route": "cuda",
+            "source": "tts_king_torch/csrc/attention.cu",
+            "replaces": "tts_king_tpu/ops/pallas/attention.py:29",
+            "launches": launches["speak"] + launches["batched"],
+            "launches_by_path": launches, "dtype": "f32",
+            **out["batched"], "speak": out["speak"],
+            "checks_max_abs_err": errs[0], "checks_mean_abs_err": errs[1],
+            "note": "ModelConfig.attention_probs_bf16 on the JAX package's "
+                    "XLA route (tts_king_tpu/models/layers.py:82-96); ms, "
+                    "plain_ms, bound_ms: the batched shape, speak's call in "
+                    "'speak'; library: none, SDPA's f32 time as sdpa_f32_ms"}
+
+
+def probs_bf16_config(cfg):
+    """``cfg`` with ModelConfig.attention_probs_bf16 on."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, attention_probs_bf16=True))
+
+
+def phase_probs_bf16_path(smi, tmp):
+    """attention_probs_bf16 on the main paths at the shipped width (the
+    default flags: every call rounds, the JAX package's XLA route):
+    TTSKing.speak on the three sentences, the f32 AcousticModel's batched
+    generate at the bench shape (B=32, L=128, T=1000), and train() for
+    TRAIN_STEPS steps of 16 x 4 with validation and objective metrics.
+    Each path's counts are zeroed just before it and read just after: every
+    attention launch must be a mode launch (10 a speak call, 10 the batched
+    call; the validation's), and every flash launch a mode launch (40 each
+    way a step). Checks: the speak waveforms' shapes, finite values; a
+    batch of 4 on the card against the same model on the CPU (the plain
+    versions): lengths equal, mel MAE < 1e-3 (the CWT phase's bound).
+    Returns the mode's launches by path."""
+    import numpy as np
+    import torch
+
+    from tts_king_torch.pipeline import AcousticModel, TTSKing
+    from tts_king_torch.train.loop import train
+
+    cfg = probs_bf16_config(main_config())
+    cfg.preprocess.lexicon_path = os.path.join(E2E_DIR, "lexicon.dict")
+    fs2_vars, voc_vars = main_path_variables(cfg)
+    king = TTSKing(cfg, device="cuda", acoustic_variables=fs2_vars,
+                   vocoder_variables=voc_vars, n_speakers=66)
+    hop = cfg.preprocess.stft.hop_length
+    tc = cfg.model.transformer
+    n_layers = tc.encoder_layer + tc.decoder_layer
+    king.speak(SENTENCES[0])   # cuDNN's plans, the allocator's pools
+    phonemes, speakers = bench_batch()
+    torch.cuda.synchronize()
+    out, launches = {}, {}
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    wavs = [king.speak(text, speaker=i)[0]
+            for i, text in enumerate(SENTENCES)]
+    torch.cuda.synchronize()
+    speak_s = time.perf_counter() - t0
+    c = launches["speak"] = launch_counts()   # just after the path's run
+    if (c["attention_probs_bf16"] != c["attention"]
+            or c["attention"] < n_layers * len(SENTENCES)):
+        fail(f"probs_bf16 speak: launches {c}")
+    for text, w in zip(SENTENCES, wavs):
+        mel, mel_lens = king.generate_mel(text)
+        if (w.dtype != np.int16 or w.shape != (int(mel_lens[0]) * hop,)
+                or not bool(torch.isfinite(mel).all())):
+            fail(f"probs_bf16 speak {text!r}: {w.dtype} {w.shape}")
+    out["speak"] = {"wall_s": speak_s,
+                    "samples": [int(w.shape[0]) for w in wavs]}
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    res = king.tts.generate(phonemes, speaker_name=speakers,
+                            max_mel_len=BENCH_T)
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    c = launches["batched"] = launch_counts()
+    if c["attention_probs_bf16"] != n_layers or c["attention"] != n_layers:
+        fail(f"probs_bf16 batched: launches {c}")
+    if not bool(torch.isfinite(res["postnet_mel"]).all()):
+        fail("probs_bf16 batched: non-finite mel")
+    mel_lens = [int(n) for n in res["mel_lens"].cpu()]
+    cpu = AcousticModel(cfg, variables=fs2_vars, n_speakers=66, device="cpu")
+    got = king.tts.generate(phonemes[:4], speaker_name=speakers[:4])
+    want = cpu.generate(phonemes[:4], speaker_name=speakers[:4])
+    want_lens = want["mel_lens"].numpy()
+    if not np.array_equal(got["mel_lens"].cpu().numpy(), want_lens):
+        fail(f"probs_bf16 generate: card lengths {got['mel_lens']} vs CPU "
+             f"{want_lens}")
+    maes = [float(np.mean(np.abs(got["postnet_mel"][b, :n].cpu().numpy()
+                                 - want["postnet_mel"][b, :n].numpy())))
+            for b, n in enumerate(want_lens)]
+    if max(maes) >= 1e-3:
+        fail(f"probs_bf16 generate: mel MAE card vs CPU {maes}")
+    out["batched"] = {"wall_s": batched_s, "shape": [BENCH_B, BENCH_L,
+                                                     BENCH_T],
+                      "mel_lens_min_max": [min(mel_lens), max(mel_lens)],
+                      "generate_B4_mel_mae_vs_cpu": maes}
+    del king, cpu, res
+    torch.cuda.empty_cache()
+
+    tcfg = probs_bf16_config(train_corpus_config(os.path.join(tmp, "fs2")))
+    per_step = n_layers * tcfg.train.optimizer.grad_acc_step
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    state = train(tcfg, max_steps=TRAIN_STEPS, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    c = launches["train"] = launch_counts()
+    if (state.step != TRAIN_STEPS
+            or c["flash_fwd_probs_bf16"] != per_step * TRAIN_STEPS
+            or c["flash_bwd_probs_bf16"] != per_step * TRAIN_STEPS
+            or c["flash_fwd"] != c["flash_fwd_probs_bf16"]
+            or c["attention"] == 0
+            or c["attention_probs_bf16"] != c["attention"]):
+        fail(f"probs_bf16 train: step {state.step}, launches {c}")
+    with open(os.path.join(tcfg.train.result_path,
+                           f"{tcfg.exp_name}.metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["total"] for r in recs if r["phase"] == "train"]
+    val = [r["total"] for r in recs if r["phase"] == "val"]
+    if (len(losses) != TRAIN_STEPS or len(val) != 1
+            or not np.all(np.isfinite(losses + val))):
+        fail(f"probs_bf16 train: losses {losses}, val {val}")
+    out["train"] = {"wall_s": train_s, "losses": losses, "val_total": val[0]}
+    emit({"phase": "probs_bf16_path", **out, "launches": launches,
+          "nvidia_smi": smi, "ok": True})
+    return {"1p": {p: launches[p]["attention_probs_bf16"]
+                   for p in ("speak", "batched", "train")},
+            "3p": {k: launches["train"][k] for k in ("flash_fwd_probs_bf16",
+                                                      "flash_bwd_probs_bf16")},
+            "mel_lens": mel_lens}
+
+
+# ------------------------------------------- training-dynamics validation
+
+# The validation tools' depth here; their 2000-step runs are made by the
+# tools themselves (results/torch_*training_validation.json). Corpora cut
+# to 4 x 12 utterances (FastSpeech2: 16 for validation) and 4 x 10 wavs.
+VALIDATION_STEPS = 100
+
+
+def phase_validation_tools(smi, tmp):
+    """Both training-dynamics validation tools at VALIDATION_STEPS steps on
+    the card, at their default widths and batches: each record's losses
+    must be finite and its mel loss must fall (FastSpeech2: the last
+    logged train mel below the first, logged every 10 steps; HiFi-GAN: the
+    summary's mel_improved and all_finite)."""
+    import numpy as np
+
+    from tts_king_torch.tools.validate_training import validate_training
+    from tts_king_torch.tools.validate_vocoder_training import \
+        validate_vocoder_training
+
+    out = {}
+    t0 = time.perf_counter()
+    fs2 = validate_training(
+        steps=VALIDATION_STEPS, speakers=4, utts=12,
+        root=os.path.join(tmp, "fs2"), out=os.path.join(tmp, "fs2.json"),
+        log_step=10, val_step=50, device="cuda")
+    with open(os.path.join(tmp, "fs2.json")) as f:
+        curve = json.load(f)["train_curve"]
+    totals = [r["total"] for r in curve] + [r["mel"] for r in curve]
+    if not (np.all(np.isfinite(totals))
+            and fs2["mel_last"] < fs2["mel_first"]):
+        fail(f"validate_training: {fs2}")
+    out["fs2"] = {"wall_s": time.perf_counter() - t0, **fs2}
+    t0 = time.perf_counter()
+    voc = validate_vocoder_training(
+        steps=VALIDATION_STEPS, speakers=4, utts=10,
+        root=os.path.join(tmp, "voc"), out=os.path.join(tmp, "voc.json"),
+        log_every=10, device="cuda")
+    if not (voc["all_finite"] and voc["mel_improved"]):
+        fail(f"validate_vocoder_training: {voc}")
+    out["vocoder"] = {"wall_s": time.perf_counter() - t0, **voc}
+    emit({"phase": "validation_tools", "steps": VALIDATION_STEPS, **out,
+          "nvidia_smi": smi, "ok": True})
 
 
 # ---------------------------------------------------------- parallel path
@@ -3609,9 +3979,13 @@ def dp_generate(rank, spec):
     am = AcousticModel(spec["cfg"], variables=spec["variables"],
                        n_speakers=spec["n_speakers"], device=device,
                        mesh=build_mesh(dp=-1))
+    zero_launch_counts()
+    t0 = time.perf_counter()
     out = am.generate(spec["phonemes"], speaker_name=spec["speakers"])
+    _sync(device)
     return {"mel_lens": out["mel_lens"].cpu().numpy(),
-            "postnet_mel": out["postnet_mel"].float().cpu().numpy()}
+            "postnet_mel": out["postnet_mel"].float().cpu().numpy(),
+            "launches": launch_counts(), "wall_s": time.perf_counter() - t0}
 
 
 def train_loop_runs(rank, spec):
@@ -3822,7 +4196,13 @@ def phase_parallel_path(smi, tmp, device="cuda:0"):
           phase's 1 LSB: FastSpeech2's half batch may round otherwise in
           cuBLAS's and cuDNN's algorithms for that shape; the witness,
           each replica's rows bit for bit one device's at the half
-          batch, must hold).
+          batch, must hold);
+      (g) a CWT FastSpeech2 (cwt_mesh_spec) on a batch of 5 over the 2
+          gloo ranks and over 2 replicas (cwt_mesh_check): the pitch
+          standardized over the padded batch of 6, as one process on it.
+    (b) runs again with attention_probs_bf16 (the kernels' mode at H = 1),
+    held as (b) to one process with the flag, 40 mode launches each way a
+    rank.
 
     Every rank zeroes the launch counts just before each part and reads
     them just after. Returns the launches of each kernel row."""
@@ -3871,9 +4251,14 @@ def phase_parallel_path(smi, tmp, device="cuda:0"):
     long_spec = {"cfg": cfg, "variables": None, "mel": long_mel,
                  "what": "int16", "device": device}
 
+    # (b) with attention_probs_bf16: the kernels' mode at H = 1
+    spec_p = dict(spec, model_cfg=probs_bf16_config(cfg).model)
+    cwt = cwt_mesh_spec(cfg, device)
     tasks = [("collectives_check", {"tp": PAR_RANKS, "device": device}),
              ("fs2_parallel_steps:a", dict(spec, dp=PAR_RANKS, tp=1)),
              ("fs2_parallel_steps:b", dict(spec, dp=1, tp=PAR_RANKS)),
+             ("fs2_parallel_steps:bp", dict(spec_p, dp=1, tp=PAR_RANKS)),
+             ("dp_generate:cwt", cwt),
              ("time_sharded_vocode:f32", dict(long_spec, dtype="float32")),
              ("time_sharded_vocode:bf16", dict(long_spec, dtype="bfloat16")),
              ("train_loop_runs", {"cfg": par_cfg, "device": device,
@@ -3936,6 +4321,29 @@ def phase_parallel_path(smi, tmp, device="cuda:0"):
               "wall_s": [r[name]["wall_s"] for r in ranks],
               "one_process_wall_s": ref["wall_s"],
               "launches": per_rank, "ok": True})
+
+    # (b) with attention_probs_bf16 against one process with it
+    ref_p = fs2_parallel_steps(0, spec_p)
+    pert_p = fs2_parallel_steps(0, dict(spec_p, variables=nudged))
+    got = ranks[0]["fs2_parallel_steps:bp"]
+    if any(r["fs2_parallel_steps:bp"]["losses_each"] != got["losses_each"]
+           for r in ranks):
+        fail("parallel b probs_bf16: the ranks report other losses")
+    bounds = compare_perturbed_step(got, ref_p, pert_p, lr)
+    per_rank = [r["fs2_parallel_steps:bp"]["launches"] for r in ranks]
+    if any(c["flash_fwd_probs_bf16"] != per_step
+           or c["flash_bwd_probs_bf16"] != per_step
+           or c["flash_fwd"] != per_step for c in per_rank):
+        fail(f"parallel b probs_bf16: launches {per_rank}, want {per_step} "
+             "mode launches each way a rank")
+    emit({"phase": "parallel_path", "part": "b", "attention_probs_bf16": True,
+          "mesh": {"dp": 1, "tp": PAR_RANKS},
+          "heads_per_rank": tc.encoder_head // PAR_RANKS,
+          "loss_total": got["losses"]["total"],
+          "one_process_loss_total": ref_p["losses"]["total"],
+          "max_err": _max_errs(got, ref_p), "perturbed_bounds": bounds,
+          "wall_s": [r["fs2_parallel_steps:bp"]["wall_s"] for r in ranks],
+          "launches": per_rank, "ok": True})
 
     # (c): against the whole utterance on one device
     from tts_king_torch.ops.streaming import generator_receptive_field
@@ -4070,7 +4478,9 @@ def phase_parallel_path(smi, tmp, device="cuda:0"):
 
     # (f): a single-process mesh of two replicas on the card
     f_launches = parallel_replicas(cfg, device)
-    rows = _parallel_rows(ranks, nccl, f_launches)
+    # (g): the CWT model over the 2 gloo ranks and 2 replicas
+    g_launches = cwt_mesh_check(ranks, cwt, device)
+    rows = _parallel_rows(ranks, nccl, f_launches, g_launches)
     emit({"phase": "parallel_path", "part": "done",
           "wall_s": time.perf_counter() - t_phase, "launches_by_row": rows,
           "nvidia_smi": smi, "ok": True})
@@ -4305,9 +4715,102 @@ def parallel_replicas(cfg, device):
     return {k: am_launches[k] + srv_launches[k] for k in am_launches}
 
 
-def _parallel_rows(ranks, nccl, replicas):
+def cwt_mesh_spec(cfg, device):
+    """dp_generate's spec of part (g): a CWT FastSpeech2 at ``cfg``'s width
+    with main_path_variables' seeding, its pitch std head fixed at 1
+    (kernel 0, bias 1: a random ReLU head gives a std of 0, and the batch
+    would not matter), and a batch of 5 over dp = 2 (one pad row)."""
+    import dataclasses
+
+    import numpy as np
+
+    from tts_king_torch.models.fs2 import build_fastspeech2
+
+    ccfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, use_cwt=True))
+    variables = seeded_flax_variables(
+        lambda: build_fastspeech2(ccfg.model, MAIN_STATS, 66), seed=0)
+    va = variables["params"]["variance_adaptor"]
+    va["duration_predictor"]["linear_layer"]["kernel"] *= 0.1
+    va["duration_predictor"]["linear_layer"]["bias"][:] = math.log(6.0)
+    va["pitch_std"]["linear"]["kernel"][:] = 0.0
+    va["pitch_std"]["linear"]["bias"][:] = 1.0
+    rng = np.random.RandomState(17)
+    return {"cfg": ccfg, "variables": variables, "n_speakers": 66,
+            "phonemes": rng.randint(1, 206, (5, 40)),
+            "speakers": [int(x) for x in rng.randint(0, 66, 5)],
+            "device": device}
+
+
+def cwt_mesh_check(ranks, spec, device):
+    """Part (g) of phase_parallel_path: the CWT model of ``spec`` over the
+    2 gloo ranks (``ranks``' "dp_generate:cwt": each rank its 3 rows of the
+    batch of 5 padded to 6, the pitch standardized over both ranks' rows)
+    and over a single-process mesh of two replicas on the card (the padded
+    batch whole on the model's device), against one process on the padded
+    batch (the JAX mesh program's function: the zero pad row joins the
+    standardization): lengths equal, mels rtol 1e-4 / atol 1e-5 (the
+    replicas: bit for bit). The control: the unpadded batch on one device
+    gives other mels. Returns the replicas' launch counts."""
+    import numpy as np
+    import torch
+
+    from tts_king_torch.parallel.mesh import build_mesh
+    from tts_king_torch.pipeline import AcousticModel
+
+    def model(mesh=None):
+        return AcousticModel(spec["cfg"], variables=spec["variables"],
+                             n_speakers=spec["n_speakers"], device=device,
+                             mesh=mesh)
+
+    ph, spk = spec["phonemes"], spec["speakers"]
+    B, L = ph.shape
+    one = model()
+    padded = one.generate(np.concatenate([ph, np.zeros((1, L), ph.dtype)]),
+                          speaker_name=spk + [0],
+                          src_lens=[L] * B + [1])
+    want_lens = padded["mel_lens"][:B].cpu().numpy()
+    want = padded["postnet_mel"][:B].float().cpu().numpy()
+    alone = one.generate(ph, speaker_name=spk)["postnet_mel"].float()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    rep = model(build_mesh(dp=2, devices=[device] * 2)).generate(
+        ph, speaker_name=spk)
+    torch.cuda.synchronize()
+    rep_s = time.perf_counter() - t0
+    launches = launch_counts()
+    got = {"ranks": [(r["dp_generate:cwt"]["mel_lens"],
+                      r["dp_generate:cwt"]["postnet_mel"]) for r in ranks],
+           "replicas": [(rep["mel_lens"].cpu().numpy(),
+                         rep["postnet_mel"].float().cpu().numpy())]}
+    errs = {}
+    for where, outs in got.items():
+        for lens, mel in outs:
+            if not np.array_equal(lens, want_lens) or not np.allclose(
+                    mel, want, rtol=1e-4, atol=1e-5):
+                fail(f"parallel g {where}: lengths {lens} vs {want_lens}, "
+                     f"mel err {float(np.abs(mel - want).max())}")
+            errs[where] = float(np.abs(mel - want).max())
+    if errs["replicas"] != 0.0:
+        fail(f"parallel g: replicas differ from one device on the padded "
+             f"batch by {errs['replicas']}")
+    control = float((alone.cpu() - torch.from_numpy(want)).abs().max())
+    if np.allclose(alone.cpu().numpy(), want, rtol=1e-4, atol=1e-5):
+        fail("parallel g: the pad row does not change the CWT mels")
+    emit({"phase": "parallel_path", "part": "g", "use_cwt": True,
+          "batch": B, "dp": 2, "mel_lens": [int(n) for n in want_lens],
+          "max_abs_err": errs, "control_unpadded_max_abs_err": control,
+          "wall_s": {"ranks": [r["dp_generate:cwt"]["wall_s"]
+                               for r in ranks], "replicas": rep_s},
+          "launches": {"ranks": [r["dp_generate:cwt"]["launches"]
+                                 for r in ranks], "replicas": launches},
+          "ok": True})
+    return launches
+
+
+def _parallel_rows(ranks, nccl, replicas, cwt):
     """The parallel path's launches by kernel row, summed over its parts
-    and ranks."""
+    and ranks (``cwt``: part (g)'s replicas)."""
     def tot(name, key):
         return sum(r[name]["launches"][key] for r in ranks)
 
@@ -4318,14 +4821,18 @@ def _parallel_rows(ranks, nccl, replicas):
                  + tot("fs2_parallel_steps:b", k)
                  + sum(t[k] for t in train)) for k in ("flash_fwd",
                                                        "flash_bwd")}
-    attention = sum(t["attention"] for t in train) + replicas["attention"]
+    attention = (sum(t["attention"] for t in train) + replicas["attention"]
+                 + tot("dp_generate:cwt", "attention") + cwt["attention"])
     attention_bf16 = (sum(t["attention_bf16"] for t in train)
                       + replicas["attention_bf16"])
     return {"1": attention_bf16, "1f": attention - attention_bf16,
+            "1p": 0,
             "2": tot("time_sharded_vocode:bf16", "mrf_stage"),
             "2f": (tot("time_sharded_vocode:f32", "mrf_stage")
                    + replicas["mrf_stage"]),
-            "2b": 0, "3": flash}
+            "2b": 0, "3": flash,
+            "3p": {k: tot("fs2_parallel_steps:bp", k)
+                   for k in ("flash_fwd_probs_bf16", "flash_bwd_probs_bf16")}}
 
 
 def main():
@@ -4346,6 +4853,13 @@ def main():
     t_start = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # wall seconds of each phase, for the time limit (the done line)
+    phase_s, t_mark = {}, [t_start]
+
+    def mark(name):
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
 
     from tts_king_torch.ops.kernels import _build
 
@@ -4362,10 +4876,14 @@ def main():
             for name in _build.SOURCES}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": compiled, "ptxas": regs})
+    mark("build")
 
     errs = phase_kernels_vs_plain()
     errs["mrf_stage_int8"] = phase_int8_vs_plain()
     errs["flash_attention"] = phase_flash_vs_plain()
+    mark("kernel_vs_plain")
+    probs_errs = phase_probs_bf16_vs_plain()
+    mark("kernel_vs_plain_probs_bf16")
     phase_goldens()
     phase_int8_golden()
     phase_vocoders()
@@ -4375,29 +4893,53 @@ def main():
           "loss_total": losses["total"], "max_err": golden_errs,
           "tol": "tests/test_torch_train.py (compare_train_step)",
           "seconds": time.perf_counter() - t0, "ok": True})
+    mark("goldens")
     launches, mel_lens, mrf_runs, kings = phase_main_path()
+    mark("main_path")
     serving_launches = phase_serving(kings, smi)
     del kings
     torch.cuda.empty_cache()
+    mark("serving")
     int8_launches = phase_int8_vocoder(main_config())
+    mark("int8_vocoder")
     train_launches = phase_train_path()
+    mark("train_path")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_probs_")
+    try:
+        probs = phase_probs_bf16_path(smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    mark("probs_bf16_path")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cwt_")
     try:
         cwt_launches, raw, features = phase_cwt_path(smi, tmp)
         torch.cuda.empty_cache()
+        mark("cwt_path")
         ft_launches = phase_finetune_path(smi, raw, features, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
+    mark("finetune_path")
     gan_launches = phase_gan_path(smi)
     torch.cuda.empty_cache()
+    mark("gan_path")
     phase_train_step_time(smi)
+    mark("train_step")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
     try:
         par_launches = phase_parallel_path(smi, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
+    mark("parallel_path")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_validation_")
+    try:
+        phase_validation_tools(smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    mark("validation_tools")
     rows = phase_timing(main_config(), launches, train_launches, errs,
                         mel_lens, mrf_runs)
     attn, mrf_row = rows[0], rows[1]  # rows 1 and 1f, rows 2 and 2f
@@ -4447,7 +4989,18 @@ def main():
     rows.insert(2, int8_timing_row(main_config(), int8_launches,
                                    errs["mrf_stage_int8"]["bf16"]))
     rows[2]["launches_parallel"] = par_launches["2b"]
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    # rows 1p and 3p: the kernels' bf16-probability mode
+    rows.insert(1, attention_probs_timing_row(
+        main_config(), probs["1p"], probs_errs["attention"],
+        probs["mel_lens"]))
+    rows[1]["launches_parallel"] = par_launches["1p"]
+    rows.append(flash_timing_row(main_config(), probs["3p"],
+                                 probs_errs["flash_attention"][0],
+                                 probs_bf16=True))
+    rows[-1]["launches_parallel"] = par_launches["3p"]
+    mark("kernels")
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": phase_s})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

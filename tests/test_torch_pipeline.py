@@ -228,25 +228,6 @@ def test_bf16_fs2_bench_form_computes_in_bf16():
     assert bool(torch.isfinite(out["postnet_mel"].float()).all())
 
 
-def test_attention_probs_bf16_refused_on_every_route():
-    """The JAX XLA attention rounds the softmax probabilities to bf16 with
-    attention_probs_bf16=True, at inference too; the port's FastSpeech2
-    refuses the flag wherever it is built: AcousticModel (generate,
-    speak, serving), TTSKing, and the training and evaluation paths."""
-    from tts_king_torch.config import micro_config
-    from tts_king_torch.models.fs2 import build_fastspeech2
-    from tts_king_torch.pipeline import AcousticModel, TTSKing
-
-    cfg = micro_config()
-    cfg.model = dataclasses.replace(cfg.model, attention_probs_bf16=True)
-    stats = {"pitch": [-3.0, 9.5], "energy": [-1.5, 6.1]}
-    for make in (lambda: build_fastspeech2(cfg.model, stats, 1),
-                 lambda: AcousticModel(cfg, device="cpu"),
-                 lambda: TTSKing(cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match="attention_probs_bf16"):
-            make()
-
-
 def test_entry_points_default_to_cuda():
     """With no device argument the port asks for CUDA, and raises where
     there is none; the CPU is used only when asked for."""

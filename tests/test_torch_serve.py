@@ -298,10 +298,20 @@ def test_http_front_end(king):
 
 def test_overload_admission_control(king):
     """Past admission_depth waiting requests, submit() rejects immediately
-    and the queue never grows beyond the bound."""
+    and the queue never grows beyond the bound.
+
+    The server's device thread is held at an event the test owns (a job put
+    on its queue ahead of every request), so the dispatcher blocks on its
+    first batch and the queue fills to the bound however fast the CPU
+    drains it; every later submit is rejected. Released, the admitted
+    requests complete."""
+    from concurrent.futures import Future
+
     from tts_king_torch.serve import ServerOverloaded, SynthesisServer
 
     server = SynthesisServer(king, max_batch=2, admission_depth=4)
+    gate = threading.Event()
+    server._device_jobs.put((lambda: gate.wait(timeout=300), Future()))
     try:
         rng = np.random.RandomState(0)
         rejected = 0
@@ -314,14 +324,18 @@ def test_overload_admission_control(king):
                 rejected += 1
             assert server._queue.qsize() <= 4  # bound holds at all times
         assert rejected > 0, "overload never rejected anything"
+        # the queue's 4, and at most one batch the dispatcher holds
+        assert len(futures) <= 4 + 2
         st = server.stats()
         assert st["rejected"] == rejected
         assert st["admitted"] == len(futures)
+        gate.set()
         for f in futures:
             wav = f.result(timeout=300)
             assert wav.dtype == np.int16
         assert server.stats()["completed"] == len(futures)
     finally:
+        gate.set()
         server.close()
 
 

@@ -415,9 +415,6 @@ def test_unported_training_paths_raise(tmp_path, monkeypatch):
     # a mesh needs processes: one process names how to launch them
     with pytest.raises(ValueError, match="--distributed or torchrun"):
         train(dataclasses.replace(cfg, mesh=MeshConfig(dp=2)), device="cpu")
-    bf16 = dataclasses.replace(cfg.model, attention_probs_bf16=True)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        train(dataclasses.replace(cfg, model=bf16), device="cpu")
     for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
         monkeypatch.delenv(var, raising=False)
     with pytest.raises(ValueError, match="torchrun"):

@@ -29,6 +29,11 @@
 // Every query row in [0, T) is computed, padded ones included: they stay
 // finite, and the caller zeroes them.
 //
+// probs_bf16 (f32): the XLA route of the JAX package's MultiHeadAttention
+// (tts_king_tpu/models/layers.py, attention_probs_bf16) instead, which
+// scales S after the product and rounds the normalized probabilities to
+// bf16 before P.V: two sweeps over the key tiles (attention_mma.cuh, ROUND).
+//
 // Layout: q, k, v are (B, H, T, D) views given by element strides (sb, sh,
 // st) with a unit stride over D, so the (B, T, H, D) output of a Linear can
 // be passed without a copy; rows and the (b, h) bases start on 16 bytes. The
@@ -37,24 +42,25 @@
 
 #include "attention_mma.cuh"
 
-// Returns a cudaError_t value: 0 on a successful launch.
+// Returns a cudaError_t value: 0 on a successful launch. probs_bf16 (f32
+// only; ModelConfig.attention_probs_bf16): the JAX package's XLA attention,
+// S = (q k^T) * scale and O = round_bf16(P) V with P the normalized softmax,
+// by attn_fwd_kernel's two sweeps (ROUND).
 extern "C" int tk_attention(const void* q, const void* k, const void* v,
-                            const uint8_t* mask, void* o, int is_bf16, int B,
-                            int H, int T_, int D, long long sb, long long sh,
-                            long long st, long long osb, long long osh,
-                            long long ost, float scale, void* stream) {
+                            const uint8_t* mask, void* o, int is_bf16,
+                            int probs_bf16, int B, int H, int T_, int D,
+                            long long sb, long long sh, long long st,
+                            long long osb, long long osh, long long ost,
+                            float scale, void* stream) {
   using namespace tk_attn;
-  if (bad_shape(B, H, T_, D, is_bf16 ? 2 : 4))
+  if (bad_shape(B, H, T_, D, is_bf16 ? 2 : 4) || (is_bf16 && probs_bf16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      is_bf16 ? launch_fwd<__nv_bfloat16, false>(q, k, v, mask, o, nullptr, B,
-                                                 H, T_, D, sb, sh, st, osb,
-                                                 osh, ost, scale, s)
-              : launch_fwd<float, false>(q, k, v, mask, o, nullptr, B, H, T_,
-                                         D, sb, sh, st, osb, osh, ost, scale,
-                                         s);
-  return (int)err;
+  auto launch = is_bf16      ? launch_fwd<__nv_bfloat16, false>
+                : probs_bf16 ? launch_fwd<float, true, true>
+                             : launch_fwd<float, false>;
+  return (int)launch(q, k, v, mask, o, nullptr, B, H, T_, D, sb, sh, st, osb,
+                     osh, ost, scale, s);
 }
 
 extern "C" const char* tk_error_string(int err) {

@@ -76,14 +76,15 @@ class Encoder(nn.Module):
 
     def __init__(self, n_layers=4, n_head=2, d_model=256, d_inner=1024,
                  kernel_size=(9, 1), max_seq_len=1000, vocab_size=VOCAB_SIZE,
-                 dropout=0.2):
+                 dropout=0.2, **attention):
         super().__init__()
         d_k = d_model // n_head
         self.n_layers = n_layers
         self.src_word_emb = nn.Embedding(vocab_size, d_model)
         for i in range(n_layers):
             self.add_module(f"layer_{i}", FFTBlock(
-                d_model, n_head, d_k, d_k, d_inner, kernel_size, dropout))
+                d_model, n_head, d_k, d_k, d_inner, kernel_size, dropout,
+                **attention))
         self._pos = _Positions(max_seq_len, d_model)
 
     def forward(self, src_seq, pad_mask, generator=None):
@@ -103,14 +104,16 @@ class Decoder(nn.Module):
     truncated alike."""
 
     def __init__(self, n_layers=6, n_head=2, d_model=256, d_inner=1024,
-                 kernel_size=(9, 1), max_seq_len=1000, dropout=0.2):
+                 kernel_size=(9, 1), max_seq_len=1000, dropout=0.2,
+                 **attention):
         super().__init__()
         d_k = d_model // n_head
         self.n_layers = n_layers
         self.max_seq_len = max_seq_len
         for i in range(n_layers):
             self.add_module(f"layer_{i}", FFTBlock(
-                d_model, n_head, d_k, d_k, d_inner, kernel_size, dropout))
+                d_model, n_head, d_k, d_k, d_inner, kernel_size, dropout,
+                **attention))
         self._pos = _Positions(max_seq_len, d_model)
 
     def forward(self, x, pad_mask, generator=None):
@@ -241,21 +244,16 @@ class FastSpeech2(nn.Module):
                  n_mel_channels=80):
         super().__init__()
         mc = model_config
-        if mc.attention_probs_bf16:
-            # the JAX package's XLA attention (use_pallas_attention and
-            # use_flash_attention False) rounds the normalized softmax
-            # probabilities to bf16 before P.V, in training, evaluation
-            # and inference alike; the port's kernels do not
-            raise NotImplementedError(
-                "attention_probs_bf16=True: attention with bf16 "
-                "probabilities is not ported yet; it comes with the bf16 "
-                "attention slice of the port")
         tc = mc.transformer
         self.model_config = mc
+        # the JAX MultiHeadAttention's route flags (layers.MultiHeadAttention)
+        attention = {"probs_bf16": mc.attention_probs_bf16,
+                     "use_flash": mc.use_flash_attention,
+                     "use_pallas": mc.use_pallas_attention}
         self.encoder = Encoder(
             tc.encoder_layer, tc.encoder_head, tc.encoder_hidden,
             tc.conv_filter_size, tuple(tc.conv_kernel_size), mc.max_seq_len,
-            dropout=tc.encoder_dropout)
+            dropout=tc.encoder_dropout, **attention)
         if mc.multi_speaker:
             self.speaker_emb = nn.Embedding(n_speakers, tc.encoder_hidden)
         ve = mc.variance_embedding
@@ -266,7 +264,7 @@ class FastSpeech2(nn.Module):
         self.decoder = Decoder(
             tc.decoder_layer, tc.decoder_head, tc.decoder_hidden,
             tc.conv_filter_size, tuple(tc.conv_kernel_size), mc.max_seq_len,
-            dropout=tc.decoder_dropout)
+            dropout=tc.decoder_dropout, **attention)
         self.mel_linear = nn.Linear(tc.decoder_hidden, n_mel_channels)
         self.postnet = PostNet(n_mel_channels, embedding_dim=mc.postnet_dim)
 

@@ -128,16 +128,33 @@ class MultiHeadAttention(nn.Module):
     Both compute softmax(q k^T / sqrt(d_k), padded keys at -1e9) v with an
     f32 softmax.
 
+    ``probs_bf16`` (``ModelConfig.attention_probs_bf16``) rounds the
+    normalized probabilities to bf16 before P.V where the JAX package's
+    MultiHeadAttention takes its XLA route, and only there; its
+    ``use_flash`` and ``use_pallas`` decide, per call (training = dropout
+    on, the JAX module's ``deterministic=False``):
+
+        use_flash                 flash kernel, not rounded (either mode)
+        use_pallas, not use_flash training: XLA, rounded;
+                                  eval: fused kernel, not rounded
+        neither (the default)     XLA, rounded (either mode)
+
+    The rounded calls launch the kernels' bf16-probability mode (the XLA
+    route's function and gradient); the others compute as without the flag.
+
     Under tensor parallelism (``tp``, the mesh's axis; parallel.mesh.
     shard_fs2) this rank holds ``n_head`` of the heads: w_qs/w_ks/w_vs
     split on their output features, ``fc`` on its input features, whose
     partial products are all-reduced before ``fc``'s bias is added once."""
 
-    def __init__(self, n_head, d_model, d_k, d_v, dropout=0.1):
+    def __init__(self, n_head, d_model, d_k, d_v, dropout=0.1,
+                 probs_bf16=False, use_flash=False, use_pallas=False):
         super().__init__()
         if d_k != d_v:
             raise ValueError("the attention kernel needs d_k == d_v")
         self.n_head, self.d_k = n_head, d_k
+        self.probs_bf16 = probs_bf16
+        self.use_flash, self.use_pallas = use_flash, use_pallas
         self.w_qs = nn.Linear(d_model, n_head * d_k)
         self.w_ks = nn.Linear(d_model, n_head * d_k)
         self.w_vs = nn.Linear(d_model, n_head * d_v)
@@ -156,10 +173,15 @@ class MultiHeadAttention(nn.Module):
         xs = copy_to(x, self.tp)
         q, k, v = (heads(self.w_qs(xs)), heads(self.w_ks(xs)),
                    heads(self.w_vs(xs)))
+        # the flag is passed only where it is set: the unrounded calls are
+        # the wrappers' calls without it
+        mode = ({"probs_bf16": True} if self.probs_bf16 and not (
+            self.use_flash or (self.use_pallas and not self.training))
+            else {})
         if torch.is_grad_enabled() and q.requires_grad:
-            out = flash_attention(q, k, v, key_pad_mask)
+            out = flash_attention(q, k, v, key_pad_mask, **mode)
         else:
-            out = attention(q, k, v, key_pad_mask)
+            out = attention(q, k, v, key_pad_mask, **mode)
         out = reduce_from(F.linear(out.transpose(1, 2).reshape(B, T, H * D),
                                    self.fc.weight), self.tp) + self.fc.bias
         return self.layer_norm(self.dropout(out, generator) + x)
@@ -189,12 +211,15 @@ class PositionwiseFeedForward(nn.Module):
 
 
 class FFTBlock(nn.Module):
-    """Feed-forward transformer block (fs_two/transformer/Layers.py:11-34)."""
+    """Feed-forward transformer block (fs_two/transformer/Layers.py:11-34).
+    ``attention``: MultiHeadAttention's route flags (probs_bf16, use_flash,
+    use_pallas)."""
 
     def __init__(self, d_model, n_head, d_k, d_v, d_inner, kernel_size,
-                 dropout=0.1):
+                 dropout=0.1, **attention):
         super().__init__()
-        self.slf_attn = MultiHeadAttention(n_head, d_model, d_k, d_v, dropout)
+        self.slf_attn = MultiHeadAttention(n_head, d_model, d_k, d_v, dropout,
+                                           **attention)
         self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, kernel_size,
                                                dropout)
 

@@ -5,7 +5,18 @@ Port of ``fused_attention`` (tts_king_tpu/ops/pallas/attention.py). The
 wrapper dispatches on where its tensors lie: CPU tensors go to
 ``attention_plain``; CUDA tensors launch the kernel, or raise. ``launches``
 counts the kernel's launches, ``launches_bf16`` those of them on bf16
-inputs.
+inputs and ``launches_probs_bf16`` those in the bf16-probability mode.
+
+``probs_bf16=True`` (``ModelConfig.attention_probs_bf16``, f32 inputs) is
+the function of the JAX package's XLA attention (tts_king_tpu/models/
+layers.py, MultiHeadAttention's last branch) instead:
+
+    O = round_bf16(softmax((q k^T) * scale, padded keys at -1e9)) v
+
+with S scaled after the product, the normalized f32 softmax rounded to bf16
+and P.V accumulated in f32. The kernel sweeps the key tiles twice (the
+first for each row's max and sum). On bf16 inputs the flag changes nothing:
+the JAX cast is a no-op there and the bf16 kernel runs as before.
 """
 
 import math
@@ -17,16 +28,36 @@ from tts_king_torch.ops.kernels import _build
 NEG_INF = -1e9
 launches = 0
 launches_bf16 = 0
+launches_probs_bf16 = 0
 
 
-def attention_plain(q, k, v, key_pad_mask):
+def round_bf16(x):
+    """x rounded to bf16 (to nearest even), back in x's dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def attention_probs_bf16_plain(q, k, v, key_pad_mask):
+    """The XLA route's function in its order of operations: S = (q k^T) *
+    scale, padded keys at -1e9, P = softmax(S) normalized, O = round_bf16(P)
+    v; f32 (or f64) throughout otherwise. Differentiable: autograd through
+    the cast rounds dP = dO v^T to bf16, as JAX's transpose of the cast
+    does."""
+    s = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+    s = s.masked_fill(key_pad_mask[:, None, None, :], NEG_INF)
+    return torch.matmul(round_bf16(torch.softmax(s, dim=-1)), v)
+
+
+def attention_plain(q, k, v, key_pad_mask, probs_bf16=False):
     """softmax((q * scale) k^T, padded keys at -1e9) v, in the TPU kernel's
     order: q scaled in its own type, f32 scores and softmax, probabilities
-    cast to v's type before P.V with f32 accumulation.
+    cast to v's type before P.V with f32 accumulation. probs_bf16 on f32
+    inputs: ``attention_probs_bf16_plain``.
 
     q, k, v: (B, H, T, D); key_pad_mask: (B, T) bool, True = padded key.
     Returns (B, H, T, D) in q's dtype.
     """
+    if probs_bf16 and q.dtype == torch.float32:
+        return attention_probs_bf16_plain(q, k, v, key_pad_mask)
     D = q.shape[-1]
     q = q * torch.tensor(1.0 / math.sqrt(D), dtype=q.dtype)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
@@ -47,7 +78,7 @@ def check_aligned(what, *tensors):
                 f"{esz}-byte elements)")
 
 
-def attention(q, k, v, key_pad_mask):
+def attention(q, k, v, key_pad_mask, probs_bf16=False):
     """Masked attention; same contract as ``attention_plain``.
 
     On CUDA: f32 or bf16, D up to 128 and a multiple of 16 bytes (4 in f32,
@@ -57,7 +88,7 @@ def attention(q, k, v, key_pad_mask):
     query rows come out finite; the caller zeroes them.
     """
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, key_pad_mask)
+        return attention_plain(q, k, v, key_pad_mask, probs_bf16)
     if q.device.type != "cuda":
         raise ValueError(f"attention: unsupported device {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -80,6 +111,7 @@ def attention(q, k, v, key_pad_mask):
     if q.stride(-1) != 1 or k.stride() != q.stride() or v.stride() != q.stride():
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     check_aligned("attention", q, k, v)
+    probs_bf16 = bool(probs_bf16) and q.dtype == torch.float32
     sb, sh, st, _ = q.stride()
     out = torch.empty((B, T, H, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
@@ -91,10 +123,13 @@ def attention(q, k, v, key_pad_mask):
     lib = _build.load("attention")
     err = lib.tk_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), int(q.dtype == torch.bfloat16), B, H, T, D, sb, sh,
-        st, osb, osh, ost, 1.0 / math.sqrt(D), _build.current_stream(q.device))
+        out.data_ptr(), int(q.dtype == torch.bfloat16), int(probs_bf16), B,
+        H, T, D, sb, sh, st, osb, osh, ost, 1.0 / math.sqrt(D),
+        _build.current_stream(q.device))
     _build.check(lib, err, "attention")
     _build.count_launch(globals())
     if q.dtype == torch.bfloat16:
         _build.count_launch(globals(), "launches_bf16")
+    if probs_bf16:
+        _build.count_launch(globals(), "launches_probs_bf16")
     return out

@@ -22,7 +22,21 @@ through ``flash_forward_plain`` / ``flash_backward_plain``, the same
 arithmetic in eager ops, so its backward can be checked with gradcheck.
 
 ``launches_fwd`` and ``launches_bwd`` count the forward kernel's launches and
-the backward's (one per backward call, which launches dQ then dK/dV).
+the backward's (one per backward call, which launches dQ then dK/dV);
+``launches_fwd_probs_bf16`` and ``launches_bwd_probs_bf16`` those of them in
+the bf16-probability mode.
+
+``probs_bf16=True`` (``ModelConfig.attention_probs_bf16``) is the JAX
+package's XLA attention with its probabilities rounded to bf16
+(attention.attention_probs_bf16_plain) and its gradient as ``jax.vjp``
+gives it, P the normalized f32 softmax and round() rounding to bf16:
+
+    dV = round(P)^T dO,  dP = round(dO v^T),  Delta_i = sum_j P_ij dP_ij,
+    dS = P * (dP - Delta),  dQ = dS k * scale,  dK = dS^T q * scale.
+
+Delta is not rowsum(dO * O) there, so the dQ kernel sweeps the keys once
+for Delta before its dS sweep; the forward sweeps them twice (the first for
+each row's max and sum).
 
 A row whose keys are all padded is not reproduced exactly by the backward
 (its log-sum-exp, -1e9 + log T, rounds to -1e9 in f32); training never has
@@ -34,11 +48,14 @@ import math
 import torch
 
 from tts_king_torch.ops.kernels import _build
-from tts_king_torch.ops.kernels.attention import check_aligned
+from tts_king_torch.ops.kernels.attention import (attention_probs_bf16_plain,
+                                                  check_aligned, round_bf16)
 
 NEG_INF = -1e9
 launches_fwd = 0
 launches_bwd = 0
+launches_fwd_probs_bf16 = 0
+launches_bwd_probs_bf16 = 0
 
 
 def _scores(q, k, key_pad_mask):
@@ -46,28 +63,41 @@ def _scores(q, k, key_pad_mask):
     return s.masked_fill(key_pad_mask[:, None, None, :], NEG_INF)
 
 
-def flash_attention_plain(q, k, v, key_pad_mask):
+def flash_attention_plain(q, k, v, key_pad_mask, probs_bf16=False):
     """The contract in eager ops; differentiable through autograd."""
+    if probs_bf16:
+        return attention_probs_bf16_plain(q, k, v, key_pad_mask)
     return torch.matmul(torch.softmax(_scores(q, k, key_pad_mask), dim=-1), v)
 
 
-def flash_forward_plain(q, k, v, key_pad_mask):
+def flash_forward_plain(q, k, v, key_pad_mask, probs_bf16=False):
     """The forward kernel's function: (O, log-sum-exp of each row)."""
     s = _scores(q, k, key_pad_mask)
     lse = torch.logsumexp(s, dim=-1)
+    if probs_bf16:
+        return torch.matmul(round_bf16(torch.softmax(s, dim=-1)), v), lse
     return torch.matmul(torch.exp(s - lse[..., None]), v), lse
 
 
-def flash_backward_plain(q, k, v, key_pad_mask, o, lse, do):
+def flash_backward_plain(q, k, v, key_pad_mask, o, lse, do,
+                         probs_bf16=False):
     """The backward kernels' function: P recomputed from q, k and lse,
-    Delta = rowsum(dO * O), dS = P * (dO v^T - Delta)."""
+    Delta = rowsum(dO * O), dS = P * (dO v^T - Delta); probs_bf16: the
+    module docstring's formulas, Delta = rowsum(P * round(dO v^T))."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = torch.exp(_scores(q, k, key_pad_mask) - lse[..., None])
-    delta = (do * o).sum(-1, keepdim=True)
-    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    if probs_bf16:
+        dp = round_bf16(dp)
+        delta = (p * dp).sum(-1, keepdim=True)
+        p_v = round_bf16(p)
+    else:
+        delta = (do * o).sum(-1, keepdim=True)
+        p_v = p
+    ds = p * (dp - delta)
     dq = torch.matmul(ds, k) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q) * scale
-    dv = torch.matmul(p.transpose(-1, -2), do)
+    dv = torch.matmul(p_v.transpose(-1, -2), do)
     return dq, dk, dv
 
 
@@ -105,21 +135,24 @@ def _out_like(q):
                        device=q.device).transpose(1, 2)
 
 
-def _forward_cuda(q, k, v, mask):
+def _forward_cuda(q, k, v, mask, probs_bf16=False):
     B, H, T, D = q.shape
     o = _out_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention")
     err = lib.tk_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), B, H, T, D, *q.stride()[:3],
-        *o.stride()[:3], 1.0 / math.sqrt(D), _build.current_stream(q.device))
+        o.data_ptr(), lse.data_ptr(), int(probs_bf16), B, H, T, D,
+        *q.stride()[:3], *o.stride()[:3], 1.0 / math.sqrt(D),
+        _build.current_stream(q.device))
     _build.check(lib, err, "flash_attention forward")
     _build.count_launch(globals(), "launches_fwd")
+    if probs_bf16:
+        _build.count_launch(globals(), "launches_fwd_probs_bf16")
     return o, lse
 
 
-def _backward_cuda(q, k, v, mask, o, lse, do):
+def _backward_cuda(q, k, v, mask, o, lse, do, probs_bf16=False):
     B, H, T, D = q.shape
     if do.stride() != o.stride() or do.data_ptr() % 16:
         do = _out_like(q).copy_(do)   # autograd's gradient, in O's layout
@@ -129,11 +162,13 @@ def _backward_cuda(q, k, v, mask, o, lse, do):
     err = lib.tk_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, T, D,
-        *q.stride()[:3], *o.stride()[:3], 1.0 / math.sqrt(D),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), int(probs_bf16), B, H,
+        T, D, *q.stride()[:3], *o.stride()[:3], 1.0 / math.sqrt(D),
         _build.current_stream(q.device))
     _build.check(lib, err, "flash_attention backward")
     _build.count_launch(globals(), "launches_bwd")
+    if probs_bf16:
+        _build.count_launch(globals(), "launches_bwd_probs_bf16")
     return dq, dk, dv
 
 
@@ -142,8 +177,9 @@ class FlashAttention(torch.autograd.Function):
     tensors, their plain versions on CPU tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_pad_mask):
+    def forward(ctx, q, k, v, key_pad_mask, probs_bf16=False):
         _check(q, k, v, key_pad_mask)
+        ctx.probs_bf16 = bool(probs_bf16)
         if q.device.type == "cuda":
             # one layout with a unit stride over D for q, k and v
             if (q.stride(-1) != 1 or k.stride() != q.stride()
@@ -151,10 +187,10 @@ class FlashAttention(torch.autograd.Function):
                 q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             check_aligned("flash_attention", q, k, v)
             mask = key_pad_mask.contiguous()   # read as 0/1 bytes
-            o, lse = _forward_cuda(q, k, v, mask)
+            o, lse = _forward_cuda(q, k, v, mask, ctx.probs_bf16)
         else:
             mask = key_pad_mask
-            o, lse = flash_forward_plain(q, k, v, mask)
+            o, lse = flash_forward_plain(q, k, v, mask, ctx.probs_bf16)
         ctx.save_for_backward(q, k, v, mask, o, lse)
         return o
 
@@ -162,13 +198,15 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, mask, o, lse = ctx.saved_tensors
         if q.device.type == "cuda":
-            dq, dk, dv = _backward_cuda(q, k, v, mask, o, lse, do)
+            dq, dk, dv = _backward_cuda(q, k, v, mask, o, lse, do,
+                                        ctx.probs_bf16)
         else:
-            dq, dk, dv = flash_backward_plain(q, k, v, mask, o, lse, do)
-        return dq, dk, dv, None
+            dq, dk, dv = flash_backward_plain(q, k, v, mask, o, lse, do,
+                                              ctx.probs_bf16)
+        return dq, dk, dv, None, None
 
 
-def flash_attention(q, k, v, key_pad_mask):
+def flash_attention(q, k, v, key_pad_mask, probs_bf16=False):
     """Training attention; same contract as ``flash_attention_plain``.
 
     On CUDA: float32, D a multiple of 4 up to 128; q, k, v may be strided
@@ -178,7 +216,7 @@ def flash_attention(q, k, v, key_pad_mask):
     gradients are laid out as (B, T, H, D)."""
     if q.device.type == "cpu":
         _check(q, k, v, key_pad_mask)
-        return flash_attention_plain(q, k, v, key_pad_mask)
+        return flash_attention_plain(q, k, v, key_pad_mask, probs_bf16)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return FlashAttention.apply(q, k, v, key_pad_mask)
+    return FlashAttention.apply(q, k, v, key_pad_mask, probs_bf16)

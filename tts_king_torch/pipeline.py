@@ -31,12 +31,17 @@ Data parallelism: ``AcousticModel(mesh=)`` (parallel/mesh.py; TTSKing
 passes its ``mesh`` there) splits each batch's rows over the mesh's dp
 replicas, padding the batch to a multiple of dp and trimming the result
 (the JAX AcousticModel's mesh path): on a single-process mesh each
-replica is the model on its device, run one after another; on a mesh of processes each rank runs its dp index's rows and the
-outputs are gathered, so every rank returns the whole batch. Each row's
-outputs are its single-device ones, the mel bucket escalating on the whole
-batch's longest raw length. ``Vocoder.generate_long`` splits one long
-utterance's time axis over the mesh instead (ops/time_parallel.py). A CWT
-model is not split (its pitch standardizes over the batch).
+replica is the model on its device, run one after another; on a mesh of
+processes each rank runs its dp index's rows and the outputs are gathered,
+so every rank returns the whole batch. Each row's outputs are its
+single-device ones, the mel bucket escalating on the whole batch's longest
+raw length. A CWT model computes JAX's global program: its pitch is
+standardized over every row of the padded batch, the pad rows included. On
+a mesh of processes the variance adaptor's sums run over the ranks' rows
+(its dp axis); on a single-process mesh, whose replicas run one after
+another and so cannot meet mid-forward, the padded batch runs whole on the
+model's device. ``Vocoder.generate_long`` splits one long utterance's time
+axis over the mesh instead (ops/time_parallel.py).
 
 Weights come from ``variables=`` (a flax-style tree of numpy arrays, or a
 state dict) or from a weights path: an ``.npz`` export (``var::`` naming,
@@ -62,6 +67,7 @@ from tts_king_torch.models.hifigan import Generator
 from tts_king_torch.models.melgan import MelGANGenerator
 from tts_king_torch.ops.streaming import (generator_receptive_field,
                                           stream_vocoder)
+from tts_king_torch.parallel.comm import Axis
 from tts_king_torch.weights import (flax_to_torch, load_flax_npz, load_into,
                                     seeded_state_dict)
 
@@ -228,10 +234,6 @@ class AcousticModel:
         self.device = resolve_device(device)
         self.dtype = _check_dtype(dtype)
         self.config = config
-        if mesh is not None and config.model.use_cwt:
-            raise NotImplementedError(
-                "a CWT model on a mesh: its pitch standardizes over the "
-                "batch, which split rows would change; run it on one device")
         # mesh: optional parallel.mesh.Mesh for data-parallel inference
         self.mesh = mesh
         weights_path = config.acoustic.weights_path
@@ -264,6 +266,11 @@ class AcousticModel:
                 config.model.use_cwt))
         if self.dtype != torch.float32:
             round_variables(self.model, self.dtype)
+        if mesh is not None and not mesh.local and config.model.use_cwt:
+            # the CWT pitch standardizes over the global batch, pad rows
+            # included (JAX's one program over the mesh): its sums run
+            # over the ranks' rows (ops/cwt.inverse_batch_cwt)
+            self.model.variance_adaptor.dp = mesh.dp_axis or Axis()
         self.phone_buckets = None   # optional tuned L-padding grid
 
     def check_ids(self, phonemes, speaker_ids):
@@ -333,8 +340,14 @@ class AcousticModel:
                              p_control=pitch_control, e_control=energy_control,
                              d_control=duration_control)
 
-            out = (fs2(self.model, *inputs) if self.mesh is None else
-                   _rows_over_dp(self.mesh, self.model, fs2, inputs, dev))
+            if self.mesh is None or (self.mesh.local
+                                     and self.config.model.use_cwt):
+                # a CWT model on a single-process mesh runs the padded batch
+                # on its own device: its pitch is standardized over every
+                # row mid-forward, and the replicas run one after another
+                out = fs2(self.model, *inputs)
+            else:
+                out = _rows_over_dp(self.mesh, self.model, fs2, inputs, dev)
             # escalate on the RAW length: mel_lens is clamped to T in-model
             if defer_overflow or int(out["mel_lens_raw"].max()) <= T:
                 break

@@ -803,17 +803,21 @@ class SynthesisServer:
             except queue.Empty:
                 continue
             try:
-                self._complete_batch(reqs, handles)
-                with self._stats_lock:
-                    self._counters["completed"] += len(reqs)
+                results = self._complete_batch(reqs, handles)
             except Exception as e:
-                # the whole batch counts as failed, so that drain() settles
-                # even when some of its futures got their results first
                 with self._stats_lock:
                     self._counters["failed"] += len(reqs)
                 for req in reqs:
                     if not req.future.done():
                         req.future.set_exception(e)
+                continue
+            # counted before the futures resolve: a caller that has every
+            # result reads them all in stats()
+            with self._stats_lock:
+                self._counters["completed"] += len(reqs)
+            for req, result in zip(reqs, results):
+                if not req.future.done():   # a caller may have cancelled it
+                    req.future.set_result(result)
 
     # ------------------------------------------------------------- device
 
@@ -873,16 +877,15 @@ class SynthesisServer:
         return self._device(dispatch), mel_lens
 
     def _complete_batch(self, reqs, handles):
+        """The batch's results on the host, one per request, in order."""
         fetch, mel_lens = handles
         host = fetch.wait()[0]
         if self.return_wav:
             hop = self.king.cfg.preprocess.stft.hop_length
-            for i, req in enumerate(reqs):
-                req.future.set_result(host[i, : mel_lens[i] * hop].copy())
-        else:
-            for i, req in enumerate(reqs):
-                req.future.set_result((host[i, : mel_lens[i]].copy(),
-                                       int(mel_lens[i])))
+            return [host[i, : mel_lens[i] * hop].copy()
+                    for i in range(len(reqs))]
+        return [(host[i, : mel_lens[i]].copy(), int(mel_lens[i]))
+                for i in range(len(reqs))]
 
 
 # --------------------------------------------------------------- HTTP front

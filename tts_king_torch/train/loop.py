@@ -9,9 +9,15 @@ run fails.
 
 Attention: every attention call with a gradient goes through the port's
 flash kernels (ops/kernels/flash_attention.py), the validation forward
-through the inference kernel. ``ModelConfig.use_flash_attention`` selects
-between the JAX package's two training attentions, which compute one
-function; it does not matter here.
+through the inference kernel. Without ``ModelConfig.attention_probs_bf16``
+the JAX package's attentions compute one function, so
+``use_flash_attention`` and ``use_pallas_attention`` do not matter here.
+With it the port follows the JAX MultiHeadAttention's routes
+(models/layers.MultiHeadAttention): the train step rounds the softmax
+probabilities to bf16 unless ``use_flash_attention``, and the validation,
+the objective metrics and the previews round them unless
+``use_flash_attention`` or ``use_pallas_attention``; the kernels' bf16-
+probability mode computes the rounded calls, their gradient included.
 
 Synthesis previews: with a ``vocoder`` (pipeline.Vocoder), every
 ``synth_step`` steps one validation utterance, rotating through the split,
@@ -33,9 +39,6 @@ objective validation where its model computes alone (tp = 1 and no CWT
 pitch, whose standardization is over the global batch); elsewhere they are
 skipped with a line on stderr. A single process trains on one device.
 
-Not ported yet, and raising ``NotImplementedError``:
-``attention_probs_bf16=True`` (FastSpeech2 refuses it; the bf16 attention
-slice).
 """
 
 import json

@@ -14,10 +14,13 @@
   tensor argument read once, each output written once) of one call, their
   floors at the card's peaks and which one binds, with the JAX function's
   fields (``t_mxu_ms`` is the floor on the tensor cores here).
+* ``device_record(device)``: what a measurement ran on (the card's name,
+  and nvidia-smi's name and power limit).
 """
 
 import contextlib
 import os
+import subprocess
 import time
 from typing import Callable, Dict
 
@@ -167,3 +170,22 @@ def roofline(fn, *args, measured_s=None):
             floor = max(t_mxu or 0.0, t_hbm or 0.0)
             result["roofline_fraction"] = round(floor / measured_s, 3)
     return result
+
+
+def device_record(device) -> Dict:
+    """What a measurement ran on: the device, and on a card its name and
+    ``nvidia-smi --query-gpu=name,power.limit`` line (None where nvidia-smi
+    does not run), since a card set below its power limit runs slower."""
+    device = torch.device(device)
+    out = {"device": str(device), "kind": None, "nvidia_smi": None}
+    if device.type == "cuda":
+        out["kind"] = torch.cuda.get_device_name(device)
+        try:
+            smi = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=60, check=True)
+            out["nvidia_smi"] = smi.stdout.strip().splitlines()[0]
+        except (OSError, subprocess.SubprocessError, IndexError):
+            pass
+    return out
