@@ -94,9 +94,9 @@ non-zero exit (nothing is caught):
                ranks; NCCL at world size 1 (train() through the
                distributed route); AcousticModel and a SynthesisServer over
                2 replicas on the card; the tp=2 step with
-               attention_probs_bf16; a CWT model over the 2 ranks and 2
-               replicas, pad row included; each held to one process
-               (phase_parallel_path says how);
+               attention_probs_bf16; a CWT model over the 2 ranks and a
+               single-process mesh, pad row included; each held to one
+               process (phase_parallel_path says how);
  11. validation tools — tools/validate_training.py and
                validate_vocoder_training.py at VALIDATION_STEPS steps:
                finite, the mel loss falling;
@@ -3291,9 +3291,12 @@ def flash_timing_row(cfg, launches, max_err, probs_bf16=False):
 
     probs_bf16: row 3p, the kernels' bf16-probability mode, held at
     PROBS_TOL. Its bound counts the function's products as row 3 does, so
-    the forward's second sweep and dQ's Delta sweep show as a gap; no
-    PyTorch call rounds the normalized probabilities, so library_ms is
-    None and SDPA's f32 time stands beside it as sdpa_f32_ms."""
+    the forward's second sweep and dQ's Delta sweep show as a gap, but the
+    two products with round(P), forward round(P) V and dV = round(P)^T dO,
+    at 2 TF32 passes: round(P) is exact in TF32, its low split 0 (the
+    kernels skip that pass). No PyTorch call rounds the normalized
+    probabilities, so library_ms is None and SDPA's f32 time stands beside
+    it as sdpa_f32_ms."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3344,15 +3347,18 @@ def flash_timing_row(cfg, launches, max_err, probs_bf16=False):
     plain_ms = cuda_ms(plain, warmup=2, reps=10)
     lib_ms = cuda_ms(sdpa, warmup=2, reps=10)
     n_keys = float(np.sum(lens))
-    ops_f = 4.0 * H * D * T * n_keys
-    ops_b = 10.0 * H * D * T * n_keys
+    pairs = H * D * T * n_keys
+    ops_f, ops_b = 4.0 * pairs, 10.0 * pairs
+    # TF32 passes: 3 a product; 2 for the products with round(P)
+    passes_f = (3 * 2 + 2 * 2) * pairs if pb else 3 * ops_f
+    passes_b = (3 * 8 + 2 * 2) * pairs if pb else 3 * ops_b
     elems, kv = B * H * T * D, 2.0 * H * D * n_keys
     # forward: q read, o written, k and v read at the valid keys, lse
     # written, the mask; backward: q, o and dO read, dq, dk and dv written,
     # k and v read at the valid keys, lse read, the mask
     bytes_f = 4.0 * (2 * elems + kv + B * H * T) + B * T
     bytes_b = 4.0 * (6 * elems + kv + B * H * T) + B * T
-    t_ops = 3 * (ops_f + ops_b) / PEAK_TF32_OPS
+    t_ops = (passes_f + passes_b) / PEAK_TF32_OPS
     t_bytes = (bytes_f + bytes_b) / PEAK_BYTES
 
     def bound(ops, nbytes, peak):
@@ -3371,8 +3377,8 @@ def flash_timing_row(cfg, launches, max_err, probs_bf16=False):
         "ms": fwd_ms + bwd_ms,
         "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "fwd_bound_ms": bound(3 * ops_f, bytes_f, PEAK_TF32_OPS),
-        "bwd_bound_ms": bound(3 * ops_b, bytes_b, PEAK_TF32_OPS),
+        "fwd_bound_ms": bound(passes_f, bytes_f, PEAK_TF32_OPS),
+        "bwd_bound_ms": bound(passes_b, bytes_b, PEAK_TF32_OPS),
         "bound_f32_ffma_ms": bound(ops_f + ops_b, bytes_f + bytes_b,
                                    PEAK_F32_OPS),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -3472,8 +3478,9 @@ def attention_probs_timing_row(cfg, launches, errs, mel_lens):
     version, the unrounded kernel (one sweep) and SDPA's f32 time (no
     PyTorch call rounds the normalized probabilities: library_ms None).
     The bound counts the function's products as row 1f does (4 D
-    operations per query row and valid key, 3xTF32), so the second sweep
-    shows as a gap."""
+    operations per query row and valid key), so the second sweep shows as
+    a gap: q k^T at 3 TF32 passes, round(P) V at 2 (round(P) is exact in
+    TF32, its low split 0, and the kernel skips that pass)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3505,9 +3512,9 @@ def attention_probs_timing_row(cfg, launches, errs, mel_lens):
         sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=additive), warmup=3, reps=20)
         n_keys = float(np.sum(lens))
-        ops = 4.0 * H * D * T * n_keys
+        passes = (3 * 2 + 2 * 2) * H * D * T * n_keys
         nbytes = 4.0 * (2.0 * B * H * T * D + 2.0 * H * D * n_keys) + B * T
-        t_ops, t_bytes = 3 * ops / PEAK_TF32_OPS, nbytes / PEAK_BYTES
+        t_ops, t_bytes = passes / PEAK_TF32_OPS, nbytes / PEAK_BYTES
         out[where] = {
             "ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "sdpa_f32_ms": sdpa_ms, "unrounded_kernel_ms": one_sweep_ms,
@@ -4198,8 +4205,10 @@ def phase_parallel_path(smi, tmp, device="cuda:0"):
           each replica's rows bit for bit one device's at the half
           batch, must hold);
       (g) a CWT FastSpeech2 (cwt_mesh_spec) on a batch of 5 over the 2
-          gloo ranks and over 2 replicas (cwt_mesh_check): the pitch
-          standardized over the padded batch of 6, as one process on it.
+          gloo ranks and over a single-process mesh of dp = 2
+          (cwt_mesh_check, which runs the padded batch whole on one
+          device): the pitch standardized over the padded batch of 6, as
+          one process on it.
     (b) runs again with attention_probs_bf16 (the kernels' mode at H = 1),
     held as (b) to one process with the flag, 40 mode launches each way a
     rank.
@@ -4478,7 +4487,7 @@ def phase_parallel_path(smi, tmp, device="cuda:0"):
 
     # (f): a single-process mesh of two replicas on the card
     f_launches = parallel_replicas(cfg, device)
-    # (g): the CWT model over the 2 gloo ranks and 2 replicas
+    # (g): the CWT model over the 2 gloo ranks and a single-process mesh
     g_launches = cwt_mesh_check(ranks, cwt, device)
     rows = _parallel_rows(ranks, nccl, f_launches, g_launches)
     emit({"phase": "parallel_path", "part": "done",
@@ -4746,12 +4755,15 @@ def cwt_mesh_check(ranks, spec, device):
     """Part (g) of phase_parallel_path: the CWT model of ``spec`` over the
     2 gloo ranks (``ranks``' "dp_generate:cwt": each rank its 3 rows of the
     batch of 5 padded to 6, the pitch standardized over both ranks' rows)
-    and over a single-process mesh of two replicas on the card (the padded
-    batch whole on the model's device), against one process on the padded
-    batch (the JAX mesh program's function: the zero pad row joins the
-    standardization): lengths equal, mels rtol 1e-4 / atol 1e-5 (the
-    replicas: bit for bit). The control: the unpadded batch on one device
-    gives other mels. Returns the replicas' launch counts."""
+    and over a single-process mesh of dp = 2 on the card, against one
+    process on the padded batch (the JAX mesh program's function: the zero
+    pad row joins the standardization): lengths equal, mels rtol 1e-4 /
+    atol 1e-5. The gloo ranks are the cross-replica check. A CWT model on
+    a single-process mesh runs the padded batch whole on the model's
+    device, the reference's own call, so its bit-for-bit match checks the
+    pad rows and the whole batch on one device, not two replicas' work.
+    The control: the unpadded batch on one device gives other mels.
+    Returns the single-process mesh's launch counts."""
     import numpy as np
     import torch
 
@@ -4781,8 +4793,8 @@ def cwt_mesh_check(ranks, spec, device):
     launches = launch_counts()
     got = {"ranks": [(r["dp_generate:cwt"]["mel_lens"],
                       r["dp_generate:cwt"]["postnet_mel"]) for r in ranks],
-           "replicas": [(rep["mel_lens"].cpu().numpy(),
-                         rep["postnet_mel"].float().cpu().numpy())]}
+           "single_process_mesh": [(rep["mel_lens"].cpu().numpy(),
+                                    rep["postnet_mel"].float().cpu().numpy())]}
     errs = {}
     for where, outs in got.items():
         for lens, mel in outs:
@@ -4791,26 +4803,31 @@ def cwt_mesh_check(ranks, spec, device):
                 fail(f"parallel g {where}: lengths {lens} vs {want_lens}, "
                      f"mel err {float(np.abs(mel - want).max())}")
             errs[where] = float(np.abs(mel - want).max())
-    if errs["replicas"] != 0.0:
-        fail(f"parallel g: replicas differ from one device on the padded "
-             f"batch by {errs['replicas']}")
+    if errs["single_process_mesh"] != 0.0:
+        fail(f"parallel g: the single-process mesh differs from one device "
+             f"on the padded batch by {errs['single_process_mesh']}")
     control = float((alone.cpu() - torch.from_numpy(want)).abs().max())
     if np.allclose(alone.cpu().numpy(), want, rtol=1e-4, atol=1e-5):
         fail("parallel g: the pad row does not change the CWT mels")
     emit({"phase": "parallel_path", "part": "g", "use_cwt": True,
           "batch": B, "dp": 2, "mel_lens": [int(n) for n in want_lens],
           "max_abs_err": errs, "control_unpadded_max_abs_err": control,
+          "single_process_mesh_checks": "the pad rows and the padded "
+          "batch whole on one device (not a comparison of replicas: the "
+          "ranks are)",
           "wall_s": {"ranks": [r["dp_generate:cwt"]["wall_s"]
-                               for r in ranks], "replicas": rep_s},
+                               for r in ranks],
+                     "single_process_mesh": rep_s},
           "launches": {"ranks": [r["dp_generate:cwt"]["launches"]
-                                 for r in ranks], "replicas": launches},
+                                 for r in ranks],
+                       "single_process_mesh": launches},
           "ok": True})
     return launches
 
 
 def _parallel_rows(ranks, nccl, replicas, cwt):
     """The parallel path's launches by kernel row, summed over its parts
-    and ranks (``cwt``: part (g)'s replicas)."""
+    and ranks (``cwt``: part (g)'s single-process mesh)."""
     def tot(name, key):
         return sum(r[name]["launches"][key] for r in ranks)
 

@@ -4,9 +4,13 @@
 start method: nothing of the parent's state, CUDA included, is inherited),
 each of which joins a group over a store on a free localhost port
 (lockstep.initialize), calls ``target(rank, *args)`` and sends back its
-picklable result. The parent waits up to ``timeout_s`` in all, kills every
-process still running then, and raises if any rank failed, exited without a
-result or did not finish: a hang cannot outlast the timeout.
+picklable result: pickled into a file of a temporary directory, whose path
+goes through the queue (a result of gigabytes, chip_smoke.py's state dicts,
+crosses a file faster than the queue's pipe;
+scripts/probe_parallel_launch.py measures the return). The parent waits up
+to ``timeout_s`` in all, kills every process still running then, and
+raises if any rank failed, exited without a result or did not finish: a
+hang cannot outlast the timeout.
 
 For several ranks on one host: the tests' gloo ranks on the CPU, and
 chip_smoke.py's two gloo ranks sharing one card. ``target`` must be a
@@ -14,8 +18,11 @@ module-level function of an importable module.
 """
 
 import multiprocessing as mp
+import os
+import pickle
 import queue
 import socket
+import tempfile
 import time
 import traceback
 from typing import Any, Callable, List, Sequence
@@ -27,7 +34,8 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _worker(target, rank, nprocs, port, backend, threads, args, results):
+def _worker(target, rank, nprocs, port, backend, threads, args, results,
+            out_dir):
     try:
         import torch
         import torch.distributed as dist
@@ -42,7 +50,10 @@ def _worker(target, rank, nprocs, port, backend, threads, args, results):
             out = target(rank, *args)
         finally:
             dist.destroy_process_group()
-        results.put((rank, True, out))
+        path = os.path.join(out_dir, f"rank{rank}.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+        results.put((rank, True, path))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
 
@@ -52,12 +63,18 @@ def run(target: Callable, nprocs: int, args: Sequence[Any] = (),
         threads: int = 1) -> List[Any]:
     """Each rank's ``target(rank, *args)``, in rank order. ``threads``:
     torch's intra-op threads a rank (0 leaves torch's default)."""
+    with tempfile.TemporaryDirectory(prefix="launch-") as out_dir:
+        return _run(target, nprocs, args, timeout_s, backend, threads,
+                    out_dir)
+
+
+def _run(target, nprocs, args, timeout_s, backend, threads, out_dir):
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=_worker, daemon=True,
                          args=(target, r, nprocs, port, backend, threads,
-                               tuple(args), results))
+                               tuple(args), results, out_dir))
              for r in range(nprocs)]
     for p in procs:
         p.start()
@@ -88,7 +105,9 @@ def run(target: Callable, nprocs: int, args: Sequence[Any] = (),
                 # its peers may wait for it in a collective: stop them now
                 errors.append(f"rank {rank} failed:\n{out}")
                 break
-            got[rank] = out
+            with open(out, "rb") as f:
+                got[rank] = pickle.load(f)
+            os.remove(out)
     finally:
         for p in procs:
             p.join(timeout=max(0.0, min(10.0, deadline - time.monotonic())))

@@ -244,17 +244,30 @@ def shard_batch(batch: Dict, mesh: Mesh, extra_leading_axis: bool = False):
             for k, v in batch.items()}
 
 
+def set_dp_axis(model: nn.Module, mesh: Mesh) -> nn.Module:
+    """Give a FastSpeech2's modules that compute over the global batch the
+    mesh's dp axis, in place: the dropouts (the global batch's mask), the
+    BatchNorms (training statistics) and the variance adaptor (the CWT
+    pitch's batch standardization, in training and at inference)."""
+    from tts_king_torch.models.fs2 import VarianceAdaptor
+    from tts_king_torch.models.layers import BatchNorm, Dropout
+
+    dp = mesh.dp_axis or Axis()
+    for m in model.modules():
+        if isinstance(m, (Dropout, BatchNorm, VarianceAdaptor)):
+            m.dp = dp
+    return model
+
+
 def shard_fs2(model: nn.Module, mesh: Mesh) -> nn.Module:
     """Make a FastSpeech2 (meta or materialized) this rank's part of the
     mesh, in place: split the parameters the rules name, give the FFT
-    blocks the tp axis, and the dropouts, BatchNorms and the variance
-    adaptor (the CWT pitch's batch standardization) the dp axis."""
-    from tts_king_torch.models.fs2 import VarianceAdaptor
-    from tts_king_torch.models.layers import (BatchNorm, Dropout,
-                                              MultiHeadAttention,
+    blocks the tp axis, and the modules ``set_dp_axis`` names the dp
+    axis."""
+    from tts_king_torch.models.layers import (MultiHeadAttention,
                                               PositionwiseFeedForward)
 
-    tp, dp = mesh.tp_axis or Axis(), mesh.dp_axis or Axis()
+    tp = mesh.tp_axis or Axis()
     if tp.size > 1:
         for name, p in list(model.named_parameters()):
             dim = spec_for(name, FS2_TP_RULES)
@@ -272,9 +285,7 @@ def shard_fs2(model: nn.Module, mesh: Mesh) -> nn.Module:
             m.n_head //= tp.size
         elif isinstance(m, PositionwiseFeedForward):
             m.tp = tp
-        elif isinstance(m, (Dropout, BatchNorm, VarianceAdaptor)):
-            m.dp = dp
-    return model
+    return set_dp_axis(model, mesh)
 
 
 def shard_train_state(state, mesh: Mesh):

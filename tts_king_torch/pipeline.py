@@ -67,7 +67,7 @@ from tts_king_torch.models.hifigan import Generator
 from tts_king_torch.models.melgan import MelGANGenerator
 from tts_king_torch.ops.streaming import (generator_receptive_field,
                                           stream_vocoder)
-from tts_king_torch.parallel.comm import Axis
+from tts_king_torch.parallel.mesh import set_dp_axis
 from tts_king_torch.weights import (flax_to_torch, load_flax_npz, load_into,
                                     seeded_state_dict)
 
@@ -266,11 +266,11 @@ class AcousticModel:
                 config.model.use_cwt))
         if self.dtype != torch.float32:
             round_variables(self.model, self.dtype)
-        if mesh is not None and not mesh.local and config.model.use_cwt:
+        if mesh is not None and not mesh.local:
             # the CWT pitch standardizes over the global batch, pad rows
             # included (JAX's one program over the mesh): its sums run
             # over the ranks' rows (ops/cwt.inverse_batch_cwt)
-            self.model.variance_adaptor.dp = mesh.dp_axis or Axis()
+            set_dp_axis(self.model, mesh)
         self.phone_buckets = None   # optional tuned L-padding grid
 
     def check_ids(self, phonemes, speaker_ids):
