@@ -27,8 +27,9 @@ non-zero exit (nothing is caught):
                time-varying gain and the edges of its cluster plan; the flash
                kernels forward and backward against the plain version and
                autograd; the attention and flash kernels' bf16-probability
-               mode (ModelConfig.attention_probs_bf16) at the same checks,
-               within PROBS_TOL's max and mean, its control outside;
+               mode (ModelConfig.attention_probs_bf16) at the same checks
+               and PROBS_EXTRA_CHECKS (the largest T, D = 64), within
+               PROBS_TOL's max and mean, its control outside;
   4. goldens — golden_fs2, golden_vocoder, golden_trained_vocoder and the
                JAX int8 vocoder (golden_int8_vocoder.npz) through the port
                in f32 at the CPU tests' tolerances, the upstream MelGAN
@@ -201,6 +202,13 @@ FLASH_CHECKS = [(16, 2, 640, 128, "suffix"), (16, 2, 96, 128, "suffix"),
                 (8, 1, 640, 128, "suffix"), (8, 1, 96, 128, "suffix"),
                 (5, 1, 200, 128, "edge")]
 TRAIN_STEPS = 4
+# The bf16-probability mode's kernels also at the largest T the port's
+# attention reaches (max_seq_len and the top mel bucket, 1000) with the
+# validation tools' half-width heads (D = 64), and the flash kernels at
+# that T with the shipped D = 128.
+PROBS_EXTRA_CHECKS = {"attention": [(5, 2, 1000, 64, "edge")],
+                      "flash": [(4, 2, 1000, 128, "suffix"),
+                                (5, 2, 1000, 64, "edge")]}
 
 SENTENCES = ["Привет, мир!",
              "Сегодня хорошая погода, и мы идём гулять в парк.",
@@ -3289,14 +3297,15 @@ def flash_timing_row(cfg, launches, max_err, probs_bf16=False):
     peak), with the f32 CUDA-core bound beside it; bytes: each input read
     and each output written once, K and V read at the valid keys only.
 
-    probs_bf16: row 3p, the kernels' bf16-probability mode, held at
-    PROBS_TOL. Its bound counts the function's products as row 3 does, so
-    the forward's second sweep and dQ's Delta sweep show as a gap, but the
-    two products with round(P), forward round(P) V and dV = round(P)^T dO,
-    at 2 TF32 passes: round(P) is exact in TF32, its low split 0 (the
-    kernels skip that pass). No PyTorch call rounds the normalized
-    probabilities, so library_ms is None and SDPA's f32 time stands beside
-    it as sdpa_f32_ms."""
+    probs_bf16: row 3p, the kernels' bf16-probability mode
+    (csrc/attention_round.cuh), held at PROBS_TOL. Its bound counts the
+    function's products as row 3 does (the backward as if it recomputed S
+    and dP; the kernels read P back from the forward instead), but the two
+    products with round(P), forward round(P) V and dV = round(P)^T dO, at 2
+    TF32 passes: round(P) is exact in TF32, its low split 0 (the kernels
+    skip that pass). No PyTorch call rounds the normalized probabilities, so
+    library_ms is None and SDPA's f32 time stands beside it as
+    sdpa_f32_ms."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3311,9 +3320,9 @@ def flash_timing_row(cfg, launches, max_err, probs_bf16=False):
     qd, kd, vd = q.detach(), k.detach(), v.detach()
     m8 = mask.to(torch.uint8)
     pb = probs_bf16
-    o, lse = fa._forward_cuda(qd, kd, vd, m8, pb)
+    saved = fa._forward_cuda(qd, kd, vd, m8, pb)   # (O, lse, P or None)
     g = fa._out_like(qd).copy_(g)
-    got = (o,) + fa._backward_cuda(qd, kd, vd, m8, o, lse, g, pb)
+    got = saved[:1] + fa._backward_cuda(qd, kd, vd, m8, *saved, g)
     ref = fa.flash_attention_plain(q, k, v, mask, pb)
     ref = (ref,) + torch.autograd.grad(ref, (q, k, v), g)
     errs = {name: float((a - b).detach().abs().max())
@@ -3331,8 +3340,8 @@ def flash_timing_row(cfg, launches, max_err, probs_bf16=False):
     del got, ref
     fwd_ms = cuda_ms(lambda: fa._forward_cuda(qd, kd, vd, m8, pb), warmup=2,
                      reps=10)
-    bwd_ms = cuda_ms(lambda: fa._backward_cuda(qd, kd, vd, m8, o, lse, g,
-                                               pb), warmup=2, reps=10)
+    bwd_ms = cuda_ms(lambda: fa._backward_cuda(qd, kd, vd, m8, *saved, g),
+                     warmup=2, reps=10)
 
     def plain():
         out = fa.flash_attention_plain(q, k, v, mask, pb)
@@ -3367,7 +3376,8 @@ def flash_timing_row(cfg, launches, max_err, probs_bf16=False):
     mode = "_probs_bf16" if pb else ""
     return {
         "name": "flash_attention" + mode, "route": "cuda",
-        "source": "tts_king_torch/csrc/flash_attention.cu",
+        "source": ("tts_king_torch/csrc/attention_round.cuh" if pb else
+                   "tts_king_torch/csrc/flash_attention.cu"),
         "replaces": "tts_king_tpu/ops/pallas/attention.py:102",
         "launches": launches["flash_fwd" + mode], "launches_fwd":
         launches["flash_fwd" + mode], "launches_bwd":
@@ -3403,7 +3413,8 @@ def _mode_errs(got, ref):
 def phase_probs_bf16_vs_plain():
     """The kernels' bf16-probability mode (attention_probs_bf16) against
     the plain versions: the inference kernel at ATTN_CHECKS (f32), the
-    flash kernels forward and backward at FLASH_CHECKS (against
+    flash kernels forward and backward at FLASH_CHECKS, both also at
+    PROBS_EXTRA_CHECKS (against
     flash_attention_plain and autograd), within PROBS_TOL's max and mean;
     the control, the unrounded function against the mode's plain version,
     must miss the mean bound, so the check tells the two apart. Returns
@@ -3414,7 +3425,7 @@ def phase_probs_bf16_vs_plain():
     from tts_king_torch.ops.kernels import flash_attention as fa
 
     worst = {"attention": [0.0, 0.0], "flash_attention": [0.0, 0.0]}
-    for B, H, T, D, kind in ATTN_CHECKS:
+    for B, H, T, D, kind in ATTN_CHECKS + PROBS_EXTRA_CHECKS["attention"]:
         (q, k, v), mask = attention_inputs(B, H, T, D, torch.float32, seed=T,
                                            kind=kind)
         got = attn.attention(q, k, v, mask, probs_bf16=True)
@@ -3435,7 +3446,7 @@ def phase_probs_bf16_vs_plain():
                  f" control {control}")
         worst["attention"] = [max(a, b) for a, b in
                               zip(worst["attention"], err)]
-    for B, H, T, D, kind in FLASH_CHECKS:
+    for B, H, T, D, kind in FLASH_CHECKS + PROBS_EXTRA_CHECKS["flash"]:
         (q, k, v), mask, g = flash_inputs(B, H, T, D, seed=T, kind=kind)
         out = fa.flash_attention(q, k, v, mask, probs_bf16=True)
         got = (out,) + torch.autograd.grad(out, (q, k, v), g)
@@ -3475,12 +3486,12 @@ def attention_probs_timing_row(cfg, launches, errs, mel_lens):
     run's mel lengths: the f32 AcousticModel's batched call with the flag)
     and at speak's decoder call (B=1, T=256, 192 valid keys), held against
     attention_probs_bf16_plain on these inputs first, beside the plain
-    version, the unrounded kernel (one sweep) and SDPA's f32 time (no
-    PyTorch call rounds the normalized probabilities: library_ms None).
-    The bound counts the function's products as row 1f does (4 D
-    operations per query row and valid key), so the second sweep shows as
-    a gap: q k^T at 3 TF32 passes, round(P) V at 2 (round(P) is exact in
-    TF32, its low split 0, and the kernel skips that pass)."""
+    version, the unrounded kernel and SDPA's f32 time (no PyTorch call
+    rounds the normalized probabilities: library_ms None). The bound
+    counts the function's products as row 1f does (4 D operations per
+    query row and valid key): q k^T at 3 TF32 passes, round(P) V at 2
+    (round(P) is exact in TF32, its low split 0, and the kernel skips that
+    pass); the kernel's S round trip through its scratch is not counted."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3505,7 +3516,7 @@ def attention_probs_timing_row(cfg, launches, errs, mel_lens):
                  f"errors {err}")
         ms = cuda_ms(lambda: attn.attention(q, k, v, mask, probs_bf16=True),
                      warmup=3, reps=20)
-        one_sweep_ms = cuda_ms(lambda: attn.attention(q, k, v, mask),
+        unrounded_ms = cuda_ms(lambda: attn.attention(q, k, v, mask),
                                warmup=3, reps=20)
         plain_ms = cuda_ms(lambda: attn.attention_plain(q, k, v, mask, True),
                            warmup=3, reps=20)
@@ -3517,14 +3528,14 @@ def attention_probs_timing_row(cfg, launches, errs, mel_lens):
         t_ops, t_bytes = passes / PEAK_TF32_OPS, nbytes / PEAK_BYTES
         out[where] = {
             "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            "sdpa_f32_ms": sdpa_ms, "unrounded_kernel_ms": one_sweep_ms,
+            "sdpa_f32_ms": sdpa_ms, "unrounded_kernel_ms": unrounded_ms,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "max_abs_err": err[0], "mean_abs_err": err[1],
             "shape": [B, H, T, D], "valid_keys": int(n_keys)}
         del q, k, v
     return {"name": "attention_probs_bf16", "route": "cuda",
-            "source": "tts_king_torch/csrc/attention.cu",
+            "source": "tts_king_torch/csrc/attention_round.cuh",
             "replaces": "tts_king_tpu/ops/pallas/attention.py:29",
             "launches": launches["speak"] + launches["batched"],
             "launches_by_path": launches, "dtype": "f32",

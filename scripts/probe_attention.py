@@ -5,7 +5,8 @@ main paths' shapes, optionally against other versions of the sources.
 
     python3 scripts/probe_attention.py [--attention OTHER.cu]
                                        [--flash OTHER.cu] [--checks-only]
-                                       [--phases]
+                                       [--phases] [--mode-only]
+                                       [--parent-mode DIR]
 
 Builds the repo's sources and prints nvcc's register and spill report for
 each kernel, holds both kernels against their plain versions at
@@ -17,8 +18,17 @@ versions at the same checks, and timed in turns with the repo's (repo,
 other, other, repo) at those shapes, with each kernel's device time from
 torch.profiler. ``--phases`` also builds the sources with
 ``-DTK_PROFILE_PHASES`` and prints each kernel's warp-cycles by phase (tile
-wait, the products, the softmax or dS, the barrier). One JSON line per
-result.
+wait, the products, the softmax or dS, the barrier; for the bf16-probability
+mode's kernels, attention_round.cuh, ROUND_PHASES). The mode's cases (rows
+1p and 3p: the f32 batched call, the training decoder call's forward and
+backward) run with the rest; ``--mode-only`` runs only those, with the
+mode's checks. ``--parent-mode DIR`` builds DIR's attention.cu and
+flash_attention.cu (a checkout from before the mode had entry points of
+its own: the mode selected by an int probs_bf16 on tk_attention,
+tk_flash_fwd and tk_flash_bwd, the two-sweep kernels) and times its
+kernels, the mode's and (without --mode-only) the unrounded ones, in turns
+with the repo's at those shapes. OTHER.cu must have the repo's interface.
+One JSON line per result.
 """
 
 import argparse
@@ -32,15 +42,107 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[0] = REPO
 
 
-def build(name, src, out, extra=()):
+def build_all(jobs):
+    """{key: (bind, name, src, out, extra nvcc flags)} compiled together,
+    one nvcc a source; returns {key: bind(name, out)}."""
     from tts_king_torch.ops.kernels import _build
 
-    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, *extra,
-                           "-o", out, src], capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    return _build.bind(name, out)
+    procs = {key: (subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                                     *extra, "-o", out, src],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True),
+                   bind, name, src, out)
+             for key, (bind, name, src, out, extra) in jobs.items()}
+    libs = {}
+    for key, (proc, bind, name, src, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+        libs[key] = bind(name, out)
+    return libs
+
+
+# The entry points of a source from before the mode's own ones: the mode is
+# an int after is_bf16 (tk_attention) or after lse / dv.
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+PARENT_SIGNATURES = {
+    "tk_attention": [_P] * 5 + [_I] * 6 + [_LL] * 6 + [ctypes.c_float, _P],
+    "tk_flash_fwd": [_P] * 6 + [_I] * 5 + [_LL] * 6 + [ctypes.c_float, _P],
+    "tk_flash_bwd": [_P] * 11 + [_I] * 5 + [_LL] * 6 + [ctypes.c_float, _P]}
+
+
+def bind_parent(name, out):
+    """A library built from DIR's source, bound with PARENT_SIGNATURES."""
+    lib = ctypes.CDLL(out)
+    for name, argtypes in PARENT_SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = argtypes
+    lib.tk_error_string.restype = ctypes.c_char_p
+    lib.tk_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def parent_calls(libs, args):
+    """The parent's kernels through its entry points: {case: callable} for
+    args = {case: ("attention", (q, k, v, mask, probs)) or ("flash", (q, k,
+    v, mask, g, probs, backward))}, each call allocating its outputs as the
+    wrappers do (a flash backward reads the parent forward's O and lse)."""
+    import math
+
+    import torch
+
+    from tts_king_torch.ops.kernels import _build
+    from tts_king_torch.ops.kernels import flash_attention as fa
+
+    def out_like(x):
+        B, H, T, D = x.shape
+        return torch.empty((B, T, H, D), dtype=x.dtype,
+                           device=x.device).transpose(1, 2)
+
+    def attention(q, k, v, mask, probs):
+        B, H, T, D = q.shape
+        lib = libs["attention"]
+
+        def call():
+            o = out_like(q)
+            _build.check(lib, lib.tk_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                o.data_ptr(), int(q.dtype == torch.bfloat16), probs, B, H, T,
+                D, *q.stride()[:3], *o.stride()[:3], 1.0 / math.sqrt(D),
+                _build.current_stream(q.device)), "parent")
+        return call
+
+    def flash(q, k, v, mask, g, probs, backward):
+        B, H, T, D = q.shape
+        lib = libs["flash_attention"]
+        o = out_like(q)
+        lse = torch.empty((B, H, T), device=q.device)
+        shape = (B, H, T, D, *q.stride()[:3], *o.stride()[:3],
+                 1.0 / math.sqrt(D))
+
+        def fwd():
+            _build.check(lib, lib.tk_flash_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                o.data_ptr(), lse.data_ptr(), probs, *shape,
+                _build.current_stream(q.device)), "parent")
+        if not backward:
+            return fwd
+        fwd()
+        gl = fa._out_like(q).copy_(g)
+
+        def bwd():
+            dq, dk, dv = out_like(q), out_like(q), out_like(q)
+            delta = torch.empty((B, H, T), device=q.device)
+            _build.check(lib, lib.tk_flash_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                o.data_ptr(), gl.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), probs, *shape,
+                _build.current_stream(q.device)), "parent")
+        return bwd
+
+    return {case: (attention if kind == "attention" else flash)(*a)
+            for case, (kind, a) in args.items()}
 
 
 def sdpa_f32_operator():
@@ -62,7 +164,8 @@ def sdpa_f32_operator():
 
 def ptxas(log):
     return [ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln or "Compiling" in ln]
+            if "registers" in ln or "spill" in ln or "Compiling" in ln
+            or "Performance" in ln or "warning" in ln]
 
 
 def main(argv=None):
@@ -73,6 +176,12 @@ def main(argv=None):
     ap.add_argument("--phases", action="store_true",
                     help="also build with -DTK_PROFILE_PHASES and print "
                          "each kernel's cycles by phase")
+    ap.add_argument("--parent-mode", metavar="DIR",
+                    help="time DIR's bf16-probability mode (the int "
+                         "probs_bf16 interface) in turns with the repo's")
+    ap.add_argument("--mode-only", action="store_true",
+                    help="only the bf16-probability mode: its checks, "
+                         "rows 1p and 3p's cases and their phases")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
 
@@ -101,16 +210,31 @@ def main(argv=None):
     libs = {n: {"repo": _build.load(n)} for n in names}
     out_dir = os.path.join(REPO, "build", "probe_attention")
     os.makedirs(out_dir, exist_ok=True)
+    jobs = {}   # every other build at once
     for name, other in zip(names, (args.attention, args.flash)):
         if other:
-            libs[name]["other"] = build(
-                name, other, os.path.join(out_dir, f"other_{name}.so"))
+            jobs[name, "other"] = (_build.bind, name, other, os.path.join(
+                out_dir, f"other_{name}.so"), ())
+        if args.parent_mode:
+            jobs[name, "parent"] = (bind_parent, name, os.path.join(
+                args.parent_mode, _build.SOURCES[name]), os.path.join(
+                out_dir, f"parent_{name}.so"), ())
+        if args.phases:
+            jobs[name, "phases"] = (_build.bind, name, os.path.join(
+                _build.CSRC_DIR, _build.SOURCES[name]), os.path.join(
+                out_dir, f"phases_{name}.so"), ("-DTK_PROFILE_PHASES",))
+    built = build_all(jobs)
+    for name in names:
+        if (name, "other") in built:
+            libs[name]["other"] = built[name, "other"]
 
     def use(name, which):
         _build._libs[name] = libs[name][which]
 
-    errs = {"attention": cs.phase_attention_vs_plain(),
-            "flash_attention": cs.phase_flash_vs_plain()}
+    errs = {"probs_bf16": cs.phase_probs_bf16_vs_plain()}
+    if not args.mode_only:
+        errs.update(attention=cs.phase_attention_vs_plain(),
+                    flash_attention=cs.phase_flash_vs_plain())
     print(json.dumps({"source": "repo", "max_abs_err": errs}), flush=True)
     if args.checks_only:
         return 0
@@ -128,16 +252,19 @@ def main(argv=None):
     H, D = tc.decoder_head, tc.decoder_hidden // tc.decoder_head
     # the batched decoder call's mel lengths: 516-540 frames (PERF.md)
     mel_lens = np.random.RandomState(0).randint(516, 541, size=cs.BENCH_B)
-    none = {"attention": 0, "flash_fwd": 0, "flash_bwd": 0}
-    print(json.dumps({"row": cs.attention_timing_row(
-        cfg, none, errs["attention"], mel_lens)}), flush=True)
-    print(json.dumps({"row": cs.flash_timing_row(
-        cfg, none, errs["flash_attention"])}), flush=True)
+    none = dict.fromkeys(cs.launch_counts(), 0)
+    if not args.mode_only:
+        print(json.dumps({"row": cs.attention_timing_row(
+            cfg, none, errs["attention"], mel_lens)}), flush=True)
+        print(json.dumps({"row": cs.flash_timing_row(
+            cfg, none, errs["flash_attention"])}), flush=True)
 
     cases = {}
+    parent_args = {}   # the same cases through a parent's entry points
     for dname, dtype, B, T, lens in (
             ("bf16", torch.bfloat16, cs.BENCH_B, cs.BENCH_T, mel_lens),
-            ("f32", torch.float32, 1, cs.SPEAK_T, [cs.SPEAK_LEN])):
+            ("f32", torch.float32, 1, cs.SPEAK_T, [cs.SPEAK_LEN]),
+    )[:0 if args.mode_only else 2]:
         (q, k, v), _ = cs.attention_inputs(B, H, T, D, dtype, seed=7)
         mask = torch.from_numpy(np.arange(T)[None] >=
                                 np.asarray(lens)[:, None]).cuda()
@@ -146,20 +273,47 @@ def main(argv=None):
         cases[f"attention {dname} {[B, H, T, D]}"] = (
             "attention", lambda q=q, k=k, v=v, m=mask: attn.attention(
                 q, k, v, m))
+        parent_args[f"attention {dname} {[B, H, T, D]}"] = (
+            "attention", (q, k, v, mask, 0))
         cases[f"sdpa {dname} {[B, H, T, D]}"] = (
             None, lambda q=q, k=k, v=v, m=additive:
             F.scaled_dot_product_attention(q, k, v, attn_mask=m))
+    # row 1p: the bf16-probability mode at the batched call's shape, f32
+    (q1, k1, v1), _ = cs.attention_inputs(cs.BENCH_B, H, cs.BENCH_T, D,
+                                          torch.float32, seed=7)
+    mask1 = torch.from_numpy(np.arange(cs.BENCH_T)[None] >=
+                             np.asarray(mel_lens)[:, None]).cuda()
+    case = f"attention probs_bf16 f32 {[cs.BENCH_B, H, cs.BENCH_T, D]}"
+    cases[case] = ("attention", lambda: attn.attention(q1, k1, v1, mask1,
+                                                       probs_bf16=True))
+    parent_args[case] = ("attention", (q1, k1, v1, mask1, 1))
     B, T = cs.TRAIN_B, cs.TRAIN_T
     lens = cs.bench_train_superbatch()["mel_lens"][0]
     (q, k, v), mask, g = cs.flash_inputs(B, H, T, D, seed=11, lens=lens)
     qd, kd, vd = q.detach(), k.detach(), v.detach()
-    o, lse = fa._forward_cuda(qd, kd, vd, mask)
+    saved = fa._forward_cuda(qd, kd, vd, mask)
     g = fa._out_like(qd).copy_(g)
-    cases[f"flash fwd {[B, H, T, D]}"] = (
-        "flash_attention", lambda: fa._forward_cuda(qd, kd, vd, mask))
-    cases[f"flash bwd {[B, H, T, D]}"] = (
+    if not args.mode_only:
+        cases[f"flash fwd {[B, H, T, D]}"] = (
+            "flash_attention", lambda: fa._forward_cuda(qd, kd, vd, mask))
+        cases[f"flash bwd {[B, H, T, D]}"] = (
+            "flash_attention",
+            lambda: fa._backward_cuda(qd, kd, vd, mask, *saved, g))
+        for bwd in (False, True):
+            parent_args[f"flash {'bwd' if bwd else 'fwd'} {[B, H, T, D]}"] = (
+                "flash", (qd, kd, vd, mask, g, 0, bwd))
+    # row 3p: the mode's forward and backward at the same call
+    saved_p = fa._forward_cuda(qd, kd, vd, mask, True)
+    cases[f"flash fwd probs_bf16 {[B, H, T, D]}"] = (
         "flash_attention",
-        lambda: fa._backward_cuda(qd, kd, vd, mask, o, lse, g))
+        lambda: fa._forward_cuda(qd, kd, vd, mask, True))
+    cases[f"flash bwd probs_bf16 {[B, H, T, D]}"] = (
+        "flash_attention",
+        lambda: fa._backward_cuda(qd, kd, vd, mask, *saved_p, g))
+    for bwd in (False, True):
+        parent_args[f"flash {'bwd' if bwd else 'fwd'} probs_bf16 "
+                    f"{[B, H, T, D]}"] = ("flash", (qd, kd, vd, mask, g, 1,
+                                                    bwd))
     for case, (name, fn) in cases.items():
         alts = [w for w in libs[name] if w != "repo"] if name else []
         order = ["repo", *alts, *alts[::-1], "repo"] if alts else ["repo"]
@@ -175,14 +329,25 @@ def main(argv=None):
         print(json.dumps({"case": case, "ms": ms, "device_ms": device}),
               flush=True)
 
+    if args.parent_mode:
+        parent = parent_calls({n: built[n, "parent"] for n in names},
+                              parent_args)
+        for case, pfn in parent.items():
+            ms, device = {}, {}
+            for which in ("repo", "parent", "parent", "repo"):
+                fn = cases[case][1] if which == "repo" else pfn
+                ms.setdefault(which, []).append(
+                    cs.cuda_ms(fn, warmup=3, reps=args.reps))
+                device.setdefault(which, device_ms(fn, args.reps))
+            print(json.dumps({"case": case + " vs parent", "ms": ms,
+                              "device_ms": device}), flush=True)
+
     if args.phases:
         for name in names:
-            src = os.path.join(_build.CSRC_DIR, _build.SOURCES[name])
-            lib = build(name, src, os.path.join(out_dir, f"phases_{name}.so"),
-                        ["-DTK_PROFILE_PHASES"])
+            lib = built[name, "phases"]
             lib.tk_attn_phase_cycles.argtypes = [ctypes.c_void_p]
             libs[name]["phases"] = lib
-        counts = (ctypes.c_ulonglong * 16)()
+        counts = (ctypes.c_ulonglong * 32)()
         for case, (name, fn) in cases.items():
             if not name:
                 continue
@@ -195,20 +360,36 @@ def main(argv=None):
             torch.cuda.synchronize()
             _build.check(lib, lib.tk_attn_phase_cycles(counts), "phases")
             use(name, "repo")
-            for part, lo in (("", 0), (" dK/dV", 8)):
+            names_ = ROUND_PHASES if "probs_bf16" in case else PHASES
+            for part, lo in (("", 0), (" dK/dV", 8), (" producer", 16),
+                             (" dK/dV producer", 24)):
                 c = list(counts)[lo:lo + 8]
                 if sum(c):
                     print(json.dumps({
                         "case": case + part, "warp_gcycles": sum(c) / 1e9,
-                        "share": {p: x / sum(c) for p, x in zip(PHASES, c)
-                                  if x}}), flush=True)
+                        "share": {p: x / sum(c) for p, x in zip(
+                            names_[lo:lo + 8], c) if x}}), flush=True)
     return 0
 
 
 # The phase marks of TK_PROFILE_PHASES (csrc/attention_mma.cuh); the dK/dV
 # kernel's take slots 8-15.
 PHASES = ["prologue", "wait_tile", "products_1", "softmax_or_ds",
-          "products_2", "sync", "epilogue", "all_padded_exit"]
+          "products_2", "sync", "epilogue", "all_padded_exit"] * 2
+# attention_round.cuh's marks: the consumers of the forward and dQ (slots
+# 0-7) and of dK/dV (8-15), the producer warpgroups of the forward and dQ
+# (16-23) and of dK/dV (24-31). "issue" is the wgmma issue, "products" the
+# wait for them to finish, "under_products" the scratch reads and writes
+# between the two.
+ROUND_PHASES = ["prologue", "wait_planes", "issue", "products",
+                "pass1_softmax_or_delta", "pass2_probs_or_ds", "epilogue",
+                "under_products",
+                "prologue", "wait_planes", "fragments", "issue", "products",
+                "epilogue", "wait_stage", "all_padded_exit",
+                "prologue", "wait_raw", "wait_plane_empty", "split",
+                "sync_issue", "fence", "-", "-",
+                "prologue", "wait_raw", "wait_plane_empty", "split",
+                "sync_issue", "fence", "-", "-"]
 
 
 def device_ms(fn, reps):

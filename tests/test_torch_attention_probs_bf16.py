@@ -6,11 +6,14 @@ its XLA attention (tts_king_tpu/models/layers.py, MultiHeadAttention's last
 branch); ``jax.vjp`` of that formulation gives dV = round(P)^T dO, dP =
 round(dO v^T), Delta_i = sum_j P_ij dP_ij and dS = P * (dP - Delta).
 
-* Kernel arithmetic: a tile-by-tile emulation of what the kernels do in the
-  mode (the forward's two sweeps over the key tiles, the dQ kernel's Delta
-  sweep before its dS sweep, dK/dV over query tiles, all-padded key tiles
-  skipped, every product as emulated 3xTF32) against the plain versions and
-  JAX's XLA route, at D = 8, 16 and 32, suffix and edge masks.
+* Kernel arithmetic: a tile-by-tile emulation of what the kernels
+  (csrc/attention_round.cuh) do in the mode (the forward's two passes over
+  the key tiles, S kept in a scratch between them and P left there for the
+  backward; the dQ kernel's Delta pass, round(dP) kept in a second scratch,
+  before its dS pass; dK/dV over query tiles reading both; all-padded key
+  tiles skipped, every product as emulated 3xTF32) against the plain
+  versions and JAX's XLA route, at D = 8, 16 and 32, suffix and edge masks
+  (tests/test_torch_attention_round_hopper.py: H = 1 and 2, the scratch).
 * Modules: a JAX MultiHeadAttention, an FFTBlock and a tiny FastSpeech2
   with the flag, their weights carried across with the weight bridge: the
   forward on the XLA route, one train step against JAX's make_train_step,
@@ -114,78 +117,87 @@ def _scores(q, k, mask_row, scale):
     return s.masked_fill(mask_row[None, :], attn_mod.NEG_INF)
 
 
-def forward_two_sweeps(q, k, v, mask):
-    """attn_fwd_kernel<float, DP, true, ROUND=true>: per item, sweep 0 keeps
-    each row's running max m and sum l over the live key tiles (the online
-    softmax's rescaling), sweep 1 recomputes S and adds round(exp(S - m) *
-    (1 / l)) V. Returns (O, lse = m + log l)."""
+def _ld(T):
+    """The kernels' scratch row length (attention.probs_plan)."""
+    return attn_mod.probs_plan(1, 1, T, 4)["ld"]
+
+
+def forward_two_sweeps(q, k, v, mask, write_p=False):
+    """attention_round.cuh's round_fwd_kernel: per item, pass 1 over the
+    live key tiles computes S (3xTF32, scaled, padded keys at -1e9) into a
+    (B, H, T, ld) scratch and keeps each row's running max m and sum l (the
+    online softmax's rescaling); pass 2 reads S back and adds round(exp(S -
+    m) * (1 / l)) V, writing P (unrounded) over S with ``write_p``, as the
+    training forward does for the backward. The scratch starts as NaN: an
+    entry the kernel never writes (skipped tiles) shows if it is read.
+    Returns (O, lse = m + log l, the scratch)."""
     B, H, T, D = q.shape
     scale = 1.0 / math.sqrt(D)
     o = torch.zeros_like(q)
     lse = torch.zeros((B, H, T))
+    sp = torch.full((B, H, T, _ld(T)), float("nan"))
     for b in range(B):
         tiles = _live_tiles(mask[b].numpy(), KEYS)
         m = torch.full((H, T), -1e30)
         l = torch.zeros((H, T))
         for a, e in tiles:
             s = _scores(q[b], k[b, :, a:e], mask[b, a:e], scale)
+            sp[b, :, :, a:e] = s
             m_new = torch.maximum(m, s.max(-1).values)
             l = l * torch.exp(m - m_new) + torch.exp(
                 s - m_new[..., None]).sum(-1)
             m = m_new
         inv_l = 1.0 / l
         for a, e in tiles:
-            s = _scores(q[b], k[b, :, a:e], mask[b, a:e], scale)
-            p = attn_mod.round_bf16(torch.exp(s - m[..., None])
-                                    * inv_l[..., None])
-            o[b] += matmul_3xtf32(p, v[b, :, a:e])
+            pu = torch.exp(sp[b, :, :, a:e] - m[..., None]) * inv_l[..., None]
+            if write_p:
+                sp[b, :, :, a:e] = pu
+            # round(P) is exact in TF32: its low split is 0 (2 passes)
+            o[b] += matmul_3xtf32(attn_mod.round_bf16(pu), v[b, :, a:e])
         lse[b] = m + torch.log(l)
-    return o, lse
+    return o, lse, sp
 
 
-def backward_delta_sweep(q, k, v, mask, lse, do):
-    """The dQ kernel (sweep 0: Delta = sum_j P round(dP) over the live key
-    tiles; sweep 1: dQ += P (round(dP) - Delta) K) and the dK/dV kernel
-    (per block of 64 keys, zeros for an all-padded block of an item with a
-    valid key; over query tiles of 32: dV += round(P)^T dO, dK += dS^T Q),
-    P = exp(S - lse) recomputed, every product 3xTF32."""
+def backward_delta_sweep(q, k, v, mask, probs, do):
+    """round_dq_kernel (pass 1 over the live key tiles: dP = round(dO
+    v^T) into a NaN-filled (B, H, T, ld) scratch, Delta = sum_j P dP with P
+    read from the forward's ``probs``; pass 2: dQ += P (dP - Delta) K, both
+    read back) and round_dkdv_kernel (per block of 64 keys, zeros for an
+    all-padded block of an item with a valid key; over query tiles of 32:
+    P^T and dP^T read from the scratch, 0 at padded keys of an item with a
+    valid key, dV += round(P)^T dO, dK += dS^T Q), every product 3xTF32."""
     B, H, T, D = q.shape
     scale = 1.0 / math.sqrt(D)
     dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
+    dprobs = torch.full(probs.shape, float("nan"))
+    delta = torch.full((B, H, probs.shape[-1]), float("nan"))
     for b in range(B):
         mrow = mask[b]
         tiles = _live_tiles(mrow.numpy(), KEYS)
-
-        def p_dp(a, e, b=b, mrow=mrow):
-            s = _scores(q[b], k[b, :, a:e], mrow[a:e], scale)
-            p = torch.exp(s - lse[b][..., None])
+        d = torch.zeros((H, T, 1))
+        for a, e in tiles:
             dp = attn_mod.round_bf16(matmul_3xtf32(
                 do[b], v[b, :, a:e].transpose(-1, -2)))
-            return p, dp
-
-        delta = torch.zeros((H, T, 1))
+            dprobs[b, :, :, a:e] = dp
+            d += (probs[b, :, :, a:e] * dp).sum(-1, keepdim=True)
+        delta[b, :, :T] = d[..., 0]
         for a, e in tiles:
-            p, dp = p_dp(a, e)
-            delta += (p * dp).sum(-1, keepdim=True)
-        for a, e in tiles:
-            p, dp = p_dp(a, e)
-            dq[b] += matmul_3xtf32(p * (dp - delta), k[b, :, a:e])
+            ds = probs[b, :, :, a:e] * (dprobs[b, :, :, a:e] - d)
+            dq[b] += matmul_3xtf32(ds, k[b, :, a:e])
         dq[b] *= scale
         has_key = not bool(mrow.all())
         for k0 in range(0, T, ROWS):
             k1 = min(k0 + ROWS, T)
             if has_key and bool(mrow[k0:k1].all()):
                 continue   # written as zeros
+            zero = (mrow[k0:k1] & has_key)[None, :, None]
             for t0 in range(0, T, KEYS):
                 t1 = min(t0 + KEYS, T)
-                # S^T = K Q^T of the block's keys and the tile's queries
-                sT = (matmul_3xtf32(k[b, :, k0:k1],
-                                    q[b, :, t0:t1].transpose(-1, -2)) * scale
-                      ).masked_fill(mrow[k0:k1][:, None], attn_mod.NEG_INF)
-                pT = torch.exp(sT - lse[b, :, None, t0:t1])
-                dpT = attn_mod.round_bf16(matmul_3xtf32(
-                    v[b, :, k0:k1], do[b, :, t0:t1].transpose(-1, -2)))
-                dsT = pT * (dpT - delta[:, t0:t1, 0][:, None, :])
+                pT = torch.where(zero, 0.0, probs[b, :, t0:t1, k0:k1]
+                                 .transpose(-1, -2))
+                dpT = torch.where(zero, 0.0, dprobs[b, :, t0:t1, k0:k1]
+                                  .transpose(-1, -2))
+                dsT = pT * (dpT - delta[b, :, t0:t1][:, None, :])
                 dv[b, :, k0:k1] += matmul_3xtf32(attn_mod.round_bf16(pT),
                                                  do[b, :, t0:t1])
                 dk[b, :, k0:k1] += matmul_3xtf32(dsT, q[b, :, t0:t1])
@@ -199,11 +211,11 @@ def backward_delta_sweep(q, k, v, mask, lse, do):
 @pytest.mark.parametrize("kind", ["suffix", "edge"])
 @pytest.mark.parametrize("D", [8, 16, 32])
 def test_two_sweep_forward_matches_plain_and_jax(D, kind):
-    """The forward's two sweeps against attention_plain(probs_bf16=True),
+    """The forward's two passes against attention_plain(probs_bf16=True),
     flash_forward_plain(probs_bf16=True) and JAX's XLA route; the inference
     and the flash forward kernels compute the same O."""
     q, k, v, _, mask = inputs(5, 2, 150, D, kind, seed=D)
-    got, lse = forward_two_sweeps(*_t(q, k, v, mask))
+    got, lse, _ = forward_two_sweeps(*_t(q, k, v, mask))
     plain = attn_mod.attention_plain(*_t(q, k, v, mask), probs_bf16=True)
     fplain, flse = fa.flash_forward_plain(*_t(q, k, v, mask), probs_bf16=True)
     ref = jax_xla(q, k, v, mask)
@@ -225,8 +237,8 @@ def test_delta_sweep_backward_matches_plain_and_jax(D, kind):
     formulation and jax.vjp of the XLA route; padded keys get exactly 0."""
     q, k, v, do, mask = inputs(5, 2, 150, D, kind, seed=20 + D)
     tq, tk, tv, tdo, tmask = _t(q, k, v, do, mask)
-    o, lse = forward_two_sweeps(tq, tk, tv, tmask)
-    got = backward_delta_sweep(tq, tk, tv, tmask, lse, tdo)
+    o, lse, probs = forward_two_sweeps(tq, tk, tv, tmask, write_p=True)
+    got = backward_delta_sweep(tq, tk, tv, tmask, probs, tdo)
     plain = fa.flash_backward_plain(tq, tk, tv, tmask, o, lse, tdo,
                                     probs_bf16=True)
     leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]

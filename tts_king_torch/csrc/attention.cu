@@ -29,10 +29,11 @@
 // Every query row in [0, T) is computed, padded ones included: they stay
 // finite, and the caller zeroes them.
 //
-// probs_bf16 (f32): the XLA route of the JAX package's MultiHeadAttention
-// (tts_king_tpu/models/layers.py, attention_probs_bf16) instead, which
-// scales S after the product and rounds the normalized probabilities to
-// bf16 before P.V: two sweeps over the key tiles (attention_mma.cuh, ROUND).
+// bf16-probability mode (f32; tk_attention_probs_bf16): the XLA route of
+// the JAX package's MultiHeadAttention (tts_king_tpu/models/layers.py,
+// attention_probs_bf16), which scales S after the product and rounds the
+// normalized probabilities to bf16 before P.V: attention_round.cuh's
+// forward, with S kept in a scratch buffer between its two passes.
 //
 // Layout: q, k, v are (B, H, T, D) views given by element strides (sb, sh,
 // st) with a unit stride over D, so the (B, T, H, D) output of a Linear can
@@ -40,27 +41,43 @@
 // output has its own strides. D is a multiple of 16 bytes (8 in bf16, 4 in
 // f32; D = 4 and 8 are the goldens' widths), at most 128.
 
-#include "attention_mma.cuh"
+#include "attention_round.cuh"
 
-// Returns a cudaError_t value: 0 on a successful launch. probs_bf16 (f32
-// only; ModelConfig.attention_probs_bf16): the JAX package's XLA attention,
-// S = (q k^T) * scale and O = round_bf16(P) V with P the normalized softmax,
-// by attn_fwd_kernel's two sweeps (ROUND).
+// Returns a cudaError_t value: 0 on a successful launch.
 extern "C" int tk_attention(const void* q, const void* k, const void* v,
-                            const uint8_t* mask, void* o, int is_bf16,
-                            int probs_bf16, int B, int H, int T_, int D,
-                            long long sb, long long sh, long long st,
-                            long long osb, long long osh, long long ost,
-                            float scale, void* stream) {
+                            const uint8_t* mask, void* o, int is_bf16, int B,
+                            int H, int T_, int D, long long sb, long long sh,
+                            long long st, long long osb, long long osh,
+                            long long ost, float scale, void* stream) {
   using namespace tk_attn;
-  if (bad_shape(B, H, T_, D, is_bf16 ? 2 : 4) || (is_bf16 && probs_bf16))
+  if (bad_shape(B, H, T_, D, is_bf16 ? 2 : 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto launch = is_bf16      ? launch_fwd<__nv_bfloat16, false>
-                : probs_bf16 ? launch_fwd<float, true, true>
-                             : launch_fwd<float, false>;
-  return (int)launch(q, k, v, mask, o, nullptr, B, H, T_, D, sb, sh, st, osb,
-                     osh, ost, scale, s);
+  cudaError_t err =
+      is_bf16 ? launch_fwd<__nv_bfloat16, false>(q, k, v, mask, o, nullptr, B,
+                                                 H, T_, D, sb, sh, st, osb,
+                                                 osh, ost, scale, s)
+              : launch_fwd<float, false>(q, k, v, mask, o, nullptr, B, H, T_,
+                                         D, sb, sh, st, osb, osh, ost, scale,
+                                         s);
+  return (int)err;
+}
+
+// The bf16-probability mode (f32; ModelConfig.attention_probs_bf16): S =
+// (q k^T) * scale, O = round_bf16(P) V with P the normalized softmax.
+// scratch is (B, H, T, ld) f32 with ld = T rounded up to 64.
+extern "C" int tk_attention_probs_bf16(const float* q, const float* k,
+                                       const float* v, const uint8_t* mask,
+                                       float* o, float* scratch, int B, int H,
+                                       int T_, int D, long long sb,
+                                       long long sh, long long st,
+                                       long long osb, long long osh,
+                                       long long ost, long long ld,
+                                       float scale, void* stream) {
+  using namespace tk_attn;
+  return (int)launch_round_fwd(q, k, v, mask, o, nullptr, scratch, 0, B, H,
+                               T_, D, sb, sh, st, osb, osh, ost, ld, scale,
+                               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* tk_error_string(int err) {

@@ -1,8 +1,7 @@
 // The tensor-core tile engine shared by attention.cu (inference) and
 // flash_attention.cu (training): PTX wrappers for cp.async, ldmatrix and
 // mma.sync, the 3xTF32 split, the tile loaders and the FlashAttention-2
-// style forward kernel, with its two-sweep mode that rounds the normalized
-// probabilities to bf16 (ROUND; ModelConfig.attention_probs_bf16).
+// style forward kernel.
 //
 // Products. bf16 operands go through one mma.sync.m16n8k16 (bf16 x bf16,
 // f32 accumulate). f32 operands go through 3xTF32 on mma.sync.m16n8k8.tf32:
@@ -79,10 +78,12 @@ inline bool bad_shape(int B, int H, int T_, int D, int elem_bytes) {
 // Phase marks, for scripts/probe_attention.py --phases (built with
 // -DTK_PROFILE_PHASES): each thread adds the cycles since its previous mark
 // to the phase that the mark closes; lane 0 of each warp adds its totals to
-// g_phase_cycles when the kernel ends. Without the flag they compile away.
+// g_phase_cycles when the kernel ends (slots 16-31: attention_round.cuh's
+// producer warpgroups). Without the flag they compile away.
+constexpr int kPhaseSlots = 32;
 #ifdef TK_PROFILE_PHASES
-__device__ unsigned long long g_phase_cycles[16];
-#define TK_PHASES long long tk_prev = clock64(), tk_ph[16] = {};
+__device__ unsigned long long g_phase_cycles[kPhaseSlots];
+#define TK_PHASES long long tk_prev = clock64(), tk_ph[kPhaseSlots] = {};
 #define TK_MARK(i)                        \
   do {                                    \
     const long long tk_now = clock64();   \
@@ -92,7 +93,7 @@ __device__ unsigned long long g_phase_cycles[16];
 #define TK_PHASES_END()                                                   \
   do {                                                                    \
     if (threadIdx.x % 32 == 0)                                            \
-      for (int tk_i = 0; tk_i < 16; ++tk_i)                                \
+      for (int tk_i = 0; tk_i < kPhaseSlots; ++tk_i)                      \
         atomicAdd(&g_phase_cycles[tk_i], (unsigned long long)tk_ph[tk_i]); \
   } while (0)
 #else
@@ -363,7 +364,7 @@ template <typename T> __device__ __forceinline__ int b_off(int lane, int LD) {
   return ((lane % 8) + (lane / 16) * 8) * LD + ((lane / 8) % 2) * Op<T>::kVec;
 }
 
-// x rounded to bf16, to nearest even, as an f32 value.
+// x rounded to bf16, to nearest even, as an f32 value (attention_round.cuh).
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -424,16 +425,7 @@ template <typename T> constexpr int fwd_min_blocks() {
 // lse = m + log l per row). Padded keys score -1e9, keys past T take no part.
 // Probabilities enter P.V in T (bf16: the unnormalized p rounded; f32:
 // exact), the row sums l in f32 unrounded.
-//
-// ROUND (f32 with FLASH's scores only; ModelConfig.attention_probs_bf16 on
-// the JAX package's XLA route): O = round_bf16(P) V with P the normalized
-// f32 softmax. An online softmax knows P only once it has the row's final
-// max m and sum l, so the block sweeps its key tiles twice: the first sweep
-// computes S and keeps m and l, the second computes S again, P = exp(S -
-// m) / l, rounds it to bf16 and adds P V (3xTF32; a bf16 P is exact in
-// TF32, so its low split is 0 and that product is left out). lse is written
-// where lse is not null.
-template <typename T, int DP, bool FLASH, bool ROUND = false>
+template <typename T, int DP, bool FLASH>
 __global__ void __launch_bounds__(kThreads, fwd_min_blocks<T>())
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const uint8_t* __restrict__ mask,
@@ -441,7 +433,6 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 int D, long long sb, long long sh, long long st, long long osb,
                 long long osh, long long ost, float scale) {
   constexpr bool kBf16 = sizeof(T) == 2;
-  static_assert(!ROUND || (FLASH && !kBf16), "ROUND: f32, FLASH's scores");
   constexpr int LD = ld<T, DP>();
   constexpr int kK = Op<T>::kK;
   constexpr int kNT = kKeys / 8;   // 8-key column tiles of S
@@ -506,214 +497,175 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   TK_MARK(0);
-  // ROUND: sweep 0 finds each row's m and l, sweep 1 adds round(P) V;
-  // otherwise one sweep with the online softmax
-  const int j_first = j;
-  float inv_l[2] = {1.f, 1.f};
-  for (int sweep = ROUND ? 0 : 1; sweep < 2; ++sweep) {
-    if (ROUND && sweep == 1) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
-        l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
-        inv_l[r] = 1.f / l_i[r];
-      }
-      // the ring restarts at the first tile (every stage is free after the
-      // sweep's last barrier)
-      cp_async_wait<0>();
-      __syncthreads();
-      j = j_first;
-      load_kv(j, 0);
-      cp_async_commit();
-    }
-    const bool stats_only = ROUND && sweep == 0;
-    for (int stage = 0; j < n_tiles; stage ^= 1) {
-      const int jn = next_tile(j, skip, live, n_tiles);
-      if (jn < n_tiles) load_kv(jn, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();   // tile j has arrived
-      __syncthreads();
-      TK_MARK(1);
-      const T* Ks = KV + 2 * stage * kKeys * LD;
-      const T* Vs = Ks + kKeys * LD;
-      const int k0 = j * kKeys;
+  for (int stage = 0; j < n_tiles; stage ^= 1) {
+    const int jn = next_tile(j, skip, live, n_tiles);
+    if (jn < n_tiles) load_kv(jn, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // tile j has arrived
+    __syncthreads();
+    TK_MARK(1);
+    const T* Ks = KV + 2 * stage * kKeys * LD;
+    const T* Vs = Ks + kKeys * LD;
+    const int k0 = j * kKeys;
 
-      // S = Q K^T over the tile's keys
-      float s[kNT][4];
+    // S = Q K^T over the tile's keys
+    float s[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / kK; ++kk) {
+      if constexpr (kBf16) {
+        uint32_t bf[kNT / 2][4];   // all loads first, then the products
+#pragma unroll
+        for (int p = 0; p < kNT / 2; ++p)
+          ldsm_x4(bf[p], Ks + p * 16 * LD + b_off<T>(lane, LD) + kk * kK);
+#pragma unroll
+        for (int p = 0; p < kNT / 2; ++p) {
+          mma_bf16(s[2 * p], qf[kk], bf[p][0], bf[p][1]);
+          mma_bf16(s[2 * p + 1], qf[kk], bf[p][2], bf[p][3]);
+        }
+      } else {
+        uint32_t af[4];
+        ldsm_x4(af, Qw + a_off<T>(lane, LD) + kk * kK);
+        const float qs = FLASH ? 1.f : sc;   // inference: q * scale in f32
+        // (no FMA contraction: the split sees q * scale rounded to f32)
+        const FragA a = split_a(__fmul_rn(__uint_as_float(af[0]), qs),
+                                __fmul_rn(__uint_as_float(af[1]), qs),
+                                __fmul_rn(__uint_as_float(af[2]), qs),
+                                __fmul_rn(__uint_as_float(af[3]), qs));
+        FragB bk[kNT];
+#pragma unroll
+        for (int p = 0; p < kNT / 2; ++p)
+          ldsm_b2(bk[2 * p], bk[2 * p + 1],
+                  reinterpret_cast<const float*>(Ks) + p * 16 * LD +
+                      b_off<T>(lane, LD) + kk * kK);
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+          for (int n = 0; n < kNT; ++n) mma_pass(pass, s[n], a, bk[n]);
+      }
+    }
+
+    TK_MARK(2);
+    // mask, online softmax (rows g and g + 8 of the warp's 16)
+    float mx[2] = {neg_inf(), neg_inf()};
+    if (mixed[j]) {
 #pragma unroll
       for (int n = 0; n < kNT; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+        for (int c = 0; c < 2; ++c) {
+          const int key = k0 + n * 8 + 2 * t4 + c;
+          const bool out = key >= T_, padded = !out && ms[key];
 #pragma unroll
-      for (int kk = 0; kk < DP / kK; ++kk) {
-        if constexpr (kBf16) {
-          uint32_t bf[kNT / 2][4];   // all loads first, then the products
-#pragma unroll
-          for (int p = 0; p < kNT / 2; ++p)
-            ldsm_x4(bf[p], Ks + p * 16 * LD + b_off<T>(lane, LD) + kk * kK);
-#pragma unroll
-          for (int p = 0; p < kNT / 2; ++p) {
-            mma_bf16(s[2 * p], qf[kk], bf[p][0], bf[p][1]);
-            mma_bf16(s[2 * p + 1], qf[kk], bf[p][2], bf[p][3]);
+          for (int e = c; e < 4; e += 2) {
+            float x = s[n][e];
+            if (out) x = neg_inf();
+            else if (padded) x = kMasked;
+            else if (FLASH) x *= scale;
+            s[n][e] = x;
           }
-        } else {
-          uint32_t af[4];
-          ldsm_x4(af, Qw + a_off<T>(lane, LD) + kk * kK);
-          const float qs = FLASH ? 1.f : sc;   // inference: q * scale in f32
-          // (no FMA contraction: the split sees q * scale rounded to f32)
-          const FragA a = split_a(__fmul_rn(__uint_as_float(af[0]), qs),
-                                  __fmul_rn(__uint_as_float(af[1]), qs),
-                                  __fmul_rn(__uint_as_float(af[2]), qs),
-                                  __fmul_rn(__uint_as_float(af[3]), qs));
-          FragB bk[kNT];
+        }
+    } else if (FLASH) {
 #pragma unroll
-          for (int p = 0; p < kNT / 2; ++p)
-            ldsm_b2(bk[2 * p], bk[2 * p + 1],
-                    reinterpret_cast<const float*>(Ks) + p * 16 * LD +
-                        b_off<T>(lane, LD) + kk * kK);
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= scale;
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
+    float alpha[2], m_log2[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // finite: key k0 < T lies in this tile
+      const float m_new = fmaxf(m_i[r], mx[r]);
+      alpha[r] = ex2((m_i[r] - m_new) * kLog2e);
+      m_i[r] = m_new;
+      m_log2[r] = m_new * kLog2e;
+      l_i[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // bf16: one FFMA (p is rounded to bf16 next; the rounding of
+        // m_i * log2(e) moves p by < 2^-17 relative, and keeps a row with no
+        // valid key, m_i = -1e9, uniform); f32: (s - m) exactly
+        const float p = kBf16 ? ex2(fmaf(s[n][e], kLog2e, -m_log2[e / 2]))
+                              : ex2((s[n][e] - m_i[e / 2]) * kLog2e);
+        l_i[e / 2] += p;
+        s[n][e] = p;
+      }
+#pragma unroll
+    for (int n = 0; n < kDT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e / 2];
+
+    TK_MARK(3);
+    // O += P V
+    if constexpr (kBf16) {
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        const uint32_t pa[4] = {
+            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        // V^T operands by ldmatrix.trans: matrices (keys 0-7, 8-15) x
+        // (columns 0-7, 8-15) of a 16 x 16 block
+        const T* vrow = Vs + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD +
+                        (lane / 16) * 8;
+        constexpr int kPairs = DP / 16, kChunk = kPairs < 4 ? kPairs : 4;
+#pragma unroll
+        for (int p0 = 0; p0 < kPairs; p0 += kChunk) {
+          uint32_t bf[kChunk][4];   // all loads first, then the products
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c)
+            ldsm_x4_trans(bf[c], vrow + (p0 + c) * 16);
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c) {
+            mma_bf16(acc[2 * (p0 + c)], pa, bf[c][0], bf[c][1]);
+            mma_bf16(acc[2 * (p0 + c) + 1], pa, bf[c][2], bf[c][3]);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kNT; ++kk) {
+        // k = t is key 2t, k = t + 4 is key 2t + 1 of this 8-key step
+        const FragA a = split_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+        const float* v2 = reinterpret_cast<const float*>(Vs) +
+                          (kk * 8 + 2 * t4) * LD + g;
+        constexpr int kChunk = kDT < 8 ? kDT : 8;
+#pragma unroll
+        for (int n0 = 0; n0 < kDT; n0 += kChunk) {
+          FragB bv[kChunk];
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c) bv[c] = lds_b(v2 + (n0 + c) * 8, LD);
 #pragma unroll
           for (int pass = 0; pass < 3; ++pass)
 #pragma unroll
-            for (int n = 0; n < kNT; ++n) mma_pass(pass, s[n], a, bk[n]);
-        }
-      }
-
-      TK_MARK(2);
-      // mask, online softmax (rows g and g + 8 of the warp's 16)
-      if (mixed[j]) {
-#pragma unroll
-        for (int n = 0; n < kNT; ++n)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int key = k0 + n * 8 + 2 * t4 + c;
-            const bool out = key >= T_, padded = !out && ms[key];
-#pragma unroll
-            for (int e = c; e < 4; e += 2) {
-              float x = s[n][e];
-              if (out) x = neg_inf();
-              else if (padded) x = kMasked;
-              else if (FLASH) x *= scale;
-              s[n][e] = x;
-            }
-          }
-      } else if (FLASH) {
-#pragma unroll
-        for (int n = 0; n < kNT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] *= scale;
-      }
-      if (ROUND && !stats_only) {
-        // P = exp(S - m) / l over the final m and l, rounded to bf16
-#pragma unroll
-        for (int n = 0; n < kNT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[n][e] = round_bf16(ex2((s[n][e] - m_i[e / 2]) * kLog2e) *
-                                 inv_l[e / 2]);
-      } else {
-        float mx[2] = {neg_inf(), neg_inf()};
-#pragma unroll
-        for (int n = 0; n < kNT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
-        float alpha[2], m_log2[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-          // finite: key k0 < T lies in this tile
-          const float m_new = fmaxf(m_i[r], mx[r]);
-          alpha[r] = ex2((m_i[r] - m_new) * kLog2e);
-          m_i[r] = m_new;
-          m_log2[r] = m_new * kLog2e;
-          l_i[r] *= alpha[r];
-        }
-#pragma unroll
-        for (int n = 0; n < kNT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            // bf16: one FFMA (p is rounded to bf16 next; the rounding of
-            // m_i * log2(e) moves p by < 2^-17 relative, and keeps a row with no
-            // valid key, m_i = -1e9, uniform); f32: (s - m) exactly
-            const float p = kBf16 ? ex2(fmaf(s[n][e], kLog2e, -m_log2[e / 2]))
-                                  : ex2((s[n][e] - m_i[e / 2]) * kLog2e);
-            l_i[e / 2] += p;
-            s[n][e] = p;
-          }
-        if (!ROUND) {
-#pragma unroll
-          for (int n = 0; n < kDT; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e / 2];
-        }
-      }
-
-      TK_MARK(3);
-      // O += P V
-      if (stats_only) {
-        // sweep 0 of ROUND: no product
-      } else if constexpr (kBf16) {
-#pragma unroll
-        for (int kk = 0; kk < kKeys / 16; ++kk) {
-          const uint32_t pa[4] = {
-              pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-          // V^T operands by ldmatrix.trans: matrices (keys 0-7, 8-15) x
-          // (columns 0-7, 8-15) of a 16 x 16 block
-          const T* vrow = Vs + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD +
-                          (lane / 16) * 8;
-          constexpr int kPairs = DP / 16, kChunk = kPairs < 4 ? kPairs : 4;
-#pragma unroll
-          for (int p0 = 0; p0 < kPairs; p0 += kChunk) {
-            uint32_t bf[kChunk][4];   // all loads first, then the products
-#pragma unroll
             for (int c = 0; c < kChunk; ++c)
-              ldsm_x4_trans(bf[c], vrow + (p0 + c) * 16);
-#pragma unroll
-            for (int c = 0; c < kChunk; ++c) {
-              mma_bf16(acc[2 * (p0 + c)], pa, bf[c][0], bf[c][1]);
-              mma_bf16(acc[2 * (p0 + c) + 1], pa, bf[c][2], bf[c][3]);
-            }
-          }
-        }
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < kNT; ++kk) {
-          // k = t is key 2t, k = t + 4 is key 2t + 1 of this 8-key step
-          const FragA a = split_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
-          const float* v2 = reinterpret_cast<const float*>(Vs) +
-                            (kk * 8 + 2 * t4) * LD + g;
-          constexpr int kChunk = kDT < 8 ? kDT : 8;
-#pragma unroll
-          for (int n0 = 0; n0 < kDT; n0 += kChunk) {
-            FragB bv[kChunk];
-#pragma unroll
-            for (int c = 0; c < kChunk; ++c) bv[c] = lds_b(v2 + (n0 + c) * 8, LD);
-            // ROUND: P's low split is 0, so pass 0 (P.lo * V.hi) is skipped
-#pragma unroll
-            for (int pass = ROUND ? 1 : 0; pass < 3; ++pass)
-#pragma unroll
-              for (int c = 0; c < kChunk; ++c)
-                mma_pass(pass, acc[n0 + c], a, bv[c]);
-          }
+              mma_pass(pass, acc[n0 + c], a, bv[c]);
         }
       }
-      TK_MARK(4);
-      __syncthreads();   // the stage is free for the load two tiles on
-      TK_MARK(5);
-      j = jn;
     }
+    TK_MARK(4);
+    __syncthreads();   // the stage is free for the load two tiles on
+    TK_MARK(5);
+    j = jn;
   }
   cp_async_wait<0>();
 
-  if (!ROUND) {   // ROUND reduced l before its second sweep
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
-      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
-    }
+  for (int r = 0; r < 2; ++r) {
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
   }
   // O through shared memory (the ring is free after the loop's last
   // barrier), then out in 16-byte rows
@@ -721,13 +673,13 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = warp * 16 + g + 8 * r;
-    const float inv = ROUND ? 1.f : 1.f / l_i[r];   // ROUND: P normalized
+    const float inv = 1.f / l_i[r];
 #pragma unroll
     for (int n = 0; n < kDT; ++n)
       store2<T>(Os + row * LD + n * 8 + 2 * t4, acc[n][2 * r] * inv,
                 acc[n][2 * r + 1] * inv);
     const int t = q0 + row;
-    if (FLASH && lse != nullptr && t4 == 0 && t < T_)
+    if (FLASH && t4 == 0 && t < T_)
       lse[(long long)bh * T_ + t] = m_i[r] + logf(l_i[r]);
   }
   __syncthreads();
@@ -766,49 +718,64 @@ template <typename K> cudaError_t allow_max_smem(K kernel) {
   return err;
 }
 
-template <typename T, int DP, bool FLASH, bool ROUND>
+template <typename T, int DP, bool FLASH>
 cudaError_t launch_fwd_dp(const T* q, const T* k, const T* v,
                           const uint8_t* mask, T* o, float* lse, int B, int H,
                           int T_, int D, long long sb, long long sh,
                           long long st, long long osb, long long osh,
                           long long ost, float scale, cudaStream_t stream) {
   static const cudaError_t allowed =
-      allow_max_smem(attn_fwd_kernel<T, DP, FLASH, ROUND>);
+      allow_max_smem(attn_fwd_kernel<T, DP, FLASH>);
   if (allowed != cudaSuccess) return allowed;
   dim3 grid((T_ + kRows - 1) / kRows, B * H);
-  attn_fwd_kernel<T, DP, FLASH, ROUND><<<grid, kThreads,
-                                         fwd_smem<T, DP>(T_), stream>>>(
-      q, k, v, mask, o, lse, H, T_, D, sb, sh, st, osb, osh, ost, scale);
+  attn_fwd_kernel<T, DP, FLASH><<<grid, kThreads, fwd_smem<T, DP>(T_),
+                                  stream>>>(q, k, v, mask, o, lse, H, T_, D,
+                                            sb, sh, st, osb, osh, ost, scale);
   return cudaGetLastError();
 }
 
 // Launch attn_fwd_kernel at the DP that holds D.
-template <typename T, bool FLASH, bool ROUND = false>
+template <typename T, bool FLASH>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const uint8_t* mask, void* o, float* lse, int B, int H,
                        int T_, int D, long long sb, long long sh, long long st,
                        long long osb, long long osh, long long ost,
                        float scale, cudaStream_t stream) {
-  const int DP = padded_dim(D);
-  auto launch = DP == 16   ? launch_fwd_dp<T, 16, FLASH, ROUND>
-                : DP == 32 ? launch_fwd_dp<T, 32, FLASH, ROUND>
-                : DP == 64 ? launch_fwd_dp<T, 64, FLASH, ROUND>
-                           : launch_fwd_dp<T, 128, FLASH, ROUND>;
-  return launch(static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), mask, static_cast<T*>(o), lse, B, H,
-                T_, D, sb, sh, st, osb, osh, ost, scale, stream);
+  const T* q_ = static_cast<const T*>(q);
+  const T* k_ = static_cast<const T*>(k);
+  const T* v_ = static_cast<const T*>(v);
+  T* o_ = static_cast<T*>(o);
+  switch (padded_dim(D)) {
+    case 16:
+      return launch_fwd_dp<T, 16, FLASH>(q_, k_, v_, mask, o_, lse, B, H, T_,
+                                         D, sb, sh, st, osb, osh, ost, scale,
+                                         stream);
+    case 32:
+      return launch_fwd_dp<T, 32, FLASH>(q_, k_, v_, mask, o_, lse, B, H, T_,
+                                         D, sb, sh, st, osb, osh, ost, scale,
+                                         stream);
+    case 64:
+      return launch_fwd_dp<T, 64, FLASH>(q_, k_, v_, mask, o_, lse, B, H, T_,
+                                         D, sb, sh, st, osb, osh, ost, scale,
+                                         stream);
+    default:
+      return launch_fwd_dp<T, 128, FLASH>(q_, k_, v_, mask, o_, lse, B, H, T_,
+                                          D, sb, sh, st, osb, osh, ost, scale,
+                                          stream);
+  }
 }
 
 }  // namespace
 }  // namespace tk_attn
 
 #ifdef TK_PROFILE_PHASES
-// Copies the 16 phase counters to out (host memory) and zeroes them.
+// Copies the kPhaseSlots phase counters to out (host memory) and zeroes
+// them.
 extern "C" int tk_attn_phase_cycles(unsigned long long* out) {
   cudaError_t err =
       cudaMemcpyFromSymbol(out, tk_attn::g_phase_cycles, sizeof(tk_attn::g_phase_cycles));
   if (err != cudaSuccess) return (int)err;
-  const unsigned long long zero[16] = {};
+  const unsigned long long zero[tk_attn::kPhaseSlots] = {};
   return (int)cudaMemcpyToSymbol(tk_attn::g_phase_cycles, zero, sizeof(zero));
 }
 #endif

@@ -47,17 +47,10 @@
 // whose 64 keys are all padded writes zeros and returns, when the item has
 // a valid key; an item with no valid key runs every tile.
 //
-// bf16-probability mode (probs_bf16; ModelConfig.attention_probs_bf16, the
-// JAX package's XLA attention with its probabilities stored in bf16, whose
-// gradient jax.vjp gives): O = round(P) v with P the normalized softmax
-// (attn_fwd_kernel's ROUND: two sweeps over the key tiles), and
-//     dV = round(P)^T dO,  dP = round(dO v^T),  Delta_i = sum_j P_ij dP_ij,
-//     dS = P * (dP - Delta),  dQ = dS k * scale,  dK = dS^T q * scale,
-// round() rounding to bf16. Delta is no longer rowsum(dO * O), so the dQ
-// kernel sweeps its key tiles once for Delta (S and dP recomputed) before
-// its dS sweep, and writes Delta for dK/dV as before. A rounded P is exact
-// in TF32: the products with it skip the pass of its low split. A simple
-// two-sweep design; its second sweeps cost their products again.
+// bf16-probability mode (ModelConfig.attention_probs_bf16, the JAX
+// package's XLA attention with its normalized probabilities stored in bf16;
+// tk_flash_fwd_probs_bf16, tk_flash_bwd_probs_bf16): attention_round.cuh's
+// kernels, whose forward writes P for the backward.
 //
 // Layout: q, k, v are (B, H, T, D) views given by element strides (sb, sh,
 // st) with a unit stride over D, so the (B, T, H, D) output of a Linear is
@@ -65,7 +58,7 @@
 // (osb, osh, ost); lse and Delta are contiguous (B, H, T). Rows and (b, h)
 // bases start on 16 bytes; D is a multiple of 4, at most 128.
 
-#include "attention_mma.cuh"
+#include "attention_round.cuh"
 
 namespace tk_attn {
 namespace {
@@ -85,7 +78,7 @@ template <int DP> size_t dq_smem(int T_) {
   return dq_tile_bytes<DP>() + ((T_ + 15) / 16) * 16 + 2 * n_tiles;
 }
 
-template <int DP, bool ROUND>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
@@ -142,14 +135,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // Delta = rowsum(dO * O) while tile j loads: dO from shared memory, O
   // from device memory; a warp's 16 rows, lane l on columns 4l..4l+3, eight
-  // rows' loads in flight. Written out for dK/dV. ROUND: Delta comes from
-  // a sweep over the keys below; only the rows' lse here.
+  // rows' loads in flight. Written out for dK/dV.
   cp_async_wait<1>();   // Q and dO have arrived
   __syncthreads();
-  if constexpr (ROUND) {
-    for (int row = threadIdx.x; row < kRows; row += kThreads)
-      Ls[row] = q0 + row < T_ ? lse[(long long)bh * T_ + q0 + row] : 0.f;
-  } else {
+  {
     const int c = 4 * lane;
     const bool col_in = c < D;
 #pragma unroll
@@ -191,7 +180,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = warp * 16 + g + 8 * r;
     l_row[r] = Ls[row];
-    d_row[r] = ROUND ? 0.f : Dls[row];   // ROUND: after sweep 0
+    d_row[r] = Dls[row];
     row_in[r] = q0 + row < T_;
   }
   float acc[kDT][4];
@@ -201,119 +190,91 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   TK_MARK(0);
-  // ROUND: sweep 0 sums Delta_i = sum_j P_ij round(dP_ij) over the keys,
-  // sweep 1 adds dS K; otherwise one sweep
-  const int j_first = j;
-  float d_sum[2] = {0.f, 0.f};
-  for (int sweep = ROUND ? 0 : 1; sweep < 2; ++sweep) {
-    if (ROUND && sweep == 1) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        d_sum[r] += __shfl_xor_sync(0xffffffffu, d_sum[r], 1);
-        d_sum[r] += __shfl_xor_sync(0xffffffffu, d_sum[r], 2);
-        d_row[r] = d_sum[r];
-        const int t = q0 + warp * 16 + g + 8 * r;
-        if (t4 == 0 && t < T_) delta[(long long)bh * T_ + t] = d_row[r];
-      }
-      // the ring restarts at the first tile
-      cp_async_wait<0>();
-      __syncthreads();
-      j = j_first;
-      load_kv(j, 0);
-      cp_async_commit();
-    }
-    const bool delta_only = ROUND && sweep == 0;
-    for (int stage = 0; j < n_tiles; stage ^= 1) {
-      const int jn = next_tile(j, skip, live, n_tiles);
-      if (jn < n_tiles) load_kv(jn, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();   // Q, dO and tile j have arrived
-      __syncthreads();
-      TK_MARK(1);
-      const float* Ks = KV + 2 * stage * kBwdKeys * LD;
-      const float* Vs = Ks + kBwdKeys * LD;
-      const int k0 = j * kBwdKeys;
+  for (int stage = 0; j < n_tiles; stage ^= 1) {
+    const int jn = next_tile(j, skip, live, n_tiles);
+    if (jn < n_tiles) load_kv(jn, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // Q, dO and tile j have arrived
+    __syncthreads();
+    TK_MARK(1);
+    const float* Ks = KV + 2 * stage * kBwdKeys * LD;
+    const float* Vs = Ks + kBwdKeys * LD;
+    const int k0 = j * kBwdKeys;
 
-      // S = Q K^T and dP = dO V^T for the warp's 16 rows
-      float s[kNT][4], dp[kNT][4];
+    // S = Q K^T and dP = dO V^T for the warp's 16 rows
+    float s[kNT][4], dp[kNT][4];
 #pragma unroll
-      for (int n = 0; n < kNT; ++n)
+    for (int n = 0; n < kNT; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < DP / 8; ++kk) {
-        uint32_t af[4];
-        ldsm_x4(af, Qw + a_off<float>(lane, LD) + kk * 8);
-        const FragA aq = split_a(__uint_as_float(af[0]), __uint_as_float(af[1]),
-                                 __uint_as_float(af[2]), __uint_as_float(af[3]));
-        ldsm_x4(af, dOw + a_off<float>(lane, LD) + kk * 8);
-        const FragA ado = split_a(__uint_as_float(af[0]),
-                                  __uint_as_float(af[1]),
-                                  __uint_as_float(af[2]),
-                                  __uint_as_float(af[3]));
-        FragB bk[kNT], bv[kNT];
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      uint32_t af[4];
+      ldsm_x4(af, Qw + a_off<float>(lane, LD) + kk * 8);
+      const FragA aq = split_a(__uint_as_float(af[0]), __uint_as_float(af[1]),
+                               __uint_as_float(af[2]), __uint_as_float(af[3]));
+      ldsm_x4(af, dOw + a_off<float>(lane, LD) + kk * 8);
+      const FragA ado = split_a(__uint_as_float(af[0]),
+                                __uint_as_float(af[1]),
+                                __uint_as_float(af[2]),
+                                __uint_as_float(af[3]));
+      FragB bk[kNT], bv[kNT];
 #pragma unroll
-        for (int p = 0; p < kNT / 2; ++p) {
-          ldsm_b2(bk[2 * p], bk[2 * p + 1],
-                  Ks + p * 16 * LD + b_off<float>(lane, LD) + kk * 8);
-          ldsm_b2(bv[2 * p], bv[2 * p + 1],
-                  Vs + p * 16 * LD + b_off<float>(lane, LD) + kk * 8);
+      for (int p = 0; p < kNT / 2; ++p) {
+        ldsm_b2(bk[2 * p], bk[2 * p + 1],
+                Ks + p * 16 * LD + b_off<float>(lane, LD) + kk * 8);
+        ldsm_b2(bv[2 * p], bv[2 * p + 1],
+                Vs + p * 16 * LD + b_off<float>(lane, LD) + kk * 8);
+      }
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          mma_pass(pass, s[n], aq, bk[n]);
+          mma_pass(pass, dp[n], ado, bv[n]);
         }
+    }
+
+    TK_MARK(2);
+    // P from lse, dS = P (dP - Delta); rows or keys past T get 0
+    const bool masked = mixed[j];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + n * 8 + 2 * t4 + (e & 1);
+        const int r = e / 2;
+        float p = 0.f;
+        if (row_in[r] && (!masked || key < T_)) {
+          const float x = masked && ms[key] ? kMasked : s[n][e] * scale;
+          p = ex2((x - l_row[r]) * kLog2e);
+        }
+        s[n][e] = p * (dp[n][e] - d_row[r]);
+      }
+
+    TK_MARK(3);
+    // dQ += dS K, k = t standing for key 2t and k = t + 4 for key 2t + 1
+#pragma unroll
+    for (int kk = 0; kk < kNT; ++kk) {
+      const FragA a = split_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+      const float* k2 = Ks + (kk * 8 + 2 * t4) * LD + g;
+      constexpr int kChunk = kDT < 8 ? kDT : 8;
+#pragma unroll
+      for (int n0 = 0; n0 < kDT; n0 += kChunk) {
+        FragB bk[kChunk];
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) bk[c] = lds_b(k2 + (n0 + c) * 8, LD);
 #pragma unroll
         for (int pass = 0; pass < 3; ++pass)
 #pragma unroll
-          for (int n = 0; n < kNT; ++n) {
-            mma_pass(pass, s[n], aq, bk[n]);
-            mma_pass(pass, dp[n], ado, bv[n]);
-          }
+          for (int c = 0; c < kChunk; ++c)
+            mma_pass(pass, acc[n0 + c], a, bk[c]);
       }
-
-      TK_MARK(2);
-      // P from lse, dS = P (dP - Delta) (ROUND: round(dP)); rows or keys past
-      // T get 0
-      const bool masked = mixed[j];
-#pragma unroll
-      for (int n = 0; n < kNT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + n * 8 + 2 * t4 + (e & 1);
-          const int r = e / 2;
-          float p = 0.f;
-          if (row_in[r] && (!masked || key < T_)) {
-            const float x = masked && ms[key] ? kMasked : s[n][e] * scale;
-            p = ex2((x - l_row[r]) * kLog2e);
-          }
-          const float dpe = ROUND ? round_bf16(dp[n][e]) : dp[n][e];
-          if (delta_only) d_sum[r] += p * dpe;
-          else s[n][e] = p * (dpe - d_row[r]);
-        }
-
-      TK_MARK(3);
-      // dQ += dS K, k = t standing for key 2t and k = t + 4 for key 2t + 1
-      if (!delta_only) {
-#pragma unroll
-        for (int kk = 0; kk < kNT; ++kk) {
-          const FragA a = split_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
-          const float* k2 = Ks + (kk * 8 + 2 * t4) * LD + g;
-          constexpr int kChunk = kDT < 8 ? kDT : 8;
-#pragma unroll
-          for (int n0 = 0; n0 < kDT; n0 += kChunk) {
-            FragB bk[kChunk];
-#pragma unroll
-            for (int c = 0; c < kChunk; ++c) bk[c] = lds_b(k2 + (n0 + c) * 8, LD);
-#pragma unroll
-            for (int pass = 0; pass < 3; ++pass)
-#pragma unroll
-              for (int c = 0; c < kChunk; ++c)
-                mma_pass(pass, acc[n0 + c], a, bk[c]);
-          }
-        }
-      }
-      TK_MARK(4);
-      __syncthreads();   // the stage is free for the load two tiles on
-      TK_MARK(5);
-      j = jn;
     }
+    TK_MARK(4);
+    __syncthreads();   // the stage is free for the load two tiles on
+    TK_MARK(5);
+    j = jn;
   }
   cp_async_wait<0>();
 
@@ -340,7 +301,7 @@ template <int DP> __host__ __device__ constexpr size_t dkdv_smem() {
           4 * kBwdRows);
 }
 
-template <int DP, bool ROUND>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
@@ -465,8 +426,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
     }
 
     TK_MARK(10);
-    // P^T from lse, dS^T = P^T (dP^T - Delta); queries past T get 0.
-    // ROUND: round(P^T) into dV, round(dP^T) into dS^T
+    // P^T from lse, dS^T = P^T (dP^T - Delta); queries past T get 0
 #pragma unroll
     for (int n = 0; n < kNT; ++n)
 #pragma unroll
@@ -477,8 +437,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
           const float x = key_pad[e / 2] ? kMasked : s[n][e] * scale;
           p = ex2((x - Lq[qi]) * kLog2e);
         }
-        s[n][e] = ROUND ? round_bf16(p) : p;
-        dp[n][e] = p * ((ROUND ? round_bf16(dp[n][e]) : dp[n][e]) - Dq[qi]);
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - Dq[qi]);
       }
 
     TK_MARK(11);
@@ -503,8 +463,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
         for (int pass = 0; pass < 3; ++pass)
 #pragma unroll
           for (int c = 0; c < kChunk; ++c) {
-            // ROUND: P^T's low split is 0 (pass 0 is P.lo * dO.hi)
-            if (!ROUND || pass != 0) mma_pass(pass, dv_acc[n0 + c], ap, bd[c]);
+            mma_pass(pass, dv_acc[n0 + c], ap, bd[c]);
             mma_pass(pass, dk_acc[n0 + c], ads, bq[c]);
           }
       }
@@ -534,7 +493,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
   TK_PHASES_END();
 }
 
-template <int DP, bool ROUND>
+template <int DP>
 cudaError_t launch_bwd(const float* q, const float* k, const float* v,
                        const uint8_t* mask, const float* o, const float* dO,
                        const float* lse, float* delta, float* dq, float* dk,
@@ -543,20 +502,49 @@ cudaError_t launch_bwd(const float* q, const float* k, const float* v,
                        long long osh, long long ost, float scale,
                        cudaStream_t s) {
   static const cudaError_t allowed_dq =
-      allow_max_smem(flash_bwd_dq_kernel<DP, ROUND>);
+      allow_max_smem(flash_bwd_dq_kernel<DP>);
   static const cudaError_t allowed_dkdv =
-      allow_max_smem(flash_bwd_dkdv_kernel<DP, ROUND>);
+      allow_max_smem(flash_bwd_dkdv_kernel<DP>);
   if (allowed_dq != cudaSuccess) return allowed_dq;
   if (allowed_dkdv != cudaSuccess) return allowed_dkdv;
   dim3 grid((T_ + kRows - 1) / kRows, B * H);
-  flash_bwd_dq_kernel<DP, ROUND><<<grid, kThreads, dq_smem<DP>(T_), s>>>(
+  flash_bwd_dq_kernel<DP><<<grid, kThreads, dq_smem<DP>(T_), s>>>(
       q, k, v, mask, o, dO, lse, delta, dq, H, T_, D, sb, sh, st, osb, osh,
       ost, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<DP, ROUND><<<grid, kThreads, dkdv_smem<DP>(), s>>>(
+  flash_bwd_dkdv_kernel<DP><<<grid, kThreads, dkdv_smem<DP>(), s>>>(
       q, k, v, mask, dO, lse, delta, dk, dv, H, T_, D, sb, sh, st, osb, osh,
       ost, scale);
+  return cudaGetLastError();
+}
+
+// dQ (which also writes Delta and round(dP)), then dK/dV, of the mode.
+template <int DP>
+cudaError_t launch_round_bwd_dp(const float* q, const float* k,
+                                const float* v, const uint8_t* mask,
+                                const float* dO, const float* p,
+                                __nv_bfloat16* dp, float* delta, float* dq,
+                                float* dk, float* dv, int B, int H, int T_,
+                                int D, long long sb, long long sh,
+                                long long st, long long osb, long long osh,
+                                long long ost, long long ld, float scale,
+                                cudaStream_t s) {
+  static const cudaError_t allowed_dq = allow_max_smem(round_dq_kernel<DP>);
+  static const cudaError_t allowed_dkdv =
+      allow_max_smem(round_dkdv_kernel<DP>);
+  if (allowed_dq != cudaSuccess) return allowed_dq;
+  if (allowed_dkdv != cudaSuccess) return allowed_dkdv;
+  dim3 grid_dq((T_ + kFqRows - 1) / kFqRows, B * H);
+  round_dq_kernel<DP><<<grid_dq, kFqThreads, round_smem<DP>(T_), s>>>(
+      k, v, mask, dO, p, dp, delta, dq, H, T_, D, sb, sh, st, osb, osh, ost,
+      ld, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 grid_kv((T_ + kRows - 1) / kRows, B * H);
+  round_dkdv_kernel<DP><<<grid_kv, kKvThreads, round_dkdv_smem<DP>(), s>>>(
+      q, mask, dO, p, dp, delta, dk, dv, H, T_, D, sb, sh, st, osb, osh, ost,
+      ld, scale);
   return cudaGetLastError();
 }
 
@@ -564,46 +552,77 @@ cudaError_t launch_bwd(const float* q, const float* k, const float* v,
 }  // namespace tk_attn
 
 // Each entry point returns a cudaError_t value: 0 on a successful launch.
-// probs_bf16: the mode of ModelConfig.attention_probs_bf16 (the header
-// comment's ROUND formulas).
 
 extern "C" int tk_flash_fwd(const float* q, const float* k, const float* v,
-                            const uint8_t* mask, float* o, float* lse,
-                            int probs_bf16, int B, int H, int T_, int D,
-                            long long sb, long long sh, long long st,
-                            long long osb, long long osh, long long ost,
-                            float scale, void* stream) {
+                            const uint8_t* mask, float* o, float* lse, int B,
+                            int H, int T_, int D, long long sb, long long sh,
+                            long long st, long long osb, long long osh,
+                            long long ost, float scale, void* stream) {
   using namespace tk_attn;
   if (bad_shape(B, H, T_, D, 4)) return (int)cudaErrorInvalidValue;
-  auto launch = probs_bf16 ? launch_fwd<float, true, true>
-                           : launch_fwd<float, true, false>;
-  return (int)launch(q, k, v, mask, o, lse, B, H, T_, D, sb, sh, st, osb, osh,
-                     ost, scale, static_cast<cudaStream_t>(stream));
+  return (int)launch_fwd<float, true>(q, k, v, mask, o, lse, B, H, T_, D, sb,
+                                      sh, st, osb, osh, ost, scale,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 // delta is (B, H, T) scratch that the dQ kernel fills and dK/dV reads.
 extern "C" int tk_flash_bwd(const float* q, const float* k, const float* v,
                             const uint8_t* mask, const float* o,
                             const float* dO, const float* lse, float* delta,
-                            float* dq, float* dk, float* dv, int probs_bf16,
-                            int B, int H, int T_, int D, long long sb,
-                            long long sh, long long st, long long osb,
-                            long long osh, long long ost, float scale,
-                            void* stream) {
+                            float* dq, float* dk, float* dv, int B, int H,
+                            int T_, int D, long long sb, long long sh,
+                            long long st, long long osb, long long osh,
+                            long long ost, float scale, void* stream) {
   using namespace tk_attn;
   if (bad_shape(B, H, T_, D, 4)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int DP = padded_dim(D);
-  auto launch = probs_bf16 ? (DP == 16   ? launch_bwd<16, true>
-                              : DP == 32 ? launch_bwd<32, true>
-                              : DP == 64 ? launch_bwd<64, true>
-                                         : launch_bwd<128, true>)
-                           : (DP == 16   ? launch_bwd<16, false>
-                              : DP == 32 ? launch_bwd<32, false>
-                              : DP == 64 ? launch_bwd<64, false>
-                                         : launch_bwd<128, false>);
+  auto launch = DP == 16   ? launch_bwd<16>
+                : DP == 32 ? launch_bwd<32>
+                : DP == 64 ? launch_bwd<64>
+                           : launch_bwd<128>;
   return (int)launch(q, k, v, mask, o, dO, lse, delta, dq, dk, dv, B, H, T_,
                      D, sb, sh, st, osb, osh, ost, scale, s);
+}
+
+// The bf16-probability mode. p is (B, H, T, ld) f32 scratch (ld = T
+// rounded up to 64): the forward leaves P in it for the backward.
+extern "C" int tk_flash_fwd_probs_bf16(const float* q, const float* k,
+                                       const float* v, const uint8_t* mask,
+                                       float* o, float* lse, float* p, int B,
+                                       int H, int T_, int D, long long sb,
+                                       long long sh, long long st,
+                                       long long osb, long long osh,
+                                       long long ost, long long ld,
+                                       float scale, void* stream) {
+  using namespace tk_attn;
+  return (int)launch_round_fwd(q, k, v, mask, o, lse, p, 1, B, H, T_, D, sb,
+                               sh, st, osb, osh, ost, ld, scale,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// p as the forward left it; dp (B, H, T, ld) bf16 and delta (B, H, ld) f32
+// are scratch that the dQ kernel fills and dK/dV reads.
+extern "C" int tk_flash_bwd_probs_bf16(const float* q, const float* k,
+                                       const float* v, const uint8_t* mask,
+                                       const float* dO, const float* p,
+                                       void* dp, float* delta, float* dq,
+                                       float* dk, float* dv, int B, int H,
+                                       int T_, int D, long long sb,
+                                       long long sh, long long st,
+                                       long long osb, long long osh,
+                                       long long ost, long long ld,
+                                       float scale, void* stream) {
+  using namespace tk_attn;
+  if (bad_round_shape(B, H, T_, D, ld)) return (int)cudaErrorInvalidValue;
+  const int DP = round_dim(D);
+  auto launch = DP == 32   ? launch_round_bwd_dp<32>
+                : DP == 64 ? launch_round_bwd_dp<64>
+                           : launch_round_bwd_dp<128>;
+  return (int)launch(q, k, v, mask, dO, p,
+                     static_cast<__nv_bfloat16*>(dp), delta, dq, dk, dv, B, H,
+                     T_, D, sb, sh, st, osb, osh, ost, ld, scale,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* tk_error_string(int err) {

@@ -36,13 +36,19 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # c_void_p (a plain int would be cut to 32 bits).
 SIGNATURES = {
     "attention": {
-        "tk_attention": (_I, [_P] * 5 + [_I] * 6 + [_LL] * 6
-                         + [ctypes.c_float, _P])},
-    "flash_attention": {
-        "tk_flash_fwd": (_I, [_P] * 6 + [_I] * 5 + [_LL] * 6
+        "tk_attention": (_I, [_P] * 5 + [_I] * 5 + [_LL] * 6
                          + [ctypes.c_float, _P]),
-        "tk_flash_bwd": (_I, [_P] * 11 + [_I] * 5 + [_LL] * 6
-                         + [ctypes.c_float, _P])},
+        "tk_attention_probs_bf16": (_I, [_P] * 6 + [_I] * 4 + [_LL] * 7
+                                    + [ctypes.c_float, _P])},
+    "flash_attention": {
+        "tk_flash_fwd": (_I, [_P] * 6 + [_I] * 4 + [_LL] * 6
+                         + [ctypes.c_float, _P]),
+        "tk_flash_bwd": (_I, [_P] * 11 + [_I] * 4 + [_LL] * 6
+                         + [ctypes.c_float, _P]),
+        "tk_flash_fwd_probs_bf16": (_I, [_P] * 7 + [_I] * 4 + [_LL] * 7
+                                    + [ctypes.c_float, _P]),
+        "tk_flash_bwd_probs_bf16": (_I, [_P] * 11 + [_I] * 4 + [_LL] * 7
+                                    + [ctypes.c_float, _P])},
     "mrf_stage": {
         "tk_mrf_stage": (_I, [_P] * 4 + [_I] * 8 + [_P, _I, _P] + [_LL] * 6
                          + [_P]),

@@ -14,9 +14,11 @@ layers.py, MultiHeadAttention's last branch) instead:
     O = round_bf16(softmax((q k^T) * scale, padded keys at -1e9)) v
 
 with S scaled after the product, the normalized f32 softmax rounded to bf16
-and P.V accumulated in f32. The kernel sweeps the key tiles twice (the
-first for each row's max and sum). On bf16 inputs the flag changes nothing:
-the JAX cast is a no-op there and the bf16 kernel runs as before.
+and P.V accumulated in f32. The kernel (``csrc/attention_round.cuh``) keeps
+S in a scratch buffer between its two passes (the first for each row's max
+and sum, the second for round(P) V); ``probs_plan`` sizes that buffer. On
+bf16 inputs the flag changes nothing: the JAX cast is a no-op there and the
+bf16 kernel runs as before.
 """
 
 import math
@@ -26,6 +28,15 @@ import torch
 from tts_king_torch.ops.kernels import _build
 
 NEG_INF = -1e9
+# The bf16-probability mode's kernels (csrc/attention_round.cuh): rows of a
+# streamed tile, dK/dV's block of keys, the forward's and dQ's ring slots
+# (raw tiles, plane buffers), dK/dV's, and the shared memory a block of an
+# H100 may take.
+ROUND_TILE = 32
+ROUND_KEY_BLOCK = 64
+ROUND_FQ_SLOTS = (4, 3)
+ROUND_KV_SLOTS = 2
+SMEM_LIMIT = 232448
 launches = 0
 launches_bf16 = 0
 launches_probs_bf16 = 0
@@ -64,6 +75,40 @@ def attention_plain(q, k, v, key_pad_mask, probs_bf16=False):
     s = s.masked_fill(key_pad_mask[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def probs_plan(B, H, T, D):
+    """The bf16-probability mode's kernels at (B, H, T, D), f32: the head
+    dim they are built for (``dp``: D padded to 32, 64 or 128), the
+    scratch's row length (``ld``: T rounded up to 64), the shapes of the
+    scratch the wrappers allocate (``probs``: S, then P, f32; ``dprobs``:
+    round(dP), bf16; ``delta``: f32) and the dynamic shared memory of the
+    forward and dQ kernels (``smem``, growing with T: the key mask) and of
+    dK/dV (``smem_dkdv``), as attention_round.cuh's round_smem and
+    round_dkdv_smem compute them. One kernel takes every T whose mask fits
+    in shared memory (T up to ~77,000 at D = 128); raises ValueError for
+    a shape no kernel takes."""
+    if D < 1 or D > 128 or D % 4:
+        raise ValueError(f"probs_bf16: head dim {D} (a multiple of 4, at "
+                         "most 128)")
+    if T < 1 or B < 1 or H < 1:
+        raise ValueError(f"probs_bf16: empty shape {(B, H, T, D)}")
+    dp = 32 if D <= 32 else 64 if D <= 64 else 128
+    ld = -(-T // ROUND_KEY_BLOCK) * ROUND_KEY_BLOCK
+    plane = ROUND_TILE * dp * 4
+    raw = ROUND_TILE * (dp + 4) * 4
+    raw_slots, plane_slots = ROUND_FQ_SLOTS
+    smem = (1024 + plane_slots * 2 * plane + raw_slots * raw
+            + 16 * (raw_slots + plane_slots) + -(-T // 16) * 16
+            + 2 * -(-T // ROUND_TILE))
+    stage = ROUND_TILE * (72 * 4 + 72 * 2 + 4)
+    smem_dkdv = 1024 + ROUND_KV_SLOTS * (4 * plane + 2 * raw + stage + 32)
+    if max(smem, smem_dkdv) > SMEM_LIMIT:
+        raise ValueError(f"probs_bf16: T = {T} needs {smem} bytes of shared "
+                         f"memory a block, more than {SMEM_LIMIT}")
+    return {"dp": dp, "ld": ld, "probs": (B, H, T, ld),
+            "dprobs": (B, H, T, ld), "delta": (B, H, ld), "smem": smem,
+            "smem_dkdv": smem_dkdv}
 
 
 def check_aligned(what, *tensors):
@@ -117,15 +162,26 @@ def attention(q, k, v, key_pad_mask, probs_bf16=False):
                       device=q.device).transpose(1, 2)
     osb, osh, ost, _ = out.stride()
     mask = key_pad_mask.contiguous()   # the kernel reads bool's 0/1 bytes
+    scale = 1.0 / math.sqrt(D)
+    stream = _build.current_stream(q.device)
 
     # The kernel runs on the current stream after this returns; the caching
-    # allocator hands a freed temporary (mask) only to work queued after it.
+    # allocator hands a freed temporary (mask, scratch) only to work queued
+    # after it.
     lib = _build.load("attention")
-    err = lib.tk_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), int(q.dtype == torch.bfloat16), int(probs_bf16), B,
-        H, T, D, sb, sh, st, osb, osh, ost, 1.0 / math.sqrt(D),
-        _build.current_stream(q.device))
+    if probs_bf16:
+        plan = probs_plan(B, H, T, D)
+        scratch = torch.empty(plan["probs"], dtype=torch.float32,
+                              device=q.device)
+        err = lib.tk_attention_probs_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), B, H, T, D, sb, sh, st, osb,
+            osh, ost, plan["ld"], scale, stream)
+    else:
+        err = lib.tk_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), int(q.dtype == torch.bfloat16), B, H, T, D, sb,
+            sh, st, osb, osh, ost, scale, stream)
     _build.check(lib, err, "attention")
     _build.count_launch(globals())
     if q.dtype == torch.bfloat16:

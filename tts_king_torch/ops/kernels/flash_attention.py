@@ -15,7 +15,8 @@ come out finite (the caller zeroes them); there is no query-side mask.
 go through ``FlashAttention``, a ``torch.autograd.Function`` whose forward
 launches the forward kernel and saves O and the f32 log-sum-exp of each row,
 and whose backward launches the dQ and dK/dV kernels, which recompute the
-probabilities from q, k and the log-sum-exp. Anything else raises. On CUDA
+probabilities from q, k and the log-sum-exp (in the bf16-probability mode,
+below, read them from the forward's). Anything else raises. On CUDA
 only float32 is taken (the training step is f32); bfloat16 raises
 ``TypeError``. The Function also runs on CPU tensors, float32 or float64,
 through ``flash_forward_plain`` / ``flash_backward_plain``, the same
@@ -34,9 +35,15 @@ gives it, P the normalized f32 softmax and round() rounding to bf16:
     dV = round(P)^T dO,  dP = round(dO v^T),  Delta_i = sum_j P_ij dP_ij,
     dS = P * (dP - Delta),  dQ = dS k * scale,  dK = dS^T q * scale.
 
-Delta is not rowsum(dO * O) there, so the dQ kernel sweeps the keys once
-for Delta before its dS sweep; the forward sweeps them twice (the first for
-each row's max and sum).
+The mode's kernels (``csrc/attention_round.cuh``) compute no product twice:
+the forward keeps S in a (B, H, T, ld) f32 buffer between its two passes
+(the first for each row's max and sum) and leaves P there, which the
+Function saves for the backward instead of recomputing S; Delta is not
+rowsum(dO * O) there, so the dQ kernel's first pass computes dP, sums Delta
+and writes round(dP) (bf16) to a second buffer, which its second pass and
+dK/dV read. ``attention.probs_plan`` sizes the buffers: at the bench
+step's decoder call (B=16, H=2, T=640) P takes 52.4 MB from the forward to
+the backward, round(dP) 26.2 MB during it.
 
 A row whose keys are all padded is not reproduced exactly by the backward
 (its log-sum-exp, -1e9 + log T, rounds to -1e9 in f32); training never has
@@ -49,7 +56,8 @@ import torch
 
 from tts_king_torch.ops.kernels import _build
 from tts_king_torch.ops.kernels.attention import (attention_probs_bf16_plain,
-                                                  check_aligned, round_bf16)
+                                                  check_aligned, probs_plan,
+                                                  round_bf16)
 
 NEG_INF = -1e9
 launches_fwd = 0
@@ -136,38 +144,64 @@ def _out_like(q):
 
 
 def _forward_cuda(q, k, v, mask, probs_bf16=False):
+    """The forward kernel: (O, lse, P), P the mode's (B, H, T, ld)
+    probabilities for the backward (None without the mode)."""
     B, H, T, D = q.shape
     o = _out_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention")
-    err = lib.tk_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), int(probs_bf16), B, H, T, D,
-        *q.stride()[:3], *o.stride()[:3], 1.0 / math.sqrt(D),
-        _build.current_stream(q.device))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            o.data_ptr(), lse.data_ptr())
+    shape = (B, H, T, D, *q.stride()[:3], *o.stride()[:3])
+    stream = _build.current_stream(q.device)
+    probs = None
+    if probs_bf16:
+        plan = probs_plan(B, H, T, D)
+        probs = torch.empty(plan["probs"], dtype=torch.float32,
+                            device=q.device)
+        err = lib.tk_flash_fwd_probs_bf16(*args, probs.data_ptr(), *shape,
+                                          plan["ld"], 1.0 / math.sqrt(D),
+                                          stream)
+    else:
+        err = lib.tk_flash_fwd(*args, *shape, 1.0 / math.sqrt(D), stream)
     _build.check(lib, err, "flash_attention forward")
     _build.count_launch(globals(), "launches_fwd")
     if probs_bf16:
         _build.count_launch(globals(), "launches_fwd_probs_bf16")
-    return o, lse
+    return o, lse, probs
 
 
-def _backward_cuda(q, k, v, mask, o, lse, do, probs_bf16=False):
+def _backward_cuda(q, k, v, mask, o, lse, probs, do):
+    """The backward kernels: (dQ, dK, dV); the mode's (probs, as the
+    forward left it, not None) reads P instead of recomputing it."""
     B, H, T, D = q.shape
     if do.stride() != o.stride() or do.data_ptr() % 16:
         do = _out_like(q).copy_(do)   # autograd's gradient, in O's layout
     dq, dk, dv = _out_like(q), _out_like(q), _out_like(q)
-    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention")
-    err = lib.tk_flash_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), int(probs_bf16), B, H,
-        T, D, *q.stride()[:3], *o.stride()[:3], 1.0 / math.sqrt(D),
-        _build.current_stream(q.device))
+    shape = (B, H, T, D, *q.stride()[:3], *o.stride()[:3])
+    grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    stream = _build.current_stream(q.device)
+    if probs is not None:
+        plan = probs_plan(B, H, T, D)
+        dprobs = torch.empty(plan["dprobs"], dtype=torch.bfloat16,
+                             device=q.device)
+        delta = torch.empty(plan["delta"], dtype=torch.float32,
+                            device=q.device)
+        err = lib.tk_flash_bwd_probs_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            do.data_ptr(), probs.data_ptr(), dprobs.data_ptr(),
+            delta.data_ptr(), *grads, *shape, plan["ld"],
+            1.0 / math.sqrt(D), stream)
+    else:
+        delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+        err = lib.tk_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *grads, *shape, 1.0 / math.sqrt(D), stream)
     _build.check(lib, err, "flash_attention backward")
     _build.count_launch(globals(), "launches_bwd")
-    if probs_bf16:
+    if probs is not None:
         _build.count_launch(globals(), "launches_bwd_probs_bf16")
     return dq, dk, dv
 
@@ -187,19 +221,19 @@ class FlashAttention(torch.autograd.Function):
                 q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             check_aligned("flash_attention", q, k, v)
             mask = key_pad_mask.contiguous()   # read as 0/1 bytes
-            o, lse = _forward_cuda(q, k, v, mask, ctx.probs_bf16)
+            o, lse, probs = _forward_cuda(q, k, v, mask, ctx.probs_bf16)
         else:
             mask = key_pad_mask
             o, lse = flash_forward_plain(q, k, v, mask, ctx.probs_bf16)
-        ctx.save_for_backward(q, k, v, mask, o, lse)
+            probs = None
+        ctx.save_for_backward(q, k, v, mask, o, lse, probs)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, mask, o, lse = ctx.saved_tensors
+        q, k, v, mask, o, lse, probs = ctx.saved_tensors
         if q.device.type == "cuda":
-            dq, dk, dv = _backward_cuda(q, k, v, mask, o, lse, do,
-                                        ctx.probs_bf16)
+            dq, dk, dv = _backward_cuda(q, k, v, mask, o, lse, probs, do)
         else:
             dq, dk, dv = flash_backward_plain(q, k, v, mask, o, lse, do,
                                               ctx.probs_bf16)
