@@ -3298,12 +3298,16 @@ def flash_timing_row(cfg, launches, max_err, probs_bf16=False):
     and each output written once, K and V read at the valid keys only.
 
     probs_bf16: row 3p, the kernels' bf16-probability mode
-    (csrc/attention_round.cuh), held at PROBS_TOL. Its bound counts the
-    function's products as row 3 does (the backward as if it recomputed S
-    and dP; the kernels read P back from the forward instead), but the two
-    products with round(P), forward round(P) V and dV = round(P)^T dO, at 2
-    TF32 passes: round(P) is exact in TF32, its low split 0 (the kernels
-    skip that pass). No PyTorch call rounds the normalized probabilities, so
+    (csrc/attention_round.cuh), held at PROBS_TOL. The products with
+    round(P), forward round(P) V and dV = round(P)^T dO, count 2 TF32
+    passes: round(P) is exact in TF32, its low split 0 (the kernels skip
+    that pass). The function's autodiff (jax.vjp of the XLA route) keeps P
+    from the forward, so its bound is the lesser of two ways to compute it:
+    P kept (the backward's units dP 3, dS K 3, dV 2, dK 3; P written by the
+    forward and read by the backward, 4 bytes each way per query row and
+    valid key, among the bytes) or recomputed (S 3 and dP 3 more, no P
+    bytes; bound_recompute_ms); fwd_bound_ms and bwd_bound_ms are the
+    lesser way's. No PyTorch call rounds the normalized probabilities, so
     library_ms is None and SDPA's f32 time stands beside it as
     sdpa_f32_ms."""
     import numpy as np
@@ -3367,11 +3371,22 @@ def flash_timing_row(cfg, launches, max_err, probs_bf16=False):
     # k and v read at the valid keys, lse read, the mask
     bytes_f = 4.0 * (2 * elems + kv + B * H * T) + B * T
     bytes_b = 4.0 * (6 * elems + kv + B * H * T) + B * T
+
+    def bound(ops, nbytes, peak=PEAK_TF32_OPS):
+        return max(ops / peak, nbytes / PEAK_BYTES) * 1e3
+
+    recompute_ms = bound(passes_f + passes_b, bytes_f + bytes_b)
+    if pb:
+        # P kept: the backward's dP, dS K, dV, dK (11 units), P's f32
+        # written by the forward and read by the backward
+        p_bytes = 4.0 * H * T * n_keys
+        keep_b = (3 * 6 + 2 * 2) * pairs
+        keep_ms = bound(passes_f + keep_b, bytes_f + bytes_b + 2 * p_bytes)
+        if keep_ms < recompute_ms:
+            passes_b, bytes_f, bytes_b = (keep_b, bytes_f + p_bytes,
+                                          bytes_b + p_bytes)
     t_ops = (passes_f + passes_b) / PEAK_TF32_OPS
     t_bytes = (bytes_f + bytes_b) / PEAK_BYTES
-
-    def bound(ops, nbytes, peak):
-        return max(ops / peak, nbytes / PEAK_BYTES) * 1e3
 
     mode = "_probs_bf16" if pb else ""
     return {
@@ -3387,8 +3402,9 @@ def flash_timing_row(cfg, launches, max_err, probs_bf16=False):
         "ms": fwd_ms + bwd_ms,
         "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "fwd_bound_ms": bound(passes_f, bytes_f, PEAK_TF32_OPS),
-        "bwd_bound_ms": bound(passes_b, bytes_b, PEAK_TF32_OPS),
+        **({"bound_recompute_ms": recompute_ms} if pb else {}),
+        "fwd_bound_ms": bound(passes_f, bytes_f),
+        "bwd_bound_ms": bound(passes_b, bytes_b),
         "bound_f32_ffma_ms": bound(ops_f + ops_b, bytes_f + bytes_b,
                                    PEAK_F32_OPS),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",

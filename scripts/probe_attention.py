@@ -6,7 +6,6 @@ main paths' shapes, optionally against other versions of the sources.
     python3 scripts/probe_attention.py [--attention OTHER.cu]
                                        [--flash OTHER.cu] [--checks-only]
                                        [--phases] [--mode-only]
-                                       [--parent-mode DIR]
 
 Builds the repo's sources and prints nvcc's register and spill report for
 each kernel, holds both kernels against their plain versions at
@@ -16,18 +15,14 @@ speak's f32 call and at the training decoder call). An OTHER.cu (from a
 parent checkout, say) is built beside the repo's, held against the plain
 versions at the same checks, and timed in turns with the repo's (repo,
 other, other, repo) at those shapes, with each kernel's device time from
-torch.profiler. ``--phases`` also builds the sources with
-``-DTK_PROFILE_PHASES`` and prints each kernel's warp-cycles by phase (tile
+torch.profiler. ``--phases`` also builds the sources (and each OTHER.cu)
+with ``-DTK_PROFILE_PHASES`` and prints each kernel's warp-cycles by phase,
+each line naming its source (tile
 wait, the products, the softmax or dS, the barrier; for the bf16-probability
 mode's kernels, attention_round.cuh, ROUND_PHASES). The mode's cases (rows
 1p and 3p: the f32 batched call, the training decoder call's forward and
 backward) run with the rest; ``--mode-only`` runs only those, with the
-mode's checks. ``--parent-mode DIR`` builds DIR's attention.cu and
-flash_attention.cu (a checkout from before the mode had entry points of
-its own: the mode selected by an int probs_bf16 on tk_attention,
-tk_flash_fwd and tk_flash_bwd, the two-sweep kernels) and times its
-kernels, the mode's and (without --mode-only) the unrounded ones, in turns
-with the repo's at those shapes. OTHER.cu must have the repo's interface.
+mode's checks. OTHER.cu must have the repo's interface.
 One JSON line per result.
 """
 
@@ -62,89 +57,6 @@ def build_all(jobs):
     return libs
 
 
-# The entry points of a source from before the mode's own ones: the mode is
-# an int after is_bf16 (tk_attention) or after lse / dv.
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-PARENT_SIGNATURES = {
-    "tk_attention": [_P] * 5 + [_I] * 6 + [_LL] * 6 + [ctypes.c_float, _P],
-    "tk_flash_fwd": [_P] * 6 + [_I] * 5 + [_LL] * 6 + [ctypes.c_float, _P],
-    "tk_flash_bwd": [_P] * 11 + [_I] * 5 + [_LL] * 6 + [ctypes.c_float, _P]}
-
-
-def bind_parent(name, out):
-    """A library built from DIR's source, bound with PARENT_SIGNATURES."""
-    lib = ctypes.CDLL(out)
-    for name, argtypes in PARENT_SIGNATURES.items():
-        if hasattr(lib, name):
-            getattr(lib, name).restype = ctypes.c_int
-            getattr(lib, name).argtypes = argtypes
-    lib.tk_error_string.restype = ctypes.c_char_p
-    lib.tk_error_string.argtypes = [ctypes.c_int]
-    return lib
-
-
-def parent_calls(libs, args):
-    """The parent's kernels through its entry points: {case: callable} for
-    args = {case: ("attention", (q, k, v, mask, probs)) or ("flash", (q, k,
-    v, mask, g, probs, backward))}, each call allocating its outputs as the
-    wrappers do (a flash backward reads the parent forward's O and lse)."""
-    import math
-
-    import torch
-
-    from tts_king_torch.ops.kernels import _build
-    from tts_king_torch.ops.kernels import flash_attention as fa
-
-    def out_like(x):
-        B, H, T, D = x.shape
-        return torch.empty((B, T, H, D), dtype=x.dtype,
-                           device=x.device).transpose(1, 2)
-
-    def attention(q, k, v, mask, probs):
-        B, H, T, D = q.shape
-        lib = libs["attention"]
-
-        def call():
-            o = out_like(q)
-            _build.check(lib, lib.tk_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                o.data_ptr(), int(q.dtype == torch.bfloat16), probs, B, H, T,
-                D, *q.stride()[:3], *o.stride()[:3], 1.0 / math.sqrt(D),
-                _build.current_stream(q.device)), "parent")
-        return call
-
-    def flash(q, k, v, mask, g, probs, backward):
-        B, H, T, D = q.shape
-        lib = libs["flash_attention"]
-        o = out_like(q)
-        lse = torch.empty((B, H, T), device=q.device)
-        shape = (B, H, T, D, *q.stride()[:3], *o.stride()[:3],
-                 1.0 / math.sqrt(D))
-
-        def fwd():
-            _build.check(lib, lib.tk_flash_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                o.data_ptr(), lse.data_ptr(), probs, *shape,
-                _build.current_stream(q.device)), "parent")
-        if not backward:
-            return fwd
-        fwd()
-        gl = fa._out_like(q).copy_(g)
-
-        def bwd():
-            dq, dk, dv = out_like(q), out_like(q), out_like(q)
-            delta = torch.empty((B, H, T), device=q.device)
-            _build.check(lib, lib.tk_flash_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                o.data_ptr(), gl.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), probs, *shape,
-                _build.current_stream(q.device)), "parent")
-        return bwd
-
-    return {case: (attention if kind == "attention" else flash)(*a)
-            for case, (kind, a) in args.items()}
-
-
 def sdpa_f32_operator():
     """The f32 product of SDPA's memory-efficient kernels, from the installed
     PyTorch headers (mem_eff_attention/gemm_kernel_utils.h): the Operator
@@ -176,9 +88,6 @@ def main(argv=None):
     ap.add_argument("--phases", action="store_true",
                     help="also build with -DTK_PROFILE_PHASES and print "
                          "each kernel's cycles by phase")
-    ap.add_argument("--parent-mode", metavar="DIR",
-                    help="time DIR's bf16-probability mode (the int "
-                         "probs_bf16 interface) in turns with the repo's")
     ap.add_argument("--mode-only", action="store_true",
                     help="only the bf16-probability mode: its checks, "
                          "rows 1p and 3p's cases and their phases")
@@ -212,17 +121,16 @@ def main(argv=None):
     os.makedirs(out_dir, exist_ok=True)
     jobs = {}   # every other build at once
     for name, other in zip(names, (args.attention, args.flash)):
-        if other:
-            jobs[name, "other"] = (_build.bind, name, other, os.path.join(
-                out_dir, f"other_{name}.so"), ())
-        if args.parent_mode:
-            jobs[name, "parent"] = (bind_parent, name, os.path.join(
-                args.parent_mode, _build.SOURCES[name]), os.path.join(
-                out_dir, f"parent_{name}.so"), ())
-        if args.phases:
-            jobs[name, "phases"] = (_build.bind, name, os.path.join(
-                _build.CSRC_DIR, _build.SOURCES[name]), os.path.join(
-                out_dir, f"phases_{name}.so"), ("-DTK_PROFILE_PHASES",))
+        repo_src = os.path.join(_build.CSRC_DIR, _build.SOURCES[name])
+        for which, src in (("other", other), ("repo", repo_src)):
+            if other and which == "other":
+                jobs[name, "other"] = (_build.bind, name, other, os.path.join(
+                    out_dir, f"other_{name}.so"), ())
+            if args.phases and src:
+                jobs[name, "phases", which] = (
+                    _build.bind, name, src, os.path.join(
+                        out_dir, f"phases_{which}_{name}.so"),
+                    ("-DTK_PROFILE_PHASES",))
     built = build_all(jobs)
     for name in names:
         if (name, "other") in built:
@@ -260,7 +168,6 @@ def main(argv=None):
             cfg, none, errs["flash_attention"])}), flush=True)
 
     cases = {}
-    parent_args = {}   # the same cases through a parent's entry points
     for dname, dtype, B, T, lens in (
             ("bf16", torch.bfloat16, cs.BENCH_B, cs.BENCH_T, mel_lens),
             ("f32", torch.float32, 1, cs.SPEAK_T, [cs.SPEAK_LEN]),
@@ -273,8 +180,6 @@ def main(argv=None):
         cases[f"attention {dname} {[B, H, T, D]}"] = (
             "attention", lambda q=q, k=k, v=v, m=mask: attn.attention(
                 q, k, v, m))
-        parent_args[f"attention {dname} {[B, H, T, D]}"] = (
-            "attention", (q, k, v, mask, 0))
         cases[f"sdpa {dname} {[B, H, T, D]}"] = (
             None, lambda q=q, k=k, v=v, m=additive:
             F.scaled_dot_product_attention(q, k, v, attn_mask=m))
@@ -286,7 +191,6 @@ def main(argv=None):
     case = f"attention probs_bf16 f32 {[cs.BENCH_B, H, cs.BENCH_T, D]}"
     cases[case] = ("attention", lambda: attn.attention(q1, k1, v1, mask1,
                                                        probs_bf16=True))
-    parent_args[case] = ("attention", (q1, k1, v1, mask1, 1))
     B, T = cs.TRAIN_B, cs.TRAIN_T
     lens = cs.bench_train_superbatch()["mel_lens"][0]
     (q, k, v), mask, g = cs.flash_inputs(B, H, T, D, seed=11, lens=lens)
@@ -299,9 +203,6 @@ def main(argv=None):
         cases[f"flash bwd {[B, H, T, D]}"] = (
             "flash_attention",
             lambda: fa._backward_cuda(qd, kd, vd, mask, *saved, g))
-        for bwd in (False, True):
-            parent_args[f"flash {'bwd' if bwd else 'fwd'} {[B, H, T, D]}"] = (
-                "flash", (qd, kd, vd, mask, g, 0, bwd))
     # row 3p: the mode's forward and backward at the same call
     saved_p = fa._forward_cuda(qd, kd, vd, mask, True)
     cases[f"flash fwd probs_bf16 {[B, H, T, D]}"] = (
@@ -310,10 +211,6 @@ def main(argv=None):
     cases[f"flash bwd probs_bf16 {[B, H, T, D]}"] = (
         "flash_attention",
         lambda: fa._backward_cuda(qd, kd, vd, mask, *saved_p, g))
-    for bwd in (False, True):
-        parent_args[f"flash {'bwd' if bwd else 'fwd'} probs_bf16 "
-                    f"{[B, H, T, D]}"] = ("flash", (qd, kd, vd, mask, g, 1,
-                                                    bwd))
     for case, (name, fn) in cases.items():
         alts = [w for w in libs[name] if w != "repo"] if name else []
         order = ["repo", *alts, *alts[::-1], "repo"] if alts else ["repo"]
@@ -329,46 +226,35 @@ def main(argv=None):
         print(json.dumps({"case": case, "ms": ms, "device_ms": device}),
               flush=True)
 
-    if args.parent_mode:
-        parent = parent_calls({n: built[n, "parent"] for n in names},
-                              parent_args)
-        for case, pfn in parent.items():
-            ms, device = {}, {}
-            for which in ("repo", "parent", "parent", "repo"):
-                fn = cases[case][1] if which == "repo" else pfn
-                ms.setdefault(which, []).append(
-                    cs.cuda_ms(fn, warmup=3, reps=args.reps))
-                device.setdefault(which, device_ms(fn, args.reps))
-            print(json.dumps({"case": case + " vs parent", "ms": ms,
-                              "device_ms": device}), flush=True)
-
     if args.phases:
-        for name in names:
-            lib = built[name, "phases"]
-            lib.tk_attn_phase_cycles.argtypes = [ctypes.c_void_p]
-            libs[name]["phases"] = lib
         counts = (ctypes.c_ulonglong * 32)()
+        for key, lib in built.items():
+            if key[1] == "phases":
+                lib.tk_attn_phase_cycles.argtypes = [ctypes.c_void_p]
+                libs[key[0]]["phases " + key[2]] = lib
         for case, (name, fn) in cases.items():
-            if not name:
-                continue
-            lib = libs[name]["phases"]
-            use(name, "phases")
-            fn()
-            torch.cuda.synchronize()
-            _build.check(lib, lib.tk_attn_phase_cycles(counts), "phases")
-            fn()
-            torch.cuda.synchronize()
-            _build.check(lib, lib.tk_attn_phase_cycles(counts), "phases")
-            use(name, "repo")
-            names_ = ROUND_PHASES if "probs_bf16" in case else PHASES
-            for part, lo in (("", 0), (" dK/dV", 8), (" producer", 16),
-                             (" dK/dV producer", 24)):
-                c = list(counts)[lo:lo + 8]
-                if sum(c):
-                    print(json.dumps({
-                        "case": case + part, "warp_gcycles": sum(c) / 1e9,
-                        "share": {p: x / sum(c) for p, x in zip(
-                            names_[lo:lo + 8], c) if x}}), flush=True)
+            for which in ("repo", "other"):
+                if not name or "phases " + which not in libs[name]:
+                    continue
+                lib = libs[name]["phases " + which]
+                use(name, "phases " + which)
+                fn()
+                torch.cuda.synchronize()
+                _build.check(lib, lib.tk_attn_phase_cycles(counts), "phases")
+                fn()
+                torch.cuda.synchronize()
+                _build.check(lib, lib.tk_attn_phase_cycles(counts), "phases")
+                use(name, "repo")
+                names_ = ROUND_PHASES if "probs_bf16" in case else PHASES
+                for part, lo in (("", 0), (" dK/dV", 8), (" producer", 16),
+                                 (" dK/dV producer", 24)):
+                    c = list(counts)[lo:lo + 8]
+                    if sum(c):
+                        print(json.dumps({
+                            "case": case + part, "source": which,
+                            "warp_gcycles": sum(c) / 1e9,
+                            "share": {p: x / sum(c) for p, x in zip(
+                                names_[lo:lo + 8], c) if x}}), flush=True)
     return 0
 
 

@@ -27,17 +27,20 @@
 // itself (S in the forward, round(dP) in dQ), so no pass waits on another
 // block or thread; dK/dV reads what the earlier kernels wrote.
 //
-// What bounds it on an H100: operations (the bound of row 1p / 3p counts 5
-// and 14 units, the latter as if the backward recomputed S); the scratch
-// moves 4 bytes (S or P) twice in the forward, 4 + 4 in training, and 4 +
-// 2 + 2 + 4 + 2 per (query row, valid key) in the backward, which the L2
-// partly keeps (a block's S is read back right after it is written).
+// What bounds it on an H100: operations (the bound of row 1p counts 5
+// units, row 3p's 5 + 11 and P's bytes, as these kernels keep P); the
+// scratch moves 4 bytes (S or P) twice in the forward, 4 + 4 in training,
+// and 4 + 2 + 2 + 4 + 2 per (query row, valid key) in the backward, which
+// the L2 partly keeps (a block's S is read back right after it is
+// written).
 //
 // The engine: consumer warpgroups of 64 rows (query rows; keys in dK/dV)
 // and a producer warpgroup per block. The producer streams raw tiles of 32
 // rows of K, V, Q or dO by 16-byte cp.async from all its threads into a
 // ring guarded by mbarriers (each thread's copies complete on the slot's
-// barrier: cp.async.mbarrier.arrive), a few tiles ahead, and splits each
+// barrier: cp.async.mbarrier.arrive; on an H100, one cp.async.bulk a row
+// from one warp ran as fast in the forward and 26% slower in the backward,
+// its issue on the producer's path), a few tiles ahead, and splits each
 // into TF32 hi and lo planes (attention_mma.cuh's split: hi rounded to
 // TF32, lo = x - hi) in the 128-byte-swizzled K-major layout wgmma reads,
 // into a second ring of plane buffers with full and empty mbarriers, while

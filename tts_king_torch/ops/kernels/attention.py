@@ -28,15 +28,9 @@ import torch
 from tts_king_torch.ops.kernels import _build
 
 NEG_INF = -1e9
-# The bf16-probability mode's kernels (csrc/attention_round.cuh): rows of a
-# streamed tile, dK/dV's block of keys, the forward's and dQ's ring slots
-# (raw tiles, plane buffers), dK/dV's, and the shared memory a block of an
-# H100 may take.
-ROUND_TILE = 32
+# The bf16-probability mode's dK/dV block of keys (csrc/attention_round.cuh):
+# the scratch's rows are padded to it.
 ROUND_KEY_BLOCK = 64
-ROUND_FQ_SLOTS = (4, 3)
-ROUND_KV_SLOTS = 2
-SMEM_LIMIT = 232448
 launches = 0
 launches_bf16 = 0
 launches_probs_bf16 = 0
@@ -79,15 +73,14 @@ def attention_plain(q, k, v, key_pad_mask, probs_bf16=False):
 
 def probs_plan(B, H, T, D):
     """The bf16-probability mode's kernels at (B, H, T, D), f32: the head
-    dim they are built for (``dp``: D padded to 32, 64 or 128), the
-    scratch's row length (``ld``: T rounded up to 64), the shapes of the
-    scratch the wrappers allocate (``probs``: S, then P, f32; ``dprobs``:
-    round(dP), bf16; ``delta``: f32) and the dynamic shared memory of the
-    forward and dQ kernels (``smem``, growing with T: the key mask) and of
-    dK/dV (``smem_dkdv``), as attention_round.cuh's round_smem and
-    round_dkdv_smem compute them. One kernel takes every T whose mask fits
-    in shared memory (T up to ~77,000 at D = 128); raises ValueError for
-    a shape no kernel takes."""
+    dim they are built for (``dp``: D padded to 32, 64 or 128, as
+    attention_round.cuh's round_dim), the scratch's row length (``ld``: T
+    rounded up to 64) and the shapes of the scratch the wrappers allocate
+    (``probs``: S, then P, f32; ``dprobs``: round(dP), bf16; ``delta``:
+    f32). One kernel of each kind takes every T; its launch fails (and the
+    wrapper raises) only where the key mask outgrows shared memory, at T
+    of ~77,000. Raises ValueError for a head dim or an empty shape no
+    kernel takes."""
     if D < 1 or D > 128 or D % 4:
         raise ValueError(f"probs_bf16: head dim {D} (a multiple of 4, at "
                          "most 128)")
@@ -95,20 +88,8 @@ def probs_plan(B, H, T, D):
         raise ValueError(f"probs_bf16: empty shape {(B, H, T, D)}")
     dp = 32 if D <= 32 else 64 if D <= 64 else 128
     ld = -(-T // ROUND_KEY_BLOCK) * ROUND_KEY_BLOCK
-    plane = ROUND_TILE * dp * 4
-    raw = ROUND_TILE * (dp + 4) * 4
-    raw_slots, plane_slots = ROUND_FQ_SLOTS
-    smem = (1024 + plane_slots * 2 * plane + raw_slots * raw
-            + 16 * (raw_slots + plane_slots) + -(-T // 16) * 16
-            + 2 * -(-T // ROUND_TILE))
-    stage = ROUND_TILE * (72 * 4 + 72 * 2 + 4)
-    smem_dkdv = 1024 + ROUND_KV_SLOTS * (4 * plane + 2 * raw + stage + 32)
-    if max(smem, smem_dkdv) > SMEM_LIMIT:
-        raise ValueError(f"probs_bf16: T = {T} needs {smem} bytes of shared "
-                         f"memory a block, more than {SMEM_LIMIT}")
     return {"dp": dp, "ld": ld, "probs": (B, H, T, ld),
-            "dprobs": (B, H, T, ld), "delta": (B, H, ld), "smem": smem,
-            "smem_dkdv": smem_dkdv}
+            "dprobs": (B, H, T, ld), "delta": (B, H, ld)}
 
 
 def check_aligned(what, *tensors):
