@@ -506,17 +506,8 @@ def test_roofline_fields():
 
 
 def test_timers_and_trace(tmp_path):
-    from tts_king_torch.utils.profiling import (StageTimer, force, timed,
-                                                trace)
+    from tts_king_torch.utils.profiling import force, timed, trace
 
-    st = StageTimer()
-    for _ in range(3):
-        with st.stage("a"):
-            pass
-    with st.stage("b"):
-        pass
-    rep = st.report()
-    assert set(rep) == {"a", "b"} and st.counts["a"] == 3
     x = torch.arange(4.0) - 2
     assert force({"x": x, "y": [torch.tensor([3], dtype=torch.int32)]}) == 7.0
     assert force([]) == 0.0

@@ -47,6 +47,7 @@ from tts_king_torch.ops.length_regulator import length_regulate, round_durations
 from tts_king_torch.ops.masks import mask_from_lengths
 from tts_king_torch.parallel.comm import Axis
 from tts_king_torch.text.symbols import VOCAB_SIZE
+from tts_king_torch.utils.profiling import span
 
 CWT_CHANNELS = 11   # the CWT scales of the pitch spectrogram
 
@@ -285,21 +286,25 @@ class FastSpeech2(nn.Module):
         src_masks = mask_from_lengths(src_lens, texts.shape[1])
         mel_masks = (mask_from_lengths(mel_lens, max_mel_len)
                      if mel_lens is not None else None)
-        output = self.encoder(texts, src_masks, g)
-        if mc.multi_speaker:
-            speaker_embedding = self.speaker_emb(speakers)[:, None, :]
-        else:
-            speaker_embedding = output.new_zeros(
-                (texts.shape[0], 1, output.shape[-1]))
-        va = self.variance_adaptor(
-            output, speaker_embedding, src_masks, max_mel_len, p_control,
-            e_control, d_control, mel_mask=mel_masks,
-            pitch_target=pitch_raw_targets, energy_target=energy_targets,
-            duration_target=duration_targets, generator=g)
-        decoded, mel_masks = self.decoder(va["x"], va["mel_mask"], g)
-        mel = self.mel_linear(decoded)
-        # masked postnet: every stage sees zeros past mel_len
-        postnet_mel = self.postnet(mel, mel_masks, g) + mel
+        with span("fs2.encoder"):
+            output = self.encoder(texts, src_masks, g)
+        with span("fs2.variance"):
+            if mc.multi_speaker:
+                speaker_embedding = self.speaker_emb(speakers)[:, None, :]
+            else:
+                speaker_embedding = output.new_zeros(
+                    (texts.shape[0], 1, output.shape[-1]))
+            va = self.variance_adaptor(
+                output, speaker_embedding, src_masks, max_mel_len, p_control,
+                e_control, d_control, mel_mask=mel_masks,
+                pitch_target=pitch_raw_targets, energy_target=energy_targets,
+                duration_target=duration_targets, generator=g)
+        with span("fs2.decoder"):
+            decoded, mel_masks = self.decoder(va["x"], va["mel_mask"], g)
+            mel = self.mel_linear(decoded)
+        with span("fs2.postnet"):
+            # masked postnet: every stage sees zeros past mel_len
+            postnet_mel = self.postnet(mel, mel_masks, g) + mel
         return {
             "mel": mel,
             "pitch_prediction": va["pitch_prediction"],

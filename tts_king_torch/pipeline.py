@@ -68,6 +68,7 @@ from tts_king_torch.models.melgan import MelGANGenerator
 from tts_king_torch.ops.streaming import (generator_receptive_field,
                                           stream_vocoder)
 from tts_king_torch.parallel.mesh import set_dp_axis
+from tts_king_torch.utils.profiling import span
 from tts_king_torch.weights import (flax_to_torch, load_flax_npz, load_into,
                                     seeded_state_dict)
 
@@ -306,56 +307,68 @@ class AcousticModel:
         ``mel_bucket`` when it fetches the results anyway, and redoes the
         (rare) overflow itself (serve.py's pipeline).
         """
-        phonemes = np.asarray(phonemes)
-        B, L = phonemes.shape
-        Lb = _phone_pad(L, self.phone_buckets)
-        texts = np.zeros((B, Lb), np.int64)
-        texts[:, :L] = phonemes
-        src_lens = (np.asarray(src_lens, np.int32) if src_lens is not None
-                    else np.full((B,), L, np.int32))
-        speaker_ids = self._resolve_speakers(speaker_name, B)
-        self.check_ids(texts, speaker_ids)
+        with span("fs2.generate"):
+            with span("fs2.inputs"):
+                phonemes = np.asarray(phonemes)
+                B, L = phonemes.shape
+                Lb = _phone_pad(L, self.phone_buckets)
+                texts = np.zeros((B, Lb), np.int64)
+                texts[:, :L] = phonemes
+                src_lens = (np.asarray(src_lens, np.int32)
+                            if src_lens is not None
+                            else np.full((B,), L, np.int32))
+                speaker_ids = self._resolve_speakers(speaker_name, B)
+                self.check_ids(texts, speaker_ids)
 
-        if max_mel_len is not None:
-            buckets = [max_mel_len]
-        else:
-            guess = int(L * _FRAMES_PER_PHONE_GUESS * duration_control)
-            start = _bucket(guess, MEL_BUCKETS)
-            buckets = ([b for b in MEL_BUCKETS if b >= start]
-                       or [self.config.model.max_seq_len])
+                if max_mel_len is not None:
+                    buckets = [max_mel_len]
+                else:
+                    guess = int(L * _FRAMES_PER_PHONE_GUESS * duration_control)
+                    start = _bucket(guess, MEL_BUCKETS)
+                    buckets = ([b for b in MEL_BUCKETS if b >= start]
+                               or [self.config.model.max_seq_len])
 
-        speaker_ids = speaker_ids.astype(np.int64)
-        pad = -B % self.mesh.dp if self.mesh is not None else 0
-        if pad:
-            texts = _pad_rows(texts, pad)
-            src_lens = np.concatenate([src_lens, np.ones((pad,), np.int32)])
-            speaker_ids = _pad_rows(speaker_ids, pad)
-        dev = self.device
-        inputs = (to_device(speaker_ids, dev), to_device(texts, dev),
-                  to_device(src_lens, dev))
-        out = None
-        for T in buckets:
-            def fs2(model, speakers, texts, src_lens):
-                return model(speakers, texts, src_lens, max_mel_len=T,
-                             p_control=pitch_control, e_control=energy_control,
-                             d_control=duration_control)
+                speaker_ids = speaker_ids.astype(np.int64)
+                pad = -B % self.mesh.dp if self.mesh is not None else 0
+                if pad:
+                    texts = _pad_rows(texts, pad)
+                    src_lens = np.concatenate([src_lens,
+                                               np.ones((pad,), np.int32)])
+                    speaker_ids = _pad_rows(speaker_ids, pad)
+                dev = self.device
+                inputs = (to_device(speaker_ids, dev), to_device(texts, dev),
+                          to_device(src_lens, dev))
+            out = None
+            for T in buckets:
+                def fs2(model, speakers, texts, src_lens):
+                    return model(speakers, texts, src_lens, max_mel_len=T,
+                                 p_control=pitch_control,
+                                 e_control=energy_control,
+                                 d_control=duration_control)
 
-            if self.mesh is None or (self.mesh.local
-                                     and self.config.model.use_cwt):
-                # a CWT model on a single-process mesh runs the padded batch
-                # on its own device: its pitch is standardized over every
-                # row mid-forward, and the replicas run one after another
-                out = fs2(self.model, *inputs)
-            else:
-                out = _rows_over_dp(self.mesh, self.model, fs2, inputs, dev)
-            # escalate on the RAW length: mel_lens is clamped to T in-model
-            if defer_overflow or int(out["mel_lens_raw"].max()) <= T:
-                break
-        if pad:
-            out = {k: (v[:B] if isinstance(v, torch.Tensor) else v)
-                   for k, v in out.items()}
-        out["mel_bucket"] = T
-        return out
+                if self.mesh is None or (self.mesh.local
+                                         and self.config.model.use_cwt):
+                    # a CWT model on a single-process mesh runs the padded
+                    # batch on its own device: its pitch is standardized over
+                    # every row mid-forward, and the replicas run one after
+                    # another
+                    out = fs2(self.model, *inputs)
+                else:
+                    out = _rows_over_dp(self.mesh, self.model, fs2, inputs,
+                                        dev)
+                if defer_overflow:
+                    break
+                # escalate on the RAW length: mel_lens is clamped to T
+                # in-model
+                with span("fs2.bucket_check"):
+                    fits = int(out["mel_lens_raw"].max()) <= T
+                if fits:
+                    break
+            if pad:
+                out = {k: (v[:B] if isinstance(v, torch.Tensor) else v)
+                       for k, v in out.items()}
+            out["mel_bucket"] = T
+            return out
 
     def _resolve_speakers(self, speaker_name, batch_size):
         """Scalar name/id or per-item sequence -> (B,) int32 ids."""
@@ -430,8 +443,10 @@ class Vocoder:
     @torch.inference_mode()
     def vocode_int16(self, mel):
         """mel -> device int16 waveform scaled by max_wav_value."""
-        return wav_to_int16(self.model(self._mel(mel)),
-                            self.config.vocoder.max_wav_value)
+        with span("vocoder.net"):
+            wav = self.model(self._mel(mel))
+        with span("vocoder.int16"):
+            return wav_to_int16(wav, self.config.vocoder.max_wav_value)
 
     @torch.inference_mode()
     def generate_long(self, mel, mesh, axis="dp"):
@@ -453,10 +468,13 @@ class Vocoder:
     def generate(self, mel, lengths=None):
         """mel -> int16 numpy waveform (hifiapi.py:40-52); optional
         per-item sample lengths trim it into a list."""
-        wav = self.vocode_int16(mel).cpu().numpy()
-        if lengths is not None:
-            return [w[:n] for w, n in zip(wav, np.asarray(lengths))]
-        return wav
+        with span("vocoder.generate"):
+            wav = self.vocode_int16(mel)
+            with span("vocoder.fetch"):
+                wav = wav.cpu().numpy()
+                if lengths is not None:
+                    return [w[:n] for w, n in zip(wav, np.asarray(lengths))]
+                return wav
 
 
 class TTSKing:
@@ -494,7 +512,8 @@ class TTSKing:
     def text_preprocess(self, text):
         from tts_king_torch.text.g2p import preprocess_rus
 
-        return np.array([preprocess_rus(text, lexicon=self.lexicon)])
+        with span("text.g2p"):
+            return np.array([preprocess_rus(text, lexicon=self.lexicon)])
 
     def generate_mel(self, text, duration_control=1.0, pitch_control=1.0,
                      energy_control=1.0, speaker=0):

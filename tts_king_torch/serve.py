@@ -46,6 +46,7 @@ any stage fails the futures of its batch with that exception; nothing
 falls back to the CPU or to a kernel's plain version.
 """
 
+import itertools
 import json
 import os
 import queue
@@ -63,6 +64,7 @@ from tts_king_torch import pipeline
 from tts_king_torch.ops.kernels import _build
 from tts_king_torch.ops.streaming import (generator_receptive_field,
                                           stream_vocoder)
+from tts_king_torch.utils.profiling import span
 
 _now = time.monotonic
 # The CUDA kernels of the serving path (FS2 attention, the HiFi-GAN MRF
@@ -170,7 +172,16 @@ class SynthesisServer:
     instead of growing the queue and every latency with it), and requests
     may carry deadlines: a request whose deadline passes while queued is
     shed at dispatch time with DeadlineExceeded, spending no device compute.
-    Counters for admitted/rejected/shed/completed/failed are in stats().
+    Counters for admitted/rejected/shed/completed/failed are in stats(),
+    with the load's: batches and the requests in them, overflow redos, the
+    requests' queue wait, the device thread's busy time and G2P time.
+
+    Under a profiler (``utils.profiling.trace``) the stages leave spans,
+    each with its batch's id (one per batch ``_gather_batch`` forms; the
+    length groups it splits into share it): ``serve.gather`` (dispatcher),
+    ``serve.fs2`` and ``serve.vocoder`` (device thread),
+    ``serve.lengths_wait`` and ``serve.redo`` (vocoder stage),
+    ``serve.fetch_wait`` (completer), and ``serve.stream`` per stream() call.
     """
 
     def __init__(self, king, max_batch: int = 16, max_wait_ms: float = 10.0,
@@ -194,7 +205,13 @@ class SynthesisServer:
                                  if default_deadline_ms else None)
         self._stats_lock = threading.Lock()
         self._counters = {"admitted": 0, "rejected": 0, "shed": 0,
-                          "completed": 0, "failed": 0}
+                          "completed": 0, "failed": 0, "batches": 0,
+                          "batched_requests": 0, "overflow_redos": 0,
+                          "queue_wait_s": 0.0, "device_busy_s": 0.0,
+                          "g2p_s": 0.0}
+        self._t_start = _now()
+        # one id per formed batch and per stream() call, for their spans
+        self._ids = itertools.count(1)
         # Batches pad up to one of these sizes: few shapes to warm (kernel
         # plans, cuDNN's algorithm choice, the allocator's pools), and
         # padded rows cost little (device compute is sublinear in B).
@@ -247,7 +264,7 @@ class SynthesisServer:
         if phonemes is None:
             if text is None:
                 raise ValueError("need text or phonemes")
-            phonemes = self.king.text_preprocess(text)[0]
+            phonemes = self._g2p(text)
         if isinstance(speaker, str):
             speaker = self.king.tts.speakers_dict[speaker]
         # a bad id would fail the whole batch it joins: refuse it here
@@ -376,12 +393,29 @@ class SynthesisServer:
         return dict(self._prewarmed)
 
     def stats(self) -> dict:
-        """Admission/shedding counters + current queue depth."""
+        """Counters, the current queue depth and the seconds since the
+        server started. Besides admission and shedding: ``batches`` and
+        ``batched_requests`` (FS2 batches dispatched and the requests in
+        them: their ratio is the formed batch size), ``overflow_redos``
+        (batches whose mel bucket overflowed, dispatched again),
+        ``queue_wait_s`` (submit to FS2 dispatch, summed over the
+        dispatched requests), ``device_busy_s`` (the device thread's time
+        inside jobs: over ``uptime_s``, its busy share) and ``g2p_s`` (G2P
+        of the requests submitted as text)."""
         with self._stats_lock:
             out = dict(self._counters)
         out["queued"] = self._queue.qsize()
         out["admission_depth"] = self.admission_depth
+        out["uptime_s"] = _now() - self._t_start
         return out
+
+    def _g2p(self, text):
+        """The phonemes of ``text``, its G2P time counted."""
+        t0 = _now()
+        phonemes = self.king.text_preprocess(text)[0]
+        with self._stats_lock:
+            self._counters["g2p_s"] += _now() - t0
+        return phonemes
 
     def synthesize_many(self, texts: Sequence[str], speakers=None,
                         **controls):
@@ -408,78 +442,82 @@ class SynthesisServer:
         used only when it is provably exact (the utterance covers chunk +
         halo frames, no mel-bucket overflow); otherwise the plain path runs,
         with the same output either way."""
-        if self._draining.is_set():
-            raise ServerDraining(
-                "server is draining; resubmit to its replacement")
-        if self._stop.is_set():
-            raise RuntimeError("server is closed")
-        if phonemes is None:
-            if text is None:
-                raise ValueError("need text or phonemes")
-            phonemes = self.king.text_preprocess(text)[0]
-        if isinstance(speaker, str):
-            speaker = self.king.tts.speakers_dict[speaker]
-        phonemes = np.asarray(phonemes, np.int32)
-        controls = (float(duration_control), float(pitch_control),
-                    float(energy_control))
-        generate_kw = dict(duration_control=controls[0],
-                           pitch_control=controls[1],
-                           energy_control=controls[2],
-                           speaker_name=int(speaker))
-        halo = generator_receptive_field(self.king.cfg.vocoder)
-        hop = self.king.cfg.preprocess.stft.hop_length
+        with span("serve.stream", next(self._ids)):
+            if self._draining.is_set():
+                raise ServerDraining(
+                    "server is draining; resubmit to its replacement")
+            if self._stop.is_set():
+                raise RuntimeError("server is closed")
+            if phonemes is None:
+                if text is None:
+                    raise ValueError("need text or phonemes")
+                phonemes = self._g2p(text)
+            if isinstance(speaker, str):
+                speaker = self.king.tts.speakers_dict[speaker]
+            phonemes = np.asarray(phonemes, np.int32)
+            controls = (float(duration_control), float(pitch_control),
+                        float(energy_control))
+            generate_kw = dict(duration_control=controls[0],
+                               pitch_control=controls[1],
+                               energy_control=controls[2],
+                               speaker_name=int(speaker))
+            halo = generator_receptive_field(self.king.cfg.vocoder)
+            hop = self.king.cfg.preprocess.stft.hop_length
 
-        def head():
-            fused = self._fused_stream_head(phonemes, speaker, controls,
-                                            chunk_frames, halo)
-            if fused is not None:
-                out, win0, bucket = fused
+            def head():
+                fused = self._fused_stream_head(phonemes, speaker, controls,
+                                                chunk_frames, halo)
+                if fused is not None:
+                    out, win0, bucket = fused
+                else:
+                    out = self.king.tts.generate(phonemes[None],
+                                                 defer_overflow=True,
+                                                 **generate_kw)
+                    bucket = out["mel_bucket"]
+                    win0 = None
+                    if (bucket >= chunk_frames + halo
+                            and self.king.vocoder.kind != "MelGAN"):
+                        win0 = self._first_window(out["postnet_mel"],
+                                                  chunk_frames, halo)
+                # one fetch for everything the first yield needs
+                fetch = [out["mel_lens_raw"], out["mel_lens"]]
+                if win0 is not None:
+                    fetch.append(win0)
+                return out, bucket, win0 is not None, _Fetch(*fetch)
+
+            def redo():
+                out = self.king.tts.generate(phonemes[None], **generate_kw)
+                return out, _Fetch(out["mel_lens"])
+
+            def mel_to_host(out, n):
+                return _Fetch(out["postnet_mel"][:1, :max(n, 1)].float())
+
+            out, bucket, has_win0, fetch = self._device(head)
+            fetched = fetch.wait()
+            win0_host = fetched[2] if has_win0 else None
+            if int(fetched[0][0]) > bucket:
+                # Rare mel-bucket overflow: redo with escalated buckets,
+                # discard the speculative window.
+                out, lens_fetch = self._device(redo)
+                win0_host = None
+                n = int(lens_fetch.wait()[0][0])
             else:
-                out = self.king.tts.generate(phonemes[None],
-                                             defer_overflow=True,
-                                             **generate_kw)
-                bucket = out["mel_bucket"]
-                win0 = None
-                if (bucket >= chunk_frames + halo
-                        and self.king.vocoder.kind != "MelGAN"):
-                    win0 = self._first_window(out["postnet_mel"],
-                                              chunk_frames, halo)
-            # one fetch for everything the first yield needs
-            fetch = [out["mel_lens_raw"], out["mel_lens"]]
-            if win0 is not None:
-                fetch.append(win0)
-            return out, bucket, win0 is not None, _Fetch(*fetch)
+                n = int(fetched[1][0])
+            # the mel's copy to the host overlaps the first chunk's handling
+            mel_fetch = self._device(lambda: mel_to_host(out, n))
 
-        def redo():
-            out = self.king.tts.generate(phonemes[None], **generate_kw)
-            return out, _Fetch(out["mel_lens"])
-
-        def mel_to_host(out, n):
-            return _Fetch(out["postnet_mel"][:1, :max(n, 1)].float())
-
-        out, bucket, has_win0, fetch = self._device(head)
-        fetched = fetch.wait()
-        win0_host = fetched[2] if has_win0 else None
-        if int(fetched[0][0]) > bucket:
-            # Rare mel-bucket overflow: redo with escalated buckets, discard
-            # the speculative window.
-            out, lens_fetch = self._device(redo)
-            win0_host = None
-            n = int(lens_fetch.wait()[0][0])
-        else:
-            n = int(fetched[1][0])
-        # the mel's copy to the host overlaps the first chunk's handling
-        mel_fetch = self._device(lambda: mel_to_host(out, n))
-
-        start_frame = 0
-        if win0_host is not None and n >= chunk_frames + halo:
-            # exact: all chunk + halo window frames are real mel content
-            yield win0_host[0, halo * hop:(halo + chunk_frames) * hop].copy()
-            start_frame = chunk_frames
-        # Vocoder.vocode_int16 divides a MelGAN mel by ln 10 itself
-        yield from stream_vocoder(self._vocode_window, mel_fetch.wait()[0],
-                                  chunk_frames=chunk_frames, halo_frames=halo,
-                                  hop=hop, start_frame=start_frame)
+            start_frame = 0
+            if win0_host is not None and n >= chunk_frames + halo:
+                # exact: all chunk + halo window frames are real mel content
+                yield win0_host[0, halo * hop:
+                                (halo + chunk_frames) * hop].copy()
+                start_frame = chunk_frames
+            # Vocoder.vocode_int16 divides a MelGAN mel by ln 10 itself
+            yield from stream_vocoder(self._vocode_window,
+                                      mel_fetch.wait()[0],
+                                      chunk_frames=chunk_frames,
+                                      halo_frames=halo, hop=hop,
+                                      start_frame=start_frame)
 
     def _vocode_window(self, piece):
         """(1, frames, n_mels) numpy mel window -> (1, frames * hop) int16
@@ -605,43 +643,45 @@ class SynthesisServer:
 
     def _gather_batch(self):
         """Collect the next batch according to the scheduling policy.
-        Returns a list of requests, or None on shutdown."""
+        Returns (the batch's id, its list of requests), or None when no
+        request came."""
         try:
             first = self._queue.get(timeout=0.05)
         except queue.Empty:
             return None
+        ident = next(self._ids)
         batch = [first]
+        with span("serve.gather", ident):
+            if self.policy == "window":
+                # wait out max_wait_ms hoping for company
+                deadline = _now() + self.max_wait
+                while len(batch) < self.max_batch:
+                    timeout = deadline - _now()
+                    if timeout <= 0:
+                        break
+                    try:
+                        batch.append(self._queue.get(timeout=timeout))
+                    except queue.Empty:
+                        break
+                return ident, batch
 
-        if self.policy == "window":
-            # wait out max_wait_ms hoping for company
-            deadline = _now() + self.max_wait
+            # Continuous: drain what's already here without waiting...
             while len(batch) < self.max_batch:
-                timeout = deadline - _now()
-                if timeout <= 0:
-                    break
                 try:
-                    batch.append(self._queue.get(timeout=timeout))
+                    batch.append(self._queue.get_nowait())
                 except queue.Empty:
                     break
-            return batch
-
-        # Continuous: drain what's already here without waiting...
-        while len(batch) < self.max_batch:
-            try:
-                batch.append(self._queue.get_nowait())
-            except queue.Empty:
-                break
-        # ...and while the pipeline is full (dispatch would block anyway),
-        # keep admitting arrivals into this batch for free, in coarse 50 ms
-        # waits (a fine-grained poll burns the host CPU the other stages
-        # need).
-        while (len(batch) < self.max_batch and self._mid.full()
-               and not self._stop.is_set()):
-            try:
-                batch.append(self._queue.get(timeout=0.05))
-            except queue.Empty:
-                pass
-        return batch
+            # ...and while the pipeline is full (dispatch would block
+            # anyway), keep admitting arrivals into this batch for free, in
+            # coarse 50 ms waits (a fine-grained poll burns the host CPU the
+            # other stages need).
+            while (len(batch) < self.max_batch and self._mid.full()
+                   and not self._stop.is_set()):
+                try:
+                    batch.append(self._queue.get(timeout=0.05))
+                except queue.Empty:
+                    pass
+            return ident, batch
 
     # ------------------------------------------------------------ threads
 
@@ -666,10 +706,13 @@ class SynthesisServer:
                 if job is None:
                     return
                 fn, future = job
+                t0 = _now()
                 try:
                     future.set_result(fn())
                 except Exception as e:   # raised again in the caller
                     future.set_exception(e)
+                with self._stats_lock:
+                    self._counters["device_busy_s"] += _now() - t0
 
     def _length_groups(self, reqs):
         """Split one formed batch at phoneme-bucket boundaries only when
@@ -743,9 +786,10 @@ class SynthesisServer:
 
     def _dispatcher(self):
         while not self._stop.is_set():
-            batch = self._gather_batch()
-            if not batch:
+            gathered = self._gather_batch()
+            if gathered is None:
                 continue
+            ident, batch = gathered
             batch = self._shed_expired(batch)
             groups = {}
             for req in batch:
@@ -756,7 +800,7 @@ class SynthesisServer:
             for controls, reqs in groups:
                 try:
                     handles = self._device(
-                        lambda: self._fs2_batch(reqs, controls))
+                        lambda: self._fs2_batch(reqs, controls, ident))
                 except Exception as e:
                     # counted here too (not just _completer) so stats are
                     # accurate and drain()'s settled>=admitted wait ends
@@ -821,45 +865,62 @@ class SynthesisServer:
 
     # ------------------------------------------------------------- device
 
-    def _fs2_batch(self, reqs, controls, defer=True):
+    def _fs2_batch(self, reqs, controls, ident, defer=True):
         """Pack and dispatch FS2 without waiting for the card: the overflow
         check generate() would wait for is left to the vocoder stage
         (defer_overflow), which gets the raw lengths from the fetch started
-        here. Returns (out, mel bucket, controls, fetch of mel_lens_raw)."""
-        d_ctl, p_ctl, e_ctl = controls
-        self._trace_batches.append(len(reqs))
-        L = max(len(r.phonemes) for r in reqs)
-        B = next((b for b in self.batch_buckets if b >= len(reqs)),
-                 len(reqs))
-        phonemes = np.zeros((B, L), np.int32)
-        src_lens = np.ones((B,), np.int32)   # padded rows: 1 pad phoneme
-        for i, r in enumerate(reqs):
-            phonemes[i, : len(r.phonemes)] = r.phonemes
-            src_lens[i] = len(r.phonemes)
-        speakers = [r.speaker for r in reqs] + [0] * (B - len(reqs))
+        here. Returns (out, mel bucket, controls, fetch of mel_lens_raw,
+        the batch's id). The first dispatch (``defer``) is counted in
+        stats(); a redo is counted as one."""
+        t_dispatch = _now()
+        with span("serve.fs2", ident):
+            d_ctl, p_ctl, e_ctl = controls
+            self._trace_batches.append(len(reqs))
+            L = max(len(r.phonemes) for r in reqs)
+            B = next((b for b in self.batch_buckets if b >= len(reqs)),
+                     len(reqs))
+            phonemes = np.zeros((B, L), np.int32)
+            src_lens = np.ones((B,), np.int32)   # padded rows: 1 pad phoneme
+            for i, r in enumerate(reqs):
+                phonemes[i, : len(r.phonemes)] = r.phonemes
+                src_lens[i] = len(r.phonemes)
+            speakers = [r.speaker for r in reqs] + [0] * (B - len(reqs))
 
-        out = self.king.tts.generate(
-            phonemes, duration_control=d_ctl, pitch_control=p_ctl,
-            energy_control=e_ctl, speaker_name=speakers, src_lens=src_lens,
-            defer_overflow=defer)
-        # without defer the buckets escalated already, and mel_bucket is
-        # the one that fits; overflow is judged on the RAW lengths
-        # (mel_lens is clamped to the bucket)
-        return (out, out["mel_bucket"], controls,
-                _Fetch(out["mel_lens_raw"]))
+            out = self.king.tts.generate(
+                phonemes, duration_control=d_ctl, pitch_control=p_ctl,
+                energy_control=e_ctl, speaker_name=speakers,
+                src_lens=src_lens, defer_overflow=defer)
+            # without defer the buckets escalated already, and mel_bucket is
+            # the one that fits; overflow is judged on the RAW lengths
+            # (mel_lens is clamped to the bucket)
+            fetch = _Fetch(out["mel_lens_raw"])
+        with self._stats_lock:
+            c = self._counters
+            if defer:
+                c["batches"] += 1
+                c["batched_requests"] += len(reqs)
+                c["queue_wait_s"] += sum(t_dispatch - r.t_submit
+                                         for r in reqs)
+            else:
+                c["overflow_redos"] += 1
+        return out, out["mel_bucket"], controls, fetch, ident
 
     def _vocode_batch(self, reqs, handles):
         """Wait (on this thread) for FS2's raw lengths, then dispatch the
-        vocoder on the device thread. Returns (fetch, mel_lens)."""
-        out, bucket, controls, raw_fetch = handles
-        raw = raw_fetch.wait()[0][: len(reqs)]
+        vocoder on the device thread. Returns (fetch, mel_lens, the batch's
+        id)."""
+        out, bucket, controls, raw_fetch, ident = handles
+        with span("serve.lengths_wait", ident):
+            raw = raw_fetch.wait()[0][: len(reqs)]
         if raw.max(initial=0) > bucket:
             # Rare: the duration predictor overflowed the guessed mel
             # bucket. Retry with the synchronous bucket escalation (the
             # same path direct generate() calls take).
-            out, bucket, controls, raw_fetch = self._device(
-                lambda: self._fs2_batch(reqs, controls, defer=False))
-            raw = raw_fetch.wait()[0][: len(reqs)]
+            with span("serve.redo", ident):
+                out, bucket, controls, raw_fetch, _ = self._device(
+                    lambda: self._fs2_batch(reqs, controls, ident,
+                                            defer=False))
+                raw = raw_fetch.wait()[0][: len(reqs)]
         mel_lens = np.minimum(raw, bucket)
         tight = min(pipeline._bucket(int(mel_lens.max(initial=1)),
                                      pipeline.MEL_BUCKETS),
@@ -867,19 +928,21 @@ class SynthesisServer:
         n = len(reqs)
 
         def dispatch():
-            mel = out["postnet_mel"][:, :tight]    # a view on the card
-            if not self.return_wav:
-                # numpy has no bf16: mels come back as float32
-                return _Fetch(mel[:n].float())
-            # int16 on the card: half the fetch bytes of float32
-            return _Fetch(self.king.vocoder.vocode_int16(mel)[:n])
+            with span("serve.vocoder", ident):
+                mel = out["postnet_mel"][:, :tight]    # a view on the card
+                if not self.return_wav:
+                    # numpy has no bf16: mels come back as float32
+                    return _Fetch(mel[:n].float())
+                # int16 on the card: half the fetch bytes of float32
+                return _Fetch(self.king.vocoder.vocode_int16(mel)[:n])
 
-        return self._device(dispatch), mel_lens
+        return self._device(dispatch), mel_lens, ident
 
     def _complete_batch(self, reqs, handles):
         """The batch's results on the host, one per request, in order."""
-        fetch, mel_lens = handles
-        host = fetch.wait()[0]
+        fetch, mel_lens, ident = handles
+        with span("serve.fetch_wait", ident):
+            host = fetch.wait()[0]
         if self.return_wav:
             hop = self.king.cfg.preprocess.stft.hop_length
             return [host[i, : mel_lens[i] * hop].copy()
@@ -895,7 +958,8 @@ def serve_http(king, host="127.0.0.1", port=8765, state=None, **server_kw):
 
     Endpoints:
       GET  /health  -> {"ok": true, "speakers": N}
-      GET  /stats   -> admission/shedding counters + queue depth
+      GET  /stats   -> SynthesisServer.stats(): counters, queue depth,
+                       uptime
       POST /tts     -> WAV file; JSON body {"text" | "phonemes": [...],
                        "speaker", "duration_control", "pitch_control",
                        "energy_control", "deadline_ms"}; 429 + Retry-After

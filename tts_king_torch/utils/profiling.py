@@ -1,15 +1,17 @@
 """Tracing and profiling hooks (port of tts_king_tpu/utils/profiling.py).
 
-* ``trace(log_dir)``: a ``torch.profiler`` trace of the block (host ops, and
-  the card's kernels where CUDA is present) written to
-  ``<log_dir>/trace.json`` (chrome://tracing, Perfetto); a no-op where the
-  profiler cannot start.
+* ``span(name, ident=None)``: a named host range around a layer's work
+  (a ``record_function`` range), on the same clock as the card's kernels
+  in the profiler's trace, with ``ident`` (a batch's or a request's id) as
+  its one recorded input. While no profiler runs it is a shared null
+  context: one read of a process-wide flag, no allocation, no lock.
+* ``trace(log_dir)``: a ``torch.profiler`` trace of the block (host ops and
+  spans of every thread, each op's input shapes and each span's id, and the
+  card's kernels where CUDA is present) written to ``<log_dir>/trace.json``
+  (chrome://tracing, Perfetto); a no-op where the profiler cannot start.
 * ``force(x)``: completes the work behind a tree of tensors by fetching a
   checksum to the host.
 * ``timed(fn, *args)``: mean wall seconds per call, completion forced.
-* ``cuda_timed(fn, *args)``: mean card milliseconds per call between CUDA
-  events.
-* ``StageTimer``: cumulative wall time per named stage.
 * ``roofline(fn, *args)``: operations (``FlopCounterMode``) and bytes (each
   tensor argument read once, each output written once) of one call, their
   floors at the card's peaks and which one binds, with the JAX function's
@@ -25,6 +27,7 @@ import time
 from typing import Callable, Dict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # Dense peaks of an H100 SXM (data sheet): tensor-core operations per
 # second by input dtype (f32 as TF32 would round it is not counted: f32 is
@@ -34,16 +37,66 @@ PEAK_OPS = {"H100": {torch.bfloat16: 989e12, torch.float16: 989e12,
 PEAK_HBM_BYTES = {"H100": 3.35e12}
 
 
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, ident=None):
+    """A host range named ``name`` around the block while a profiler runs
+    (the null context otherwise), with ``ident`` (an int: a batch's or a
+    request's id) as its one recorded input."""
+    # set while any torch profiler runs, on every thread; the thread-local
+    # torch.autograd._profiler_enabled() reads False on threads other than
+    # the one that started the profiler, so it cannot gate spans made there
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, () if ident is None else (ident,))
+
+
+class _Span:
+    """A record_function range entered through the profiler's entry that
+    takes inputs: a profiler that records inputs (``trace``) writes the id
+    into the event's "Concrete Inputs", which record_function's string
+    ``args`` never reach, and its enter and exit cost the host about half
+    of record_function's."""
+
+    __slots__ = ("_args", "_handle")
+
+    def __init__(self, name, inputs):
+        self._args = (name,) + inputs
+
+    def __enter__(self):
+        self._handle = torch.autograd._record_function_with_args_enter(
+            *self._args)
+
+    def __exit__(self, *exc):
+        torch.autograd._record_function_with_args_exit(self._handle)
+
+
+def _all_threads():
+    """The profiler's setting that records every thread's ranges and
+    operators (the default records only the thread that starts it), or
+    None where the installed torch has no such setting."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """A torch.profiler trace of the block into ``<log_dir>/trace.json``;
-    a no-op where the profiler cannot start."""
+    """A torch.profiler trace of the block, every thread's spans and ops
+    with their inputs, into ``<log_dir>/trace.json``; a no-op where the
+    profiler cannot start. The trace is kept in memory while the block
+    runs and written when it ends."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
+    prof = profile(activities=activities, record_shapes=True,
+                   experimental_config=_all_threads())
     try:
         prof.__enter__()
     except Exception:
@@ -83,43 +136,6 @@ def timed(fn: Callable, *args, iters: int = 5, warmup: int = 1):
     for _ in range(iters):
         force(fn(*args))
     return (time.perf_counter() - t0) / iters
-
-
-def cuda_timed(fn: Callable, *args, iters: int = 5, warmup: int = 1):
-    """Mean milliseconds per call on the card, between CUDA events."""
-    for _ in range(warmup):
-        fn(*args)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn(*args)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-class StageTimer:
-    """Accumulate named wall-clock stages: ``with st.stage("encode"): ...``."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> Dict[str, float]:
-        return {name: self.totals[name] / self.counts[name]
-                for name in self.totals}
 
 
 def _card(args):
