@@ -185,6 +185,11 @@ PROBS_TOL = {"max": 4e-3, "mean": 5e-6}
 # instantiate (16, 32, 64, 128), and the flash kernels the train-step
 # golden's D = 4.
 BENCH_B, BENCH_L, BENCH_T = 32, 128, 1000
+# BENCH_B sentences' mel frames at 5 frames a phoneme, 42-192 phonemes
+# (median 100): row 2 runs the bf16 MRF stages with the rows these leave.
+BULK_FRAMES = [210, 245, 270, 295, 315, 325, 340, 370, 380, 400, 415, 430,
+               445, 460, 470, 485, 500, 520, 530, 545, 565, 595, 615, 635,
+               660, 685, 715, 750, 785, 850, 960, 960]
 # H = 1 is the shipped 2 heads split over tp = 2 (the parallel path).
 ATTN_CHECKS = [(8, 2, 128, 128, "suffix"), (8, 2, 1000, 128, "suffix"),
                (3, 2, 77, 16, "suffix"), (5, 2, 200, 128, "edge"),
@@ -3204,9 +3209,16 @@ def mrf_timing_row(cfg, launches, mrf_runs, check_errs):
     since it is not one call. Bounds: 2 * 6 * sum(k) * C^2 operations per
     time step, bf16 over the bf16 peak; f32 as 3xTF32 (3 x operations over
     the TF32 peak) with the f32 CUDA-core bound beside it; bytes: x and y
-    once, the packed taps and biases once."""
+    once, the packed taps and biases once.
+
+    bf16 with rows: each stage again with the rows that the Generator
+    passes for BULK_FRAMES, held against the launch without rows (equal
+    bit for bit below each item's rows, zero past them) and timed: rows_ms,
+    rows_stage_ms; rows_blocks (mrf_rows_blocks) counts the blocks that
+    ran on the card."""
     import torch
 
+    from tts_king_torch.models.hifigan import needed_rows
     from tts_king_torch.ops.kernels import mrf
 
     out = {}
@@ -3215,6 +3227,7 @@ def mrf_timing_row(cfg, launches, mrf_runs, check_errs):
             ("f32", torch.float32, 1, SPEAK_LEN)):
         stages = fused_stages(cfg, t_mel)
         stage_ms, plain_ms, chain_ms, grid = [], 0.0, 0.0, []
+        rows_ms = []
         ops = nbytes = err = 0.0
         for C, Tw in stages:
             x, stage = mrf_inputs(B, C, Tw, dtype, seed=C)
@@ -3228,7 +3241,20 @@ def mrf_timing_row(cfg, launches, mrf_runs, check_errs):
                 fail(f"mrf_stage {dname} {[B, Tw, C]} timed inputs: max err "
                      f"{e} > {tol}")
             err = max(err, e)
-            del got, ref
+            del ref
+            if dname == "bf16":
+                rows = needed_rows(cfg.vocoder, BULK_FRAMES, Tw // t_mel, Tw)
+                cut = mrf.mrf_stage(x, packed, rows)
+                for b, r in enumerate(rows):
+                    if not (torch.equal(cut[b, :r].float(), got[b, :r])
+                            and not cut[b, r:].any()):
+                        fail(f"mrf_stage bf16 {[B, Tw, C]} with rows: item "
+                             f"{b} (rows {r}) differs from the launch "
+                             "without rows")
+                del cut
+                rows_ms.append(cuda_ms(lambda: mrf.mrf_stage(x, packed, rows),
+                                       warmup=1, reps=3))
+            del got
             stage_ms.append(cuda_ms(lambda: mrf.mrf_stage(x, packed),
                                     warmup=1, reps=3))
             plain_ms += cuda_ms(lambda: mrf.mrf_stage_plain(x, stage),
@@ -3263,6 +3289,9 @@ def mrf_timing_row(cfg, launches, mrf_runs, check_errs):
         if dname == "f32":
             out[dname]["bound_f32_ffma_ms"] = max(ops / PEAK_F32_OPS,
                                                   t_bytes) * 1e3
+        else:
+            out[dname].update(rows_ms=sum(rows_ms), rows_stage_ms=rows_ms,
+                              rows_blocks=mrf_rows_blocks(cfg))
     return {"name": "mrf_stage", "route": "cuda",
             "source": "tts_king_torch/csrc/mrf_stage.cu",
             "replaces": "tts_king_tpu/ops/pallas/mrf_packed.py:172",
@@ -3276,6 +3305,61 @@ def mrf_timing_row(cfg, launches, mrf_runs, check_errs):
                     "batched bf16); f32: row 2f at speak's 192-frame "
                     "sentence; checks_max_abs_err: the largest at "
                     "MRF_CHECKS"}
+
+
+def mrf_rows_blocks(cfg):
+    """The bf16 kernel's blocks with BULK_FRAMES' rows, counted on the card:
+    the source built again with -DTK_PROFILE_PHASES, whose blocks add one
+    to a device counter as they run their tile or exit, each stage launched
+    once through mrf.mrf_stage with both counters (the device's and the
+    wrapper's tiles_run / tiles_total) zeroed just before. Fails unless the
+    device's counts are the wrapper's. Returns the blocks that ran, the
+    blocks launched and their share over the three stages."""
+    import ctypes
+
+    import torch
+
+    from tts_king_torch.models.hifigan import needed_rows
+    from tts_king_torch.ops.kernels import _build, mrf
+
+    path = os.path.join(_build.build_dir(), "mrf_stage-blocks.so")
+    proc = subprocess.run(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-DTK_PROFILE_PHASES", "-o",
+         path, os.path.join(_build.CSRC_DIR, _build.SOURCES["mrf_stage"])],
+        capture_output=True, text=True)
+    if proc.returncode:
+        fail(f"nvcc -DTK_PROFILE_PHASES mrf_stage.cu:\n{proc.stdout}"
+             f"{proc.stderr}")
+    lib = _build.bind("mrf_stage", path)
+    lib.tk_mrf_block_counts.argtypes = [ctypes.c_void_p]
+    counts = (ctypes.c_ulonglong * 2)()
+    repo_lib = _build.load("mrf_stage")
+    ran = launched = 0
+    try:
+        _build._libs["mrf_stage"] = lib
+        for C, Tw in fused_stages(cfg, BENCH_T):
+            x, stage = mrf_inputs(BENCH_B, C, Tw, torch.bfloat16, seed=C)
+            rows = needed_rows(cfg.vocoder, BULK_FRAMES, Tw // BENCH_T, Tw)
+            packed = mrf.pack_stage(stage)
+            torch.cuda.synchronize()
+            _build.check(lib, lib.tk_mrf_block_counts(counts), "block counts")
+            mrf.tiles_run = mrf.tiles_total = 0
+            mrf.mrf_stage(x, packed, rows)
+            torch.cuda.synchronize()
+            _build.check(lib, lib.tk_mrf_block_counts(counts), "block counts")
+            dev_run, dev_exited = int(counts[0]), int(counts[1])
+            if (dev_run, dev_run + dev_exited) != (mrf.tiles_run,
+                                                  mrf.tiles_total):
+                fail(f"mrf_stage bf16 {[BENCH_B, Tw, C]} with rows: the card "
+                     f"ran {dev_run} of {dev_run + dev_exited} blocks, the "
+                     f"wrapper counts {mrf.tiles_run} of {mrf.tiles_total}")
+            ran += dev_run
+            launched += dev_run + dev_exited
+            del x, stage, packed
+    finally:
+        _build._libs["mrf_stage"] = repo_lib
+    torch.cuda.empty_cache()
+    return {"ran": ran, "launched": launched, "share": ran / launched}
 
 
 def phase_timing(cfg, launches, train_launches, errs, mel_lens, mrf_runs):

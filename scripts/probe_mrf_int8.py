@@ -25,8 +25,10 @@ f32, a source without tk_mrf_stage_f32 has the CUDA-core route from before
 two buffers fit) and is called so; an int8 source without
 tk_mrf_int8_cluster_stage has the interface from before the cluster design
 (one block a window, a device-memory scratch, taps in the plain layout) and
-is called so. The f32 checks are chip_smoke.py's MRF_CHECKS and speak's
-three stages; the int8 checks chip_smoke.py's INT8_CHECKS and
+is called so; a bf16 source without tk_mrf_stage_bf16 has the entry point
+from before per-item rows (tk_mrf_stage, every tile run) and is called
+so. The f32 checks are chip_smoke.py's MRF_CHECKS and speak's three
+stages; the int8 checks chip_smoke.py's INT8_CHECKS and
 INT8_EDGE_CHECKS; the int8 mode prints each stage's cluster plan.
 ``--phases`` also builds the repo's source with ``-DTK_PROFILE_PHASES``,
 whose marks add cycles per phase (int8: thread 0's x load and max,
@@ -69,19 +71,24 @@ _OLD_INT8 = {"tk_mrf_int8_smem_bytes": (_LL, [_I] * 3),
 _OLD_MRF = {"tk_mrf_smem_bytes": (_LL, [_I] * 4),
             "tk_mrf_stage": (_I, [_P] * 4 + [_I] * 7 + [_P, _I, _P]
                              + [_LL] * 6 + [_P])}
+# the packed-tap entry point from before per-item rows (is_bf16 in place of
+# rows; is_bf16 = 0 was the f32 CUDA-core route before tk_mrf_stage_f32)
+_OLD_TC = (_I, [_P] * 4 + [_I] * 8 + [_P, _I, _P] + [_LL] * 6 + [_P])
 
 
 def ptxas_summary(log):
     """nvcc's resource lines: the kernel each block of lines is about
-    (mrf_*<Cp>), registers, spills, and the wgmma notes that say the
-    compiler serialized the products."""
+    (mrf_*<Cp>; the bf16 kernel's instance for launches with rows is
+    mrf_stage_tc<Cp, rows>), registers, spills, and the wgmma notes that
+    say the compiler serialized the products."""
     out = []
     for ln in log.splitlines():
         if "Function properties for" in ln:
-            m = re.search(r"\d(mrf_\w*?)(?:ILi(\d+)E|E)", ln)
+            m = re.search(r"\d(mrf_\w*?)(?:ILi(\d+)E(?:Lb([01])E)?|E)", ln)
             if m:
-                out.append(m.group(1) + (f"<{m.group(2)}>" if m.group(2)
-                                         else ""))
+                rows = ", rows" if m.group(3) == "1" else ""
+                out.append(m.group(1) + (f"<{m.group(2)}{rows}>"
+                                         if m.group(2) else ""))
         elif "Used" in ln or "spill" in ln:
             out.append(ln.strip())
         elif "serialized" in ln:
@@ -107,9 +114,13 @@ def build(name, src, out, extra=()):
     elif hasattr(lib, "tk_mrf_smem_bytes"):
         old, sigs = "bf16", _OLD_MRF
     elif not hasattr(lib, "tk_mrf_stage_f32"):
-        # the bf16 entry point as today, the f32 route on the CUDA cores
-        old = "f32"
-        sigs = {"tk_mrf_stage": _build.SIGNATURES[name]["tk_mrf_stage"]}
+        # the packed bf16 taps without rows, the f32 route on the CUDA cores
+        old, sigs = "f32", {"tk_mrf_stage": _OLD_TC}
+    elif not hasattr(lib, "tk_mrf_stage_bf16"):
+        # the bf16 entry point without rows, the f32 route as today
+        old = "rows"
+        sigs = {"tk_mrf_stage": _OLD_TC, "tk_mrf_stage_f32":
+                _build.SIGNATURES[name]["tk_mrf_stage_f32"]}
     else:
         return _build.bind(name, out), False
     for fn_name, (restype, argtypes) in sigs.items():
@@ -236,6 +247,30 @@ def old_mrf_call(lib, x, stage):
     return y
 
 
+def old_tc_call(lib, x, stage):
+    """One launch through the bf16 entry point from before per-item rows
+    (tk_mrf_stage, is_bf16 = 1): the same packed taps and tile plan as the
+    repo's wrapper, every tile run."""
+    import torch
+
+    from tts_king_torch.ops.kernels import _build, mrf
+
+    if isinstance(stage, mrf.MrfStageWeights):
+        stage = mrf.pack_stage(stage)
+    B, T, C = x.shape
+    ks, dil = list(stage.kernel_sizes), list(stage.dilations)
+    plan = mrf.tile_plan(T, C, x.dtype, ks, dil)
+    y = torch.empty_like(x)
+    err = lib.tk_mrf_stage(
+        x.data_ptr(), y.data_ptr(), stage.taps.data_ptr(),
+        stage.biases.data_ptr(), 1, B, T, C, plan.Cp, plan.tt, plan.slots,
+        len(ks), (ctypes.c_int * len(ks))(*ks), len(dil),
+        (ctypes.c_int * len(dil))(*dil), *x.stride(), *y.stride(),
+        _build.current_stream(x.device))
+    _build.check(lib, err, "mrf_stage (interface before rows)")
+    return y
+
+
 def l2_read_gbps(cuda_ms):
     """A lower bound on the card's L2 read rate: torch.sum over a 32 MB
     buffer that stays resident in the 50 MB L2, launches back to back."""
@@ -332,7 +367,15 @@ def main(argv=None):
             return lambda x, stage: old_mrf_call(lib, x, stage)
         if old == "f32" and args.kernel == "f32":
             return lambda x, stage: old_f32_call(lib, x, stage)
+        if old in ("f32", "rows") and args.kernel == "bf16":
+            return lambda x, stage: old_tc_call(lib, x, stage)
         return None
+
+    def takes_weights(key):
+        """Whether key's caller packs the stage itself, in an earlier
+        layout (else it takes the stage packed once)."""
+        old = libs[key][1]
+        return old == "bf16" or (old == "f32" and args.kernel == "f32")
 
     def caller(key):
         """(x, stage) -> y through the library ``key``."""
@@ -382,7 +425,7 @@ def main(argv=None):
             x, stage = cs.mrf_inputs(cs.BENCH_B, C, T, torch.bfloat16,
                                      seed=C)
         packed = mrf.pack_stage(stage)
-        return x, {key: stage if old_call(key) else packed
+        return x, {key: stage if takes_weights(key) else packed
                    for key in libs}, packed
 
     t_mel = {"int8": cs.INT8_T, "bf16": cs.BENCH_T,

@@ -29,6 +29,21 @@
 // come from the wrapper's tile_plan (ops/kernels/mrf.py); the entry point
 // checks that they fit.
 //
+// Rows each item needs (bf16 only). A caller that pads a batch to one
+// length may pass, per item, the rows [0, n_b) that it needs (the
+// Generator passes the rows its delivered samples depend on, a receptive
+// field past the item's real frames). A block whose tile starts at or past
+// n_b writes zeros into its rows of y and exits before the producer issues
+// any bulk copy; a block that runs writes zeros past n_b in its branch
+// mean. Every row below n_b is computed exactly as without rows: a tile
+// reads x over its own halo and recomputes every conv on it, so its rows
+// depend on x alone, never on what a neighbouring block computed or
+// skipped. The counts travel in a kernel parameter (Rows, kRowItems items
+// a launch; the entry point launches a larger batch in slices), so they
+// need neither a copy to the device nor a sync. The kernel is compiled
+// twice, with and without rows (its ROWS argument): a launch without rows
+// runs code with no exit test and no zero fill.
+//
 // f32 (mrf_pass_f32, mrf_mean_f32), sized for speak's batch of one, where
 // a stage's tiles alone give too few blocks and f32 activations (4 bytes a
 // channel) leave little shared memory beside a halo:
@@ -122,8 +137,15 @@ constexpr long long kSmemLimit = 232448;
 // phase the mark closes, each with the barrier that ends it. bf16: x load,
 // tap wait, products, epilogue, branch mean; f32 (the passes): h load, tap
 // wait, products, conv1's epilogue, conv2's epilogue with the store of h.
+// bf16 with rows: thread 0 of each block also adds one to
+// g_blocks[0] if the block runs its tile, to g_blocks[1] if it exits.
 __device__ unsigned long long g_phase_cycles[5];
+__device__ unsigned long long g_blocks[2];
 __shared__ long long s_phase[6];   // 5 sums, then the last mark
+#define TK_BLOCK(i)                                                   \
+  do {                                                                \
+    if (threadIdx.x == 0) atomicAdd(&g_blocks[i], 1ull);              \
+  } while (0)
 #define TK_PHASE_START()                                              \
   do {                                                                \
     if (threadIdx.x == 0) {                                           \
@@ -149,6 +171,7 @@ __shared__ long long s_phase[6];   // 5 sums, then the last mark
 #define TK_PHASE_START() do { } while (0)
 #define TK_PHASE(i) do { } while (0)
 #define TK_PHASE_END() do { } while (0)
+#define TK_BLOCK(i) do { } while (0)
 #endif
 
 struct Plan {
@@ -161,6 +184,17 @@ struct Plan {
   int cmax, rmax;                    // f32: widest c and pass reach c (d + 1)
   long long woff[kMaxBranch][2 * kMaxDil];  // element offset of each conv's taps
 };
+
+// bf16: the rows each item of one launch needs, rows [0, n[b]) of item b;
+// a launch without rows passes the empty Rows<false>, last, so the other
+// parameters keep their offsets.
+constexpr int kRowItems = 256;
+template <bool ROWS>
+struct Rows {
+  int n[kRowItems];
+};
+template <>
+struct Rows<false> {};
 
 // v rounded to bf16, as a float.
 __device__ __forceinline__ float round_bf(float v) {
@@ -642,19 +676,21 @@ __device__ void load_x(const BF* __restrict__ xb, BF* __restrict__ A, int lo,
 }
 
 // Branch mean, accumulated in y: y = h0; y = y + h1; ...; y = (y + hn) / n,
-// over the tile's tt rows (buffer rows hmax + [0, tt)). Along time: 8 steps
-// of one channel a lane, one 16-byte load and store when aligned.
-template <int CP>
+// over the tile's tt rows (buffer rows hmax + [0, tt)); rows from `live` on
+// are not needed and get zeros (ROWS; else every row is live). Along
+// time: 8 steps of one channel a lane, one 16-byte load and store when
+// aligned.
+template <int CP, bool ROWS>
 __device__ void branch_mean(const BF* __restrict__ A, BF* __restrict__ yb,
-                            int hmax, int t0, int tt, int C, long long yst,
-                            long long ysc, bool vec, bool first, bool last,
-                            int nb) {
+                            int hmax, int t0, int tt, int live, int C,
+                            long long yst, long long ysc, bool vec,
+                            bool first, bool last, int nb) {
   constexpr int RS = TC<CP>::RS;
   const int tid = threadIdx.x;
-  auto mean = [&](float v, float prev) {
+  auto mean = [&](float v, float prev, int r) {
     if (!first) v = round_bf(prev + v);
     if (last) v = v / (float)nb;
-    return v;
+    return ROWS && r >= live ? 0.f : v;
   };
   if (yst == 1) {
     const int ng = (tt + 7) / 8;
@@ -670,13 +706,13 @@ __device__ void branch_mean(const BF* __restrict__ A, BF* __restrict__ yb,
         for (int i = 0; i < 8; ++i)
           oe[i] = __float2bfloat16_rn(mean(
               __bfloat162float(A[(hmax + r0 + i) * RS + ch]),
-              __bfloat162float(pe[i])));
+              __bfloat162float(pe[i]), r0 + i));
         *reinterpret_cast<uint4*>(dst) = outv;
       } else {
         for (int i = 0; i < 8 && r0 + i < tt; ++i) {
           const float prev = first ? 0.f : __bfloat162float(dst[i]);
-          dst[i] = __float2bfloat16_rn(
-              mean(__bfloat162float(A[(hmax + r0 + i) * RS + ch]), prev));
+          dst[i] = __float2bfloat16_rn(mean(
+              __bfloat162float(A[(hmax + r0 + i) * RS + ch]), prev, r0 + i));
         }
       }
     }
@@ -686,18 +722,61 @@ __device__ void branch_mean(const BF* __restrict__ A, BF* __restrict__ yb,
       BF* dst = yb + (t0 + r) * yst + ch * ysc;
       const float prev = first ? 0.f : __bfloat162float(*dst);
       *dst = __float2bfloat16_rn(
-          mean(__bfloat162float(A[(hmax + r) * RS + ch]), prev));
+          mean(__bfloat162float(A[(hmax + r) * RS + ch]), prev, r));
     }
   }
 }
 
-template <int CP>
+// Zeros into rows [t0, t0 + n) of item yb, by every thread of the block (a
+// block whose tile no needed row reaches). Along time: a lane on 8 steps of
+// one channel, the lanes of a warp on consecutive steps.
+__device__ void zero_rows(BF* __restrict__ yb, int t0, int n, int C,
+                          long long yst, long long ysc, bool vec) {
+  const BF zero = __float2bfloat16_rn(0.f);
+  if (yst == 1) {
+    const int ng = (n + 7) / 8;
+    for (int idx = threadIdx.x; idx < ng * C; idx += blockDim.x) {
+      const int ch = idx / ng, r0 = 8 * (idx % ng);
+      BF* dst = yb + (long long)(t0 + r0) + ch * ysc;
+      if (vec && r0 + 8 <= n)
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      else
+        for (int i = 0; i < 8 && r0 + i < n; ++i) dst[i] = zero;
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < n * C; idx += blockDim.x) {
+      const int r = idx / C, ch = idx % C;
+      yb[(t0 + r) * yst + ch * ysc] = zero;
+    }
+  }
+}
+
+// y's rows [t0, t0 + TT) can be stored 16 bytes at a time along time.
+__device__ __forceinline__ bool y_vec(const BF* y, int TT, long long ysb,
+                                      long long ysc) {
+  return TT % 8 == 0 && ysc % 8 == 0 && ysb % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(y) % 16 == 0;
+}
+
+template <int CP, bool ROWS>
 __global__ void __launch_bounds__(kThreadsTC, 1)
 mrf_stage_tc(const BF* __restrict__ x, BF* __restrict__ y,
              const BF* __restrict__ w, const BF* __restrict__ bias, Plan plan,
              int Tlen, int C, int TT, int slots, long long xsb, long long xst,
-             long long xsc, long long ysb, long long yst, long long ysc) {
+             long long xsc, long long ysb, long long yst, long long ysc,
+             Rows<ROWS> rows) {
   using Cfg = TC<CP>;
+  if constexpr (ROWS) {
+    if ((int)blockIdx.x * TT >= rows.n[blockIdx.y]) {
+      // uniform over the block: no barrier is reached
+      const int t0 = blockIdx.x * TT;
+      zero_rows(y + blockIdx.y * ysb, t0, min(TT, Tlen - t0), C, yst, ysc,
+                y_vec(y, TT, ysb, ysc));
+      TK_BLOCK(1);
+      return;
+    }
+    TK_BLOCK(0);
+  }
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = (kRingAlign - raw % kRingAlign) % kRingAlign;
@@ -737,8 +816,7 @@ mrf_stage_tc(const BF* __restrict__ x, BF* __restrict__ y,
   BF* yb = y + b * ysb;
   const bool xvec = xsc % 8 == 0 && xsb % 8 == 0 &&
                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const bool yvec = TT % 8 == 0 && ysc % 8 == 0 && ysb % 8 == 0 &&
-                    reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const bool yvec = y_vec(y, TT, ysb, ysc);
   float acc[Cfg::MT][Cfg::NACC];
 
   for (int br = 0; br < plan.nb; ++br) {
@@ -763,8 +841,11 @@ mrf_stage_tc(const BF* __restrict__ x, BF* __restrict__ y,
       hi -= c;
     }
 
-    branch_mean<CP>(A, yb, plan.hmax, t0, min(TT, Tlen - t0), C, yst, ysc,
-                    yvec, br == 0, br == plan.nb - 1, plan.nb);
+    int live = TT;
+    if constexpr (ROWS) live = rows.n[b] - t0;
+    branch_mean<CP, ROWS>(A, yb, plan.hmax, t0, min(TT, Tlen - t0), live, C,
+                          yst, ysc, yvec, br == 0, br == plan.nb - 1,
+                          plan.nb);
     consumers_sync();
     TK_PHASE(4);
   }
@@ -1129,12 +1210,14 @@ int widest_window(const Plan& plan, int TT) {
   return widest;
 }
 
+// rows: B counts on the host, or null (every row); a launch per kRowItems
+// items.
 template <int CP>
 cudaError_t launch_tc(const void* x, void* y, const void* w, const void* bias,
-                      const Plan& plan, int B, int Tlen, int C, int TT,
-                      int slots, long long xsb, long long xst, long long xsc,
-                      long long ysb, long long yst, long long ysc,
-                      cudaStream_t stream) {
+                      const int* rows, const Plan& plan, int B, int Tlen,
+                      int C, int TT, int slots, long long xsb, long long xst,
+                      long long xsc, long long ysb, long long yst,
+                      long long ysc, cudaStream_t stream) {
   // At least half an SM's shared memory, so one block runs per SM: its
   // consumers take the registers its producer frees (setmaxnreg), which a
   // second block on the SM would hold while waiting for its own.
@@ -1143,16 +1226,34 @@ cudaError_t launch_tc(const void* x, void* y, const void* w, const void* bias,
   if (slots < 1 || smem > kSmemLimit ||
       widest_window(plan, TT) > 64 * kConsumerWGs * TC<CP>::MT)
     return cudaErrorInvalidValue;
+  const dim3 grid((Tlen + TT - 1) / TT, B);
+  if (rows == nullptr) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mrf_stage_tc<CP, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    mrf_stage_tc<CP, false><<<grid, kThreadsTC, smem, stream>>>(
+        static_cast<const BF*>(x), static_cast<BF*>(y),
+        static_cast<const BF*>(w), static_cast<const BF*>(bias), plan, Tlen,
+        C, TT, slots, xsb, xst, xsc, ysb, yst, ysc, Rows<false>{});
+    return cudaGetLastError();
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      mrf_stage_tc<CP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mrf_stage_tc<CP, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Tlen + TT - 1) / TT, B);
-  mrf_stage_tc<CP><<<grid, kThreadsTC, smem, stream>>>(
-      static_cast<const BF*>(x), static_cast<BF*>(y),
-      static_cast<const BF*>(w), static_cast<const BF*>(bias), plan, Tlen, C,
-      TT, slots, xsb, xst, xsc, ysb, yst, ysc);
-  return cudaGetLastError();
+  for (int b0 = 0; b0 < B; b0 += kRowItems) {
+    const int n = B - b0 < kRowItems ? B - b0 : kRowItems;
+    Rows<true> r{};
+    for (int i = 0; i < n; ++i) r.n[i] = rows[b0 + i];
+    mrf_stage_tc<CP, true><<<dim3(grid.x, n), kThreadsTC, smem, stream>>>(
+        static_cast<const BF*>(x) + b0 * xsb, static_cast<BF*>(y) + b0 * ysb,
+        static_cast<const BF*>(w), static_cast<const BF*>(bias), plan, Tlen,
+        C, TT, slots, xsb, xst, xsc, ysb, yst, ysc, r);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <int CP>
@@ -1235,36 +1336,35 @@ bool make_plan(Plan& plan, int B, int Tlen, int C, int Cp, int TT, int nb,
 
 }  // namespace
 
-// bf16. Returns a cudaError_t value: 0 on a successful launch. TT and slots
-// come from the wrapper's tile_plan; a plan that does not fit is refused.
-// is_bf16 must be 1 (f32 goes through tk_mrf_stage_f32); the argument keeps
-// the interface of earlier sources, so scripts/probe_mrf_int8.py can time
-// one against another without an adapter.
-extern "C" int tk_mrf_stage(const void* x, void* y, const void* w,
-                            const void* bias, int is_bf16, int B, int Tlen,
-                            int C, int Cp, int TT, int slots, int nb,
-                            const int* ks, int nd, const int* dil,
-                            long long xsb, long long xst, long long xsc,
-                            long long ysb, long long yst, long long ysc,
-                            void* stream) {
+// bf16. Returns a cudaError_t value: 0 on a successful launch. rows: B
+// counts on the host (the rows each item needs; read before this returns),
+// or null for every row. TT and slots come from the wrapper's tile_plan; a
+// plan that does not fit is refused.
+extern "C" int tk_mrf_stage_bf16(const void* x, void* y, const void* w,
+                                 const void* bias, const int* rows, int B,
+                                 int Tlen, int C, int Cp, int TT, int slots,
+                                 int nb, const int* ks, int nd,
+                                 const int* dil, long long xsb, long long xst,
+                                 long long xsc, long long ysb, long long yst,
+                                 long long ysc, void* stream) {
   Plan plan;
-  if (!is_bf16 || !make_plan(plan, B, Tlen, C, Cp, TT, nb, ks, nd, dil,
-                             (long long)Cp * Cp))
+  if (!make_plan(plan, B, Tlen, C, Cp, TT, nb, ks, nd, dil,
+                 (long long)Cp * Cp))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (Cp == 16)
-    err = launch_tc<16>(x, y, w, bias, plan, B, Tlen, C, TT, slots, xsb, xst,
-                        xsc, ysb, yst, ysc, s);
+    err = launch_tc<16>(x, y, w, bias, rows, plan, B, Tlen, C, TT, slots,
+                        xsb, xst, xsc, ysb, yst, ysc, s);
   else if (Cp == 32)
-    err = launch_tc<32>(x, y, w, bias, plan, B, Tlen, C, TT, slots, xsb, xst,
-                        xsc, ysb, yst, ysc, s);
+    err = launch_tc<32>(x, y, w, bias, rows, plan, B, Tlen, C, TT, slots,
+                        xsb, xst, xsc, ysb, yst, ysc, s);
   else if (Cp == 64)
-    err = launch_tc<64>(x, y, w, bias, plan, B, Tlen, C, TT, slots, xsb, xst,
-                        xsc, ysb, yst, ysc, s);
+    err = launch_tc<64>(x, y, w, bias, rows, plan, B, Tlen, C, TT, slots,
+                        xsb, xst, xsc, ysb, yst, ysc, s);
   else
-    err = launch_tc<128>(x, y, w, bias, plan, B, Tlen, C, TT, slots, xsb,
-                         xst, xsc, ysb, yst, ysc, s);
+    err = launch_tc<128>(x, y, w, bias, rows, plan, B, Tlen, C, TT, slots,
+                         xsb, xst, xsc, ysb, yst, ysc, s);
   return (int)err;
 }
 
@@ -1309,6 +1409,15 @@ extern "C" int tk_mrf_phase_cycles(unsigned long long* out) {
   if (err != cudaSuccess) return (int)err;
   const unsigned long long zero[5] = {0, 0, 0, 0, 0};
   return (int)cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
+}
+
+// Copies the bf16 kernel's block counts with rows to out (host memory):
+// blocks that ran their tile, blocks that exited; and zeroes them.
+extern "C" int tk_mrf_block_counts(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_blocks, sizeof(g_blocks));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[2] = {0, 0};
+  return (int)cudaMemcpyToSymbol(g_blocks, zero, sizeof(zero));
 }
 #endif
 

@@ -70,11 +70,12 @@ from torch import nn
 
 from tts_king_torch.config import VocoderModelConfig
 from tts_king_torch.ops.kernels.mrf import (MAX_CHANNELS, MrfStagePacked,
-                                            MrfStageWeights, mrf_stage,
-                                            pack_stage)
+                                            MrfStageWeights, host_counts,
+                                            mrf_stage, pack_stage)
 from tts_king_torch.ops.kernels.mrf_int8 import (MrfStageInt8, mrf_stage_int8,
                                                  pack_factor,
                                                  quantize_mrf_stage)
+from tts_king_torch.ops.streaming import generator_receptive_field
 
 LRELU_SLOPE = 0.1
 
@@ -216,6 +217,17 @@ class ResBlock2(nn.Module):
         for i in range(len(self.dilation)):
             x = getattr(self, f"convs_{i}")(F.leaky_relu(x, LRELU_SLOPE)) + x
         return x
+
+
+def needed_rows(config, frames, rate, T):
+    """Per item, the rows of a stage at ``rate`` rows a frame (T rows) that
+    samples [0, frames[b] * hop) depend on: those below (frames[b] + R) *
+    rate. R (generator_receptive_field) is the whole generator's one-sided
+    reach in frames, so the layers after the stage carry a row's value less
+    than R frames back: whatever a row past the bound holds (zeros, or what
+    later rows make of such rows), no delivered sample changes."""
+    R = generator_receptive_field(config)
+    return [min(T, (f + R) * rate) for f in frames]
 
 
 class Generator(nn.Module):
@@ -366,11 +378,21 @@ class Generator(nn.Module):
             weights=[[c.weight for c in ch] for ch in chains],
             biases=[[c.bias for c in ch] for ch in chains])
 
-    def forward(self, mel):
+    def forward(self, mel, frames=None):
+        """mel (B, T, num_mels) -> waveform (B, T * hop). frames: None, or
+        each item's real mel frames as host integers (a list, numpy or a
+        CPU tensor). With frames the fused bf16 MRF stages compute only the
+        rows that samples [0, frames[b] * hop) depend on: those samples are
+        exactly as without frames, the ones past them are not."""
+        if frames is not None:
+            frames = host_counts(frames, mel.shape[0], mel.shape[1],
+                                 "Generator: frames")
         dtype = (self.compute_dtype
                  or next(self.conv_pre.parameters()).dtype)
         x = self.conv_pre(mel.to(dtype).transpose(1, 2))
-        for i in range(len(self.config.upsample_rates)):
+        rate = 1
+        for i, u in enumerate(self.config.upsample_rates):
+            rate *= u
             x = getattr(self, f"ups_{i}")(F.leaky_relu(x, LRELU_SLOPE))
             blocks = self._stage_blocks(i)
             stage = self._fused_stage(blocks, x.shape[1])
@@ -380,8 +402,10 @@ class Generator(nn.Module):
                                    self._int8_stage(i, stage),
                                    r).transpose(1, 2)
             elif stage is not None:
-                x = mrf_stage(x.transpose(1, 2),
-                              self._packed_stage(i, stage)).transpose(1, 2)
+                rows = (None if frames is None else needed_rows(
+                    self.config, frames, rate, x.shape[2]))
+                x = mrf_stage(x.transpose(1, 2), self._packed_stage(i, stage),
+                              rows).transpose(1, 2)
             else:
                 acc = None
                 for b in blocks:

@@ -62,7 +62,9 @@ class MelGANGenerator(nn.Module):
                 self.add_module(f"res_{i}_{j}", ResnetBlock(ch, 3 ** j))
         self.conv_out = nn.Conv1d(ch, 1, 7)
 
-    def forward(self, mel):
+    def forward(self, mel, frames=None):
+        """frames (each item's real mel frames) is taken as the HiFi-GAN
+        Generator takes it; every sample is computed all the same."""
         x = mel.to(self.conv_in.weight.dtype).transpose(1, 2)
         x = self.conv_in(_reflect(x, 3))
         for i, r in enumerate(self.ratios):

@@ -50,8 +50,8 @@ SIGNATURES = {
         "tk_flash_bwd_probs_bf16": (_I, [_P] * 11 + [_I] * 4 + [_LL] * 7
                                     + [ctypes.c_float, _P])},
     "mrf_stage": {
-        "tk_mrf_stage": (_I, [_P] * 4 + [_I] * 8 + [_P, _I, _P] + [_LL] * 6
-                         + [_P]),
+        "tk_mrf_stage_bf16": (_I, [_P] * 5 + [_I] * 7 + [_P, _I, _P]
+                              + [_LL] * 6 + [_P]),
         "tk_mrf_stage_f32": (_I, [_P] * 5 + [_I] * 7 + [_P, _I, _P]
                              + [_LL] * 6 + [_P])},
     "mrf_stage_int8": {
@@ -163,11 +163,11 @@ def load(name):
     return lib
 
 
-def count_launch(namespace, name="launches"):
-    """Add one to the launch count ``namespace[name]`` (a wrapper module's
+def count_launch(namespace, name="launches", n=1):
+    """Add ``n`` to the count ``namespace[name]`` (a wrapper module's
     globals()) under a lock: a bare ``+= 1`` from two threads can lose one."""
     with _count_lock:
-        namespace[name] += 1
+        namespace[name] += n
 
 
 def build_log(name):

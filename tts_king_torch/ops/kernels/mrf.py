@@ -8,6 +8,11 @@ tensors go to ``mrf_stage_plain``; CUDA tensors launch the kernel, or raise.
 ``launches`` counts the wrapper's launches (one per stage: in f32 that is a
 pass per dilation pair and the branch mean, launched together).
 
+``rows`` (per item, the rows a caller needs: the Generator's delivered
+samples depend on no others) lets the bf16 kernel skip the blocks whose
+tile starts past them (``grid_tiles``); ``tiles_run`` and ``tiles_total``
+count the bf16 kernel's blocks that ran and that its grid holds.
+
 The kernel reads a stage's taps packed once (``pack_stage``, an
 ``MrfStagePacked``): bf16 taps in the layout that the tensor cores' B
 operand reads from shared memory (``tap_byte_offset``), f32 taps in chunks
@@ -48,6 +53,7 @@ _F32_WARPS, _F32_MT = 8, 2
 _F32_MIN_SLOTS, _F32_MAX_SLOTS = 3, 8
 _F32_TARGET_BLOCKS = 2 * 132
 launches = 0
+tiles_run = tiles_total = 0
 
 
 @dataclass
@@ -94,13 +100,18 @@ def _as_weights(stage):
     return stage.unpack() if isinstance(stage, MrfStagePacked) else stage
 
 
-def mrf_stage_plain(x, stage):
+def mrf_stage_plain(x, stage, rows=None):
     """Mean over branches of ResBlock1(x), with per-conv zero padding.
 
     x: (B, T, C); stage: MrfStageWeights or MrfStagePacked. Each conv adds
     its bias after the product, as the JAX package does, so in bf16 the sum
-    is rounded once before the bias.
+    is rounded once before the bias. rows: None, or per item the rows
+    needed (host integers); item b's rows from rows[b] on are zero.
     """
+    if rows is not None:
+        rows = torch.tensor(host_counts(rows, *x.shape[:2]), device=x.device)
+        past = torch.arange(x.shape[1], device=x.device) >= rows[:, None]
+        return mrf_stage_plain(x, stage).masked_fill(past[:, :, None], 0)
     stage = _as_weights(stage)
     h0 = x.transpose(1, 2)
     acc = None
@@ -283,6 +294,15 @@ class TilePlan:
 
     def blocks(self, B, T):
         return B * -(-T // self.tt)
+
+
+def grid_tiles(plan: TilePlan, B, T, rows=None):
+    """(blocks that run, blocks of the grid) of a bf16 launch: item b's
+    tile j runs when j * tt < rows[b] (every tile without rows)."""
+    n = -(-T // plan.tt)
+    if rows is None:
+        return B * n, B * n
+    return sum(min(n, -(-r // plan.tt)) for r in rows), B * n
 
 
 def m_tiles_per_warpgroup(Cp):
@@ -572,17 +592,32 @@ def _check_packed(x, stage: MrfStagePacked, ks, dil):
                              "contiguous, on x's device and dtype")
 
 
-def mrf_stage(x, stage):
+def host_counts(counts, B, T, what="mrf_stage: rows"):
+    """Per-item counts (a list, numpy or a CPU tensor) as B Python ints,
+    each cut to T; raises on a device tensor (reading it would sync), a
+    count other than B or a negative count."""
+    if isinstance(counts, torch.Tensor) and counts.device.type != "cpu":
+        raise ValueError(f"{what} must be host integers, not a tensor on "
+                         f"{counts.device}")
+    counts = [int(c) for c in counts]
+    if len(counts) != B or min(counts) < 0:
+        raise ValueError(f"{what} {counts} for a batch of {B}")
+    return [min(c, T) for c in counts]
+
+
+def mrf_stage(x, stage, rows=None):
     """One MRF stage; same contract as ``mrf_stage_plain``.
 
     x: (B, T, C), any strides (a transposed (B, C, T) tensor is read in
     place). Returns (B, T, C) with x's memory layout. stage: an
     MrfStagePacked (the Generator's, packed once) or MrfStageWeights
     (packed on every call). On CUDA: f32 or bf16, C <= 128, odd kernel
-    sizes, weights on x's device and dtype.
+    sizes, weights on x's device and dtype. rows (host integers, one per
+    item): in bf16 the kernel runs only the tiles that start below them and
+    y is zero from rows[b] on; in f32 every row is computed, as without.
     """
     if x.device.type == "cpu":
-        return mrf_stage_plain(x, stage)
+        return mrf_stage_plain(x, stage, rows)
     if x.device.type != "cuda":
         raise ValueError(f"mrf_stage: unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -605,6 +640,8 @@ def mrf_stage(x, stage):
         _check_weights(x, stage)
         stage = pack_stage(stage)
     _check_packed(x, stage, ks, dil)
+    if rows is not None:
+        rows = host_counts(rows, B, T)
     plan = tile_plan(T, C, x.dtype, ks, dil, batch=B)
     y = torch.empty_like(x)
 
@@ -624,11 +661,16 @@ def mrf_stage(x, stage):
             plan.tt, plan.slots, len(ks), ks_arr, len(dil), dil_arr,
             *x.stride(), *y.stride(), _build.current_stream(x.device))
     else:
-        err = lib.tk_mrf_stage(
+        run, total = grid_tiles(plan, B, T, rows)
+        err = lib.tk_mrf_stage_bf16(
             x.data_ptr(), y.data_ptr(), stage.taps.data_ptr(),
-            stage.biases.data_ptr(), 1, B, T, C, plan.Cp, plan.tt,
-            plan.slots, len(ks), ks_arr, len(dil), dil_arr, *x.stride(),
-            *y.stride(), _build.current_stream(x.device))
+            stage.biases.data_ptr(),
+            None if rows is None else (ctypes.c_int * B)(*rows), B, T, C,
+            plan.Cp, plan.tt, plan.slots, len(ks), ks_arr, len(dil), dil_arr,
+            *x.stride(), *y.stride(), _build.current_stream(x.device))
     _build.check(lib, err, "mrf_stage")
     _build.count_launch(globals())
+    if x.dtype == torch.bfloat16:
+        _build.count_launch(globals(), "tiles_run", run)
+        _build.count_launch(globals(), "tiles_total", total)
     return y

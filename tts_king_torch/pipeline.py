@@ -441,10 +441,13 @@ class Vocoder:
         return self.model(self._mel(mel))
 
     @torch.inference_mode()
-    def vocode_int16(self, mel):
-        """mel -> device int16 waveform scaled by max_wav_value."""
+    def vocode_int16(self, mel, frames=None):
+        """mel -> device int16 waveform scaled by max_wav_value. frames:
+        each item's real mel frames as host integers; samples
+        [0, frames[b] * hop) are as without, the rest need not be
+        (Generator.forward)."""
         with span("vocoder.net"):
-            wav = self.model(self._mel(mel))
+            wav = self.model(self._mel(mel), frames)
         with span("vocoder.int16"):
             return wav_to_int16(wav, self.config.vocoder.max_wav_value)
 
@@ -467,9 +470,14 @@ class Vocoder:
 
     def generate(self, mel, lengths=None):
         """mel -> int16 numpy waveform (hifiapi.py:40-52); optional
-        per-item sample lengths trim it into a list."""
+        per-item sample lengths trim it into a list, and spare HiFi-GAN's
+        MRF kernel the rows past them."""
+        frames = None
+        if lengths is not None:
+            hop = int(np.prod(self.config.vocoder.upsample_rates))
+            frames = -(-np.asarray(lengths, np.int64) // hop)
         with span("vocoder.generate"):
-            wav = self.vocode_int16(mel)
+            wav = self.vocode_int16(mel, frames)
             with span("vocoder.fetch"):
                 wav = wav.cpu().numpy()
                 if lengths is not None:
