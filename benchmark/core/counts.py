@@ -1,5 +1,6 @@
 """Frozen work counts: the operations and bytes each kernel's function needs,
-and the model's FLOPs, from shapes alone.
+and FastSpeech2's FLOPs, from shapes alone (a vocoder's are its family's:
+benchmark/reference/<family>.py, flops_per_frame).
 
 The kernel counts are those of the port's kernel table (chip_smoke.py's
 attention_timing_row, mrf_timing_row, flash_timing_row and fused_stages),
@@ -121,35 +122,3 @@ def fs2_flops(model, phonemes, frames):
     postnet = sum(2 * 5 * a * b for a, b in zip(chans[:-1], chans[1:]))
     return enc + adaptor + dec + frames * (2 * t["decoder_hidden"] * n_mel
                                            + postnet)
-
-
-def hifigan_flops_per_frame(v):
-    """HiFi-GAN Generator FLOPs per mel frame: conv_pre (k 7), per stage a
-    transposed conv (k / u taps per output sample) and the MRF (per branch
-    of kernel k, 2 convs a dilation), conv_post (k 7)."""
-    c = v["upsample_initial_channel"]
-    flops, up = 2 * 7 * v["num_mels"] * c, 1
-    for u, k in zip(v["upsample_rates"], v["upsample_kernel_sizes"]):
-        up *= u
-        c_out = c // 2
-        flops += 2 * (k // u) * c * c_out * up
-        flops += sum(2 * len(d) * 2 * kk * c_out * c_out * up
-                     for kk, d in zip(v["resblock_kernel_sizes"],
-                                      v["resblock_dilation_sizes"]))
-        c = c_out
-    return flops + 2 * 7 * c * up
-
-
-def melgan_flops_per_frame(v):
-    """MelGAN Generator FLOPs per mel frame: conv_in (k 7), per ratio r a
-    transposed conv (2 taps per output sample) and the residual layers
-    (a dilated k 3 conv, a 1 x 1 conv and the 1 x 1 shortcut), conv_out."""
-    c = v["ngf"] * 2 ** len(v["upsample_rates"])
-    flops, up = 2 * 7 * v["num_mels"] * c, 1
-    for r in v["upsample_rates"]:
-        up *= r
-        c_out = c // 2
-        flops += 2 * 2 * c * c_out * up
-        flops += v["n_residual_layers"] * (2 * 3 + 2 + 2) * c_out * c_out * up
-        c = c_out
-    return flops + 2 * 7 * c * up

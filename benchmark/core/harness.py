@@ -8,9 +8,18 @@ comparison's numbers beside their limits.
 
 A cell's parts are files found by name, so a cell is added by adding files:
   configs/<config>.json        the configuration as it is run
+  programs/<family>.py         the program's side of its vocoder family
+                               (core/program.py); <family> is the config's
+                               model.vocoder_model, lower-case, letters and
+                               digits only ("HiFi-GAN" -> hifigan)
+  reference/<family>.py        the family's plain reference, FLOPs, weight
+                               rules and CPU-test widths
+                               (reference/vocoders.py)
   traffic/<traffic>.json       the traffic's parameters; "entry" names
   entries/<entry>.py           the code that drives that kind of traffic
-  limits/<workload>.json       the limit of each number compared
+  limits/<workload>.json       the limit of each number compared ("limits"),
+                               and the controls that must fail them
+                               ("controls", tests/test_bench_control.py)
   metrics/<metric>.py          a per-layer metric's reader
 """
 

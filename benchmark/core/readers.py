@@ -11,6 +11,7 @@ import os
 
 from benchmark.core import counts
 from benchmark.core.env import BENCH_DIR
+from benchmark.reference import vocoders
 
 
 def patterns(metric):
@@ -86,12 +87,12 @@ def mrf_bound_s(run, dtype):
 def model_peak_seconds(run):
     """The seconds the window's real (unpadded) work would take at the
     peaks: FastSpeech2's FLOPs of each sentence at its own lengths over
-    the peak of its dtype, plus the vocoder's per real frame over its."""
+    the peak of its dtype, plus the vocoder's per real frame (its family's
+    flops_per_frame) over its."""
     cfg = run.config
-    model, v = cfg["model"], cfg["vocoder"]
-    per_frame = (counts.melgan_flops_per_frame(v)
-                 if model["vocoder_model"] == "MelGAN"
-                 else counts.hifigan_flops_per_frame(v))
+    model = cfg["model"]
+    per_frame = vocoders.find(model["vocoder_model"]).flops_per_frame(
+        cfg["vocoder"])
     fs2_peak = counts.op_peak(precision_of(run, "acoustic_compute"))
     voc_peak = counts.op_peak(precision_of(run, "vocoder"))
     sentences = [s for b in run.records["batches"]

@@ -4,11 +4,14 @@ The rule for each tensor (by its name in the state dict): conv and linear
 weights N(0, 1/fan_in) (a transposed conv of kernel 2 x stride: 2 x its
 input channels), embeddings N(0, 0.3^2), norm scales 1 + N(0, 0.1^2), biases
 N(0, 0.02^2), BatchNorm running means N(0, 0.1^2) and variances
-1 + |N(0, 0.1^2)|. The shapes are read from a module built on the meta
-device, so nothing of the program's own initialisation runs.
+1 + |N(0, 0.1^2)|. A family's reference may give rules of its own for the
+tensors this rule does not fit (benchmark/reference/vocoders.py,
+WEIGHT_RULES). The shapes are read from a module built on the meta device,
+so nothing of the program's own initialisation runs.
 """
 
 import math
+import re
 
 import torch
 
@@ -18,9 +21,13 @@ def _transposed_weights(module):
             if isinstance(m, torch.nn.ConvTranspose1d)}
 
 
-def seeded_state_dict(module, seed, device, dtype=torch.float32):
+def seeded_state_dict(module, seed, device, dtype=torch.float32, rules=None):
     """A state dict for ``module`` (on the meta device) drawn from ``seed``
-    on ``device`` with one call of the generator, in ``dtype``."""
+    on ``device`` with one call of the generator, in ``dtype``. ``rules``:
+    {regular expression: rule}; a tensor whose key a pattern matches whole
+    is the first such rule applied to its N(0, 1) draw. Every tensor takes
+    its draw in the state dict's order whatever its rule, so a rule moves
+    no other tensor."""
     shapes = {k: tuple(v.shape) for k, v in module.state_dict().items()
               if not k.endswith("num_batches_tracked")}
     transposed = _transposed_weights(module)
@@ -34,7 +41,11 @@ def seeded_state_dict(module, seed, device, dtype=torch.float32):
         a = z[at:at + n].view(shape)
         at += n
         name = key.rsplit(".", 1)[-1]
-        if name == "running_mean":
+        rule = next((r for pattern, r in (rules or {}).items()
+                     if re.fullmatch(pattern, key)), None)
+        if rule is not None:
+            a = rule(a)
+        elif name == "running_mean":
             a = 0.1 * a
         elif name == "running_var":
             a = 1.0 + (0.1 * a).abs()

@@ -59,7 +59,7 @@ def _sentences(cfg, precision, weights, records, device):
     p = cfg["precisions"][precision]
     model, v = cfg["model"], cfg["vocoder"]
     sd = fs2.round_variables(weights[0], p["acoustic_variables"])
-    vocode = vocoders.VOCODERS[model["vocoder_model"]]
+    vocode = vocoders.find(model["vocoder_model"]).generate
     hop, scale = v["hop_size"], v["max_wav_value"]
     lower = p["vocoder"] != "float32"
     out = {"log_duration_err": 0.0, "pitch_err": 0.0, "energy_err": 0.0,

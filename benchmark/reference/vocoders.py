@@ -1,21 +1,25 @@
-"""Plain vocoder generators, the references the benchmark holds the
-program's vocoders to, and the int16 cast of the waveform.
+"""The vocoder families' plain references, found by name, and what they
+share: the precisions a generator computes in and the int16 cast of the
+waveform.
 
-HiFi-GAN V1 (Kong et al., arXiv:2010.05646; jik876/hifi-gan models.py
-Generator): conv_pre (k 7) -> per upsample stage [leaky_relu 0.1 ->
-transposed conv (kernel k, stride u, padding (k - u) / 2) -> the mean of
-the ResBlock1 branches, each 3 x [leaky_relu -> dilated conv -> leaky_relu
--> conv] with a residual add] -> leaky_relu 0.01 -> conv_post (k 7) ->
-tanh. Every conv is a plain F.conv1d.
+A configuration's family is its ``model.vocoder_model`` lower-cased, with
+everything but letters and digits dropped ("HiFi-GAN" -> ``hifigan``,
+"MelGAN" -> ``melgan``). Its reference is ``benchmark/reference/<family>.py``
+(``find``), which imports nothing of the program and gives:
+  generate(sd, v, mel, precision="float32")
+                mel (T, n_mel) natural-log -> waveform (T * hop,) in
+                [-1, 1], from a state dict keyed as the program's module
+                and the configuration's ``vocoder`` dict;
+  flops_per_frame(v)
+                the generator's FLOPs a mel frame (``mfu.bulk``);
+  MICRO         the ``vocoder`` widths the CPU tests replace (may be {});
+  WEIGHT_RULES  (optional) {regular expression: rule} for the tensors that
+                core/weights.py's general rule does not fit, such as a fixed
+                filter or a log-scale activation parameter: a rule takes the
+                tensor's N(0, 1) draw and returns its value.
+Its program side is ``benchmark/programs/<family>.py`` (core/program.py).
 
-MelGAN (Kumar et al., arXiv:1910.06711; descriptinc/melgan-neurips
-Generator, weight norm folded): reflect-padded conv (k 7) -> per ratio r
-[leaky_relu 0.2 -> transposed conv (2r, stride r, padding r / 2 + r % 2)
--> residual layers j (leaky_relu -> reflect pad 3^j -> conv k 3 dilated 3^j
--> leaky_relu -> conv 1 x 1, plus a 1 x 1 shortcut)] -> leaky_relu 0.2 ->
-reflect-padded conv (k 7) to one channel -> tanh. It takes log10 mels.
-
-``precision`` is how the generator computes:
+``precision`` is how a generator computes:
   "float32"   every op in float32 (TF32 off by the caller);
   "bfloat16"  as PyTorch computes a bfloat16 module: every tensor held in
               bfloat16 (the mel rounded on the way in, each op's result
@@ -25,12 +29,10 @@ reflect-padded conv (k 7) to one channel -> tanh. It takes log10 mels.
   "float8"    the lower-precision control: each conv's input and weight
               rounded to float8 e4m3 with one scale per tensor, products
               summed in float32, the rest in float32.
-
-Weights are a state dict keyed as the program's module; nothing of the
-program is imported.
 """
 
-import math
+import importlib
+import re
 
 import torch
 import torch.nn.functional as F
@@ -69,72 +71,15 @@ def _ops(precision):
             make(F.conv_transpose1d, cast_in, cast_out), r)
 
 
-def hifigan(sd, v, mel, precision="float32"):
-    """mel (T, n_mel) natural-log -> waveform (T * hop,) in [-1, 1]."""
-    conv, convt, r = _ops(precision)
-    g = {k: t.float() for k, t in sd.items()}
-
-    def lrelu(t, slope=0.1):
-        return r(F.leaky_relu(t, slope))
-
-    x = conv(r(mel.t()[None].float()), g["conv_pre.weight"],
-             g["conv_pre.bias"], padding=3)
-    n_k = len(v["resblock_kernel_sizes"])
-    for i, (u, k) in enumerate(zip(v["upsample_rates"],
-                                   v["upsample_kernel_sizes"])):
-        x = convt(lrelu(x), g[f"ups_{i}.weight"], g[f"ups_{i}.bias"],
-                  stride=u, padding=(k - u) // 2)
-        acc = None
-        for j, (rk, dil) in enumerate(zip(v["resblock_kernel_sizes"],
-                                          v["resblock_dilation_sizes"])):
-            p = f"resblocks_{i * n_k + j}"
-            h = x
-            for m, d in enumerate(dil):
-                t = conv(lrelu(h), g[f"{p}.convs1_{m}.weight"],
-                         g[f"{p}.convs1_{m}.bias"], dilation=d,
-                         padding=(rk * d - d) // 2)
-                t = conv(lrelu(t), g[f"{p}.convs2_{m}.weight"],
-                         g[f"{p}.convs2_{m}.bias"], padding=(rk - 1) // 2)
-                h = r(t + h)
-            acc = h if acc is None else r(acc + h)
-        x = r(acc / n_k)
-    x = conv(lrelu(x, 0.01), g["conv_post.weight"], g["conv_post.bias"],
-             padding=3)
-    return torch.tanh(x)[0, 0]
+def family(vocoder_model):
+    """The file name of a ``model.vocoder_model``'s family."""
+    return re.sub(r"[^a-z0-9]", "", vocoder_model.lower())
 
 
-def melgan(sd, v, mel, precision="float32"):
-    """mel (T, n_mel) natural-log -> waveform (T * hop,) in [-1, 1]."""
-    conv, convt, r = _ops(precision)
-    g = {k: t.float() for k, t in sd.items()}
-
-    def lrelu(t):
-        return r(F.leaky_relu(t, 0.2))
-
-    def reflect(t, p):
-        return F.pad(t, (p, p), mode="reflect")
-
-    x = mel.t()[None].float()
-    x = r(x / torch.full((), math.log(10.0), device=x.device))
-    x = conv(reflect(x, 3), g["conv_in.weight"], g["conv_in.bias"])
-    for i, u in enumerate(v["upsample_rates"]):
-        x = convt(lrelu(x), g[f"up_{i}.weight"], g[f"up_{i}.bias"],
-                  stride=u, padding=u // 2 + u % 2)
-        if u % 2:
-            x = F.pad(x, (0, 1))
-        for j in range(v["n_residual_layers"]):
-            p, d = f"res_{i}_{j}", 3 ** j
-            h = conv(reflect(lrelu(x), d), g[f"{p}.block_conv.weight"],
-                     g[f"{p}.block_conv.bias"], dilation=d)
-            h = conv(lrelu(h), g[f"{p}.block_out.weight"],
-                     g[f"{p}.block_out.bias"])
-            x = r(conv(x, g[f"{p}.shortcut.weight"],
-                       g[f"{p}.shortcut.bias"]) + h)
-    x = conv(reflect(lrelu(x), 3), g["conv_out.weight"], g["conv_out.bias"])
-    return torch.tanh(x)[0, 0]
-
-
-VOCODERS = {"HiFi-GAN": hifigan, "MelGAN": melgan}
+def find(vocoder_model):
+    """The reference of a ``model.vocoder_model``'s family, as a module."""
+    return importlib.import_module(
+        f"benchmark.reference.{family(vocoder_model)}")
 
 
 def to_int16(wav, max_wav_value):

@@ -2,12 +2,14 @@
 sizes: each control, put in the program's place, must come out not
 correct, and the program itself correct.
 
-Controls (one precision step below what the configuration states):
+Controls (one precision step below what the configuration states); a
+cell's are listed under "controls" in its limits file
+(benchmark/limits/<cell>.json):
   tf32        the program with TF32 on (its float32 convs and products;
               the configurations state float32 with TF32 off);
   fp8_vocoder the reference vocoder with its convs in float8 in place of
               the program's bf16 vocoder;
-  int8_mrf    fs2_hifigan_v1: the program's own int8 MRF path
+  int8_mrf    HiFi-GAN: the program's own int8 MRF path
               (Generator(mrf_backend="fused_int8")) in place of the bf16
               vocoder. It lowers only MRF stages 1-3: it passes wav_err
               (about 2.2 times the bf16 program's) and fails
@@ -16,7 +18,7 @@ Controls (one precision step below what the configuration states):
 Run as a script it prints each run's numbers, one JSON line a run, for
 setting the limits:
 
-    python benchmark/tests/test_bench_control.py --workload v1_bulk_bf16 \\
+    python benchmark/tests/test_bench_control.py --workload <cell> \\
         --seeds 11 12 13 --seconds 3 --controls sound tf32 int8_mrf
 """
 
@@ -31,6 +33,8 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
+
+from benchmark.tests import micro  # noqa: E402
 
 
 @contextlib.contextmanager
@@ -82,10 +86,10 @@ def _fp8(cfg, weights, vocoder):
 
     from benchmark.reference import vocoders
 
-    fn = vocoders.VOCODERS[cfg["model"]["vocoder_model"]]
+    fn = vocoders.find(cfg["model"]["vocoder_model"]).generate
     v = cfg["vocoder"]
 
-    def vocode_int16(mel):
+    def vocode_int16(mel, frames=None):
         with torch.no_grad():
             wav = torch.stack([fn(weights[1], v, m.float(), "float8")
                                for m in mel])
@@ -111,15 +115,18 @@ def readings(workload, seeds, seconds, controls, device):
                     workload, seed, seconds, False, device, time.time())
 
 
-CELL_CONTROLS = {"v1_bulk_bf16": ("tf32", "fp8_vocoder", "int8_mrf"),
-                 "melgan_bulk_bf16": ("tf32", "fp8_vocoder")}
+def cell_controls(workload):
+    """The controls the cell's limits file lists."""
+    from benchmark.core import harness
+
+    return tuple(harness.load_json("limits", f"{workload}.json")["controls"])
 
 
 @pytest.mark.chip
-@pytest.mark.parametrize("workload", sorted(CELL_CONTROLS))
+@pytest.mark.parametrize("workload", sorted(micro.cells()))
 def test_controls_fail_and_program_passes(cuda_device, workload):
     for seed, c, res in readings(workload, [101, 102, 103], 3.0,
-                                 ("sound",) + CELL_CONTROLS[workload],
+                                 ("sound",) + cell_controls(workload),
                                  cuda_device):
         assert res["correct"] == (c == "sound"), (seed, c, res["checks"])
 

@@ -1,11 +1,16 @@
 """The frozen work counts reproduce the kernel table's bounds (PERF.md,
 the port's kernel table: rows 1, 2, 2f and 3a, as chip_smoke.py counted
-them) at the same shapes, and the model FLOP counts their closed forms."""
+them) at the same shapes, the model FLOP counts their closed forms, and
+each configuration's vocoder family (benchmark/reference/<family>.py)
+counts the FLOPs frozen in tests/frozen/<config>.json."""
 
 import numpy as np
 import pytest
 
-from benchmark.core import counts
+from benchmark.core import counts, harness
+from benchmark.reference import hifigan, melgan, vocoders
+from benchmark.tests import micro
+from benchmark.tests.test_bench_weights import frozen
 
 SHIPPED_VOCODER = {"upsample_rates": [8, 8, 2, 2],
                    "upsample_kernel_sizes": [16, 16, 4, 4],
@@ -72,14 +77,17 @@ def test_flash_forward_bound_matches_row_3a():
 
 
 def test_model_flops_per_frame():
-    """HiFi-GAN V1 ~614 MFLOP and MelGAN ~90 MFLOP a mel frame; FastSpeech2
-    at ~5 frames a phoneme ~45 MFLOP a frame."""
-    assert counts.hifigan_flops_per_frame(SHIPPED_VOCODER) == pytest.approx(
+    """HiFi-GAN V1 ~614 MFLOP and MelGAN ~90 MFLOP a mel frame (exactly
+    614,105,088 and 90,341,376); FastSpeech2 at ~5 frames a phoneme ~45
+    MFLOP a frame."""
+    assert hifigan.flops_per_frame(SHIPPED_VOCODER) == pytest.approx(
         613.6e6, rel=2e-3)
-    melgan = {"upsample_rates": [8, 8, 2, 2], "ngf": 32,
-              "n_residual_layers": 3, "num_mels": 80}
-    assert counts.melgan_flops_per_frame(melgan) == pytest.approx(
+    assert hifigan.flops_per_frame(SHIPPED_VOCODER) == 614_105_088
+    melgan_v = {"upsample_rates": [8, 8, 2, 2], "ngf": 32,
+                "n_residual_layers": 3, "num_mels": 80}
+    assert melgan.flops_per_frame(melgan_v) == pytest.approx(
         90.3e6, rel=5e-3)
+    assert melgan.flops_per_frame(melgan_v) == 90_341_376
     model = {"transformer": {"encoder_layer": 4, "encoder_head": 2,
                              "encoder_hidden": 256, "decoder_layer": 6,
                              "decoder_head": 2, "decoder_hidden": 256,
@@ -94,3 +102,11 @@ def test_model_flops_per_frame():
 def test_f32_peak_is_3xtf32():
     p = counts.peaks()
     assert p["f32_ops_per_s"] == pytest.approx(p["tf32_ops_per_s"] / 3, rel=1e-3)
+
+
+@pytest.mark.parametrize("name", micro.configs())
+def test_family_flops_per_frame_are_frozen(name):
+    cfg = harness.load_json("configs", f"{name}.json")
+    family = vocoders.find(cfg["model"]["vocoder_model"])
+    assert (family.flops_per_frame(cfg["vocoder"])
+            == frozen(name)["vocoder_flops_per_frame"])

@@ -56,8 +56,8 @@ def half_the_batch_left_out():
     from tts_king_torch.pipeline import Vocoder
 
     def make(vocode_int16):
-        def half(self, mel):
-            out = vocode_int16(self, mel).clone()
+        def half(self, mel, frames=None):
+            out = vocode_int16(self, mel, frames).clone()
             out[out.shape[0] // 2:] = 0
             return out
         return half
@@ -70,20 +70,18 @@ FAULTS = {"sound": contextlib.nullcontext,
           "half_the_batch_left_out": half_the_batch_left_out}
 
 
-CELLS = {"v1_bulk_bf16": ("fs2_hifigan_v1", micro.TRAFFIC, 0.5),
-         "melgan_bulk_bf16": ("fs2_melgan", micro.TRAFFIC, 0.5)}
+CELLS = micro.cells()
 
 
 @pytest.mark.parametrize("workload", sorted(CELLS))
 @pytest.mark.parametrize("fault", sorted(FAULTS))
 def test_fault_makes_the_run_incorrect(tmp_path, workload, fault):
-    config, traffic, seconds = CELLS[workload]
     with FAULTS[fault]():
-        res = harness.run_cell(workload, 2 ** 31 + 77, seconds, False,
+        res = harness.run_cell(workload, 2 ** 31 + 77, 0.5, False,
                                torch.device("cpu"), time.time(),
-                               config_file=micro.config_file(tmp_path,
-                                                             config),
-                               traffic_overrides=traffic)
+                               config_file=micro.config_file(
+                                   tmp_path, CELLS[workload]),
+                               traffic_overrides=micro.TRAFFIC)
     assert res["correct"] == (fault == "sound"), res["checks"]
     assert list(res)[-1] == "checks"
     assert res["attempted"] > 0

@@ -11,8 +11,9 @@ import sys
 import pytest
 
 from benchmark.core import env
+from benchmark.tests import micro
 
-ARGS = ["--workload", "v1_bulk_bf16", "--seed", str(2 ** 31 + 5),
+ARGS = ["--workload", next(iter(micro.cells())), "--seed", str(2 ** 31 + 5),
         "--seconds", "1", "--trace", "0"]
 
 

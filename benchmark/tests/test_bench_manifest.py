@@ -1,7 +1,8 @@
 """BENCHMARK.json keeps the benchmark's contract: its keys, names, units and
-lengths; every cell's files exist; every cell reports set-up, another
-end-to-end metric and a per-layer metric; and every per-layer metric has
-its reader (and a kernel metric its name patterns)."""
+lengths; every cell's files exist, its vocoder family's two among them;
+every cell reports set-up, another end-to-end metric and a per-layer
+metric; and every per-layer metric has its reader (and a kernel metric its
+name patterns)."""
 
 import json
 import os
@@ -10,6 +11,7 @@ import re
 import pytest
 
 from benchmark.core.env import BENCH_DIR, CHECKOUT
+from benchmark.reference import vocoders
 
 with open(os.path.join(CHECKOUT, "BENCHMARK.json")) as f:
     BENCH = json.load(f)
@@ -63,6 +65,11 @@ def test_cells_have_their_files_and_metrics():
     for c in configs.values():
         assert os.path.isfile(os.path.join(CHECKOUT, c["file"]))
         assert all(NAME.match(k) for k in c["reduced"])
+        with open(os.path.join(CHECKOUT, c["file"])) as f:
+            family = vocoders.family(json.load(f)["model"]["vocoder_model"])
+        for side in ("programs", "reference"):
+            assert os.path.isfile(os.path.join(BENCH_DIR, side,
+                                               family + ".py")), (c, side)
     for w in BENCH["workloads"]:
         assert w["config"] in configs and w["chips"] in (1, 4)
         for part in (("traffic", w["traffic"] + ".json"),

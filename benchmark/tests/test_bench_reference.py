@@ -1,19 +1,15 @@
 """The plain reference (benchmark/reference/) against tts_king_torch on the
 same weights, on the CPU at small widths: FastSpeech2 with the program's
-own choices, HiFi-GAN and MelGAN; the energy ratio that holds the bf16
-vocoder and fails the int8 one; and a FastSpeech2 computed in bf16 misses
-the float32 limits the bulk cells hold the program to."""
-
-import json
-import os
+own choices, each configuration's vocoder; the energy ratio that holds the
+bf16 vocoder and fails HiFi-GAN's int8 one; and a FastSpeech2 computed in
+bf16 misses the float32 limits the bulk cells hold the program to."""
 
 import numpy as np
 import pytest
 import torch
 
-from benchmark.core import program
-from benchmark.core.env import BENCH_DIR
-from benchmark.reference import fs2, vocoders
+from benchmark.core import harness, program
+from benchmark.reference import fs2, hifigan, vocoders
 from benchmark.tests import micro
 
 CPU = torch.device("cpu")
@@ -65,7 +61,7 @@ def test_fs2_reference_matches_the_program(precision):
         assert float((got - mel).abs().max()) < 1e-5
 
 
-@pytest.mark.parametrize("name", ["fs2_hifigan_v1", "fs2_melgan"])
+@pytest.mark.parametrize("name", micro.configs())
 def test_vocoder_reference_matches_the_program(name):
     cfg = micro.config(name)
     cfg["precisions"]["f32"] = {"acoustic_variables": "float32",
@@ -74,14 +70,13 @@ def test_vocoder_reference_matches_the_program(name):
     weights = program.make_weights(cfg, "f32", 9, CPU, micro.calibration())
     _, vocoder = program.build(cfg, "f32", weights, CPU)
     mel = torch.randn(1, 37, 80, generator=torch.Generator().manual_seed(0))
+    generate = vocoders.find(cfg["model"]["vocoder_model"]).generate
     with torch.no_grad():
         got = vocoder(mel)[0]
-        ref = vocoders.VOCODERS[cfg["model"]["vocoder_model"]](
-            weights[1], cfg["vocoder"], mel[0])
+        ref = generate(weights[1], cfg["vocoder"], mel[0])
     assert got.shape == ref.shape == (37 * 256,)
     assert float((got - ref).abs().max()) < 1e-5
-    fp8 = vocoders.VOCODERS[cfg["model"]["vocoder_model"]](
-        weights[1], cfg["vocoder"], mel[0], "float8")
+    fp8 = generate(weights[1], cfg["vocoder"], mel[0], "float8")
     assert float((fp8 - ref).norm() / ref.norm()) > 1e-2
 
 
@@ -94,7 +89,7 @@ def test_int16_cast_wraps_at_full_scale():
 def test_fs2_in_bf16_misses_the_f32_limit():
     """FastSpeech2 computed in bf16 (the module cast, as the JAX bench
     builds it) against the reference on the same bf16-rounded variables:
-    its mel or a variance prediction misses the bulk cells' limit."""
+    its mel or a variance prediction misses every cell's limit."""
     cfg = micro.config()
     weights, acoustic, _, ph, lens, spk, out = program_batch(cfg, "bf16")
     acoustic.model.to(torch.bfloat16)
@@ -109,8 +104,6 @@ def test_fs2_in_bf16_misses_the_f32_limit():
                                  out["mel_bucket"]))
         low["mel_bucket"] = out["mel_bucket"]
         rows = reference_rows(cfg, "bf16", weights, ph, lens, spk, low)
-    with open(os.path.join(BENCH_DIR, "limits", "v1_bulk_bf16.json")) as f:
-        limits = json.load(f)["limits"]
     worst = {"mel_err": 0.0, "log_duration_err": 0.0, "pitch_err": 0.0,
              "energy_err": 0.0}
     for r, (mel, n, errs) in enumerate(rows):
@@ -121,7 +114,9 @@ def test_fs2_in_bf16_misses_the_f32_limit():
         errs.pop("duration_mismatch")
         for k, e in errs.items():
             worst[f"{k}_err"] = max(worst[f"{k}_err"], e)
-    assert any(worst[k] > limits[k] for k in worst), (worst, limits)
+    for cell in micro.cells():
+        limits = harness.load_json("limits", f"{cell}.json")["limits"]
+        assert any(worst[k] > limits[k] for k in worst), (cell, worst, limits)
 
 
 def test_noise_ratio_holds_bf16_and_fails_int8():
@@ -132,7 +127,7 @@ def test_noise_ratio_holds_bf16_and_fails_int8():
     times more."""
     from tts_king_torch.models.hifigan import Generator
 
-    cfg = micro.config()
+    cfg = micro.config(micro.configs("hifigan")[0])
     cfg["vocoder"].update(upsample_initial_channel=128,
                           resblock_kernel_sizes=[3, 7, 11],
                           resblock_dilation_sizes=[[1, 3, 5]] * 3)
@@ -143,8 +138,8 @@ def test_noise_ratio_holds_bf16_and_fails_int8():
     int8 = int8.to(torch.bfloat16).eval()
     mel = torch.randn(1, 24, 80, generator=torch.Generator().manual_seed(3))
     with torch.no_grad():
-        ref = vocoders.hifigan(weights[1], cfg["vocoder"], mel[0])
-        stated = vocoders.hifigan(weights[1], cfg["vocoder"], mel[0],
+        ref = hifigan.generate(weights[1], cfg["vocoder"], mel[0])
+        stated = hifigan.generate(weights[1], cfg["vocoder"], mel[0],
                                   "bfloat16")
         energy = {name: float(((w[0].float() - ref) ** 2).sum())
                   for name, w in (("bf16", vocoder(mel)), ("int8", int8(mel)),

@@ -7,7 +7,8 @@ metrics that use it).
     window), and the idle reader against the sum over every busy interval;
   * a trace without the program's spans (a program that records none):
     every reader returns None;
-  * a CPU micro traced run holds every span of the bulk path;
+  * a CPU micro traced run (BENCHMARK.json's first cell) holds every span
+    of the bulk path;
   * on the card (``chip``), at the cells' sizes: the FastSpeech2 stages sum
     to 97-100.5% of ``fs2_ms.bulk``, the vocoder's parts to 97-100.5% of
     ``vocoder_ms.bulk``, and the idle inside the two calls is at most the
@@ -155,9 +156,10 @@ def test_cpu_traced_run_holds_the_bulk_spans(tmp_path, monkeypatch):
             seen.append(self)
 
     monkeypatch.setattr(trace_module, "Trace", Kept)
-    res = harness.run_cell("v1_bulk_bf16", 2 ** 31 + 91, 0.5, True,
+    workload, config = next(iter(micro.cells().items()))
+    res = harness.run_cell(workload, 2 ** 31 + 91, 0.5, True,
                            torch.device("cpu"), time.time(),
-                           config_file=micro.config_file(tmp_path),
+                           config_file=micro.config_file(tmp_path, config),
                            traffic_overrides=micro.TRAFFIC)
     assert res["correct"], res["checks"]
     (tr,) = seen
@@ -170,7 +172,7 @@ def test_cpu_traced_run_holds_the_bulk_spans(tmp_path, monkeypatch):
 
 
 @pytest.mark.chip
-@pytest.mark.parametrize("workload", ["v1_bulk_bf16", "melgan_bulk_bf16"])
+@pytest.mark.parametrize("workload", list(micro.cells()))
 def test_spans_reconcile_on_the_card(cuda_device, workload):
     res = harness.run_cell(workload, 2 ** 31 + 5, 5.0, True, cuda_device,
                            time.time())
