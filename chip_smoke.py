@@ -117,7 +117,12 @@ non-zero exit (nothing is caught):
                every row those of the parallel path (launches_parallel);
                rows 1p and 3p the kernels' bf16-probability mode at the
                batched and speak shapes and the train step's (library:
-               none; SDPA's f32 time beside).
+               none; SDPA's f32 time beside); row 4, BigVGAN-v2's fused
+               anti-aliased SnakeBeta (amp_act_timing_row), checked against
+               its plain version and timed at its six stages' shapes (B =
+               32, T_mel = 1000) beside the unfused PyTorch chain, and its
+               counters held against the trace of one bf16
+               Vocoder.generate(mel, lengths) at B 32 and T_mel 1000.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout, it prints no result and exits 1. The JAX package is not imported.
@@ -3362,6 +3367,188 @@ def mrf_rows_blocks(cfg):
     return {"ran": ran, "launched": launched, "share": ran / launched}
 
 
+# BigVGAN-v2's anti-aliased activation (row 4): the stages' (C, T) at the
+# bulk cell's mel bucket 1000 (rates 4 4 2 2 2 2 from 1536 channels), run
+# at B 32, and shapes that take the kernel's general path: T no multiple
+# of 8, shorter than a tile, a tile and a sample past one.
+AMP_STAGES = [(768, 4000), (384, 16000), (192, 32000), (96, 64000),
+              (48, 128000), (24, 256000)]
+AMP_CHECKS = [(3, 5, 1), (2, 7, 13), (3, 9, 1027), (2, 24, 2053),
+              (2, 16, 3072), (1, 32, 5000)]
+
+
+def amp_act_unfused(x, alpha, beta):
+    """Upstream's torch Activation1d(SnakeBeta) as PyTorch ops in x's dtype
+    (NVIDIA/BigVGAN alias_free_activation/torch): the yardstick that the
+    fused kernel replaces."""
+    import torch
+    import torch.nn.functional as F
+
+    from tts_king_torch.ops.kernels.amp_act import lowpass_filter
+
+    C = x.shape[1]
+    w = lowpass_filter().to(x.device, x.dtype).view(1, 1, 12).expand(C, 1, 12)
+    u = F.pad(x, (5, 5), mode="replicate")
+    u = 2 * F.conv_transpose1d(u, w, stride=2, groups=C)[..., 15:-15]
+    a = torch.exp(alpha)[None, :, None]
+    b = torch.exp(beta)[None, :, None]
+    u = u + (1.0 / (b + 1e-9)) * torch.sin(u * a) ** 2
+    return F.conv1d(F.pad(u, (5, 6), mode="replicate"), w, stride=2,
+                    groups=C)
+
+
+def amp_act_inputs(B, C, T, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = 3.0 * torch.randn((B, C, T), generator=g, device="cuda")
+    a = 0.3 * torch.randn(C, generator=g, device="cuda")
+    b = 0.3 * torch.randn(C, generator=g, device="cuda")
+    return x, a, b
+
+
+def amp_act_check(x, a, b):
+    """Hold the fused activation to its plain version on the f32 inputs x
+    (B, C, T), a and b (C,), and on them rounded to bf16: f32 within 1e-6
+    of the plain version's largest value; bf16 within one bf16 ulp of the
+    plain f32 result rounded once (or 1e-5 of the largest value where the
+    sums cancel to near zero). Fails the run past either; returns the
+    errors."""
+    import torch
+
+    from tts_king_torch.ops.kernels import amp_act as amp
+
+    got = amp.amp_act(x, a, b)
+    ref = amp.amp_act_plain(x, a, b)
+    err32 = float((got - ref).abs().max()) / float(ref.abs().max())
+    del got, ref
+    xb, ab, bb = x.bfloat16(), a.bfloat16(), b.bfloat16()
+    gotb = amp.amp_act(xb, ab, bb).float()
+    rounded = amp.amp_act_plain(xb.float(), ab.float(), bb.float())
+    scale = float(rounded.abs().max())
+    rounded = rounded.bfloat16().float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        rounded.abs().clamp(min=2.0 ** -126))) - 7)
+    err = (gotb - rounded).abs()
+    room = torch.maximum(ulp, torch.full_like(err, 1e-5 * scale))
+    by_ulp = ulp >= 1e-5 * scale
+    ulps = float((err / ulp)[by_ulp].max()) if bool(by_ulp.any()) else 0.0
+    cancel = (float(err[~by_ulp].max()) / scale
+              if not bool(by_ulp.all()) else 0.0)
+    if not (err32 <= 1e-6 and bool((err <= room).all())
+            and bool(torch.isfinite(gotb).all())):
+        fail(f"amp_act {list(x.shape)}: f32 rel err {err32}, bf16 {ulps} "
+             f"ulps, {float((err - room).max())} past its room")
+    # bf16: the most ulps where one ulp is the room, and the largest error
+    # over the largest value where 1e-5 of it is
+    return {"f32_rel_err": err32, "bf16_max_ulps": ulps,
+            "bf16_cancel_rel_err": cancel}
+
+
+def amp_act_timing_row(smi):
+    """Row 4: the fused anti-aliased SnakeBeta (csrc/amp_act.cu). Checks
+    (amp_act_check) at AMP_CHECKS, then at each stage of AMP_STAGES at B 32
+    the check and, bf16: the kernel's ms beside its bound (input read and
+    output written once, 2 bytes an element, over HBM; 24 multiply-adds and
+    two sines an element over the CUDA cores' f32 peak), the plain
+    version's ms and the unfused PyTorch chain's in bf16. Last, one bf16
+    BigVGAN-v2 Vocoder.generate(mel, lengths) at the published widths, B 32
+    and the mel bucket 1000 with BULK_FRAMES' lengths (the bulk cell's
+    call), under the profiler: the wrapper's counters (amp_act.launches,
+    amp_act.elements, zeroed just before) against the kernel's launches in
+    the trace and the vocoder.act spans."""
+    import numpy as np
+    import torch
+
+    from tts_king_torch.config import TTSConfig, VocoderModelConfig
+    from tts_king_torch.models.bigvgan import BigVGAN
+    from tts_king_torch.ops.kernels import amp_act as amp
+    from tts_king_torch.pipeline import Vocoder
+    from tts_king_torch.weights import seeded_state_dict
+
+    checks = {}
+    for B, C, T in AMP_CHECKS:
+        x, a, b = amp_act_inputs(B, C, T, seed=B * C + T)
+        checks[f"{B}x{C}x{T}"] = amp_act_check(x, a, b)
+        del x
+    stages = []
+    for C, T in AMP_STAGES:
+        x, a, b = amp_act_inputs(BENCH_B, C, T, seed=C)
+        checks[f"{BENCH_B}x{C}x{T}"] = amp_act_check(x, a, b)
+        x, a, b = x.bfloat16(), a.bfloat16(), b.bfloat16()
+        ms = cuda_ms(lambda: amp.amp_act(x, a, b), warmup=3, reps=10)
+        plain_ms = cuda_ms(lambda: amp.amp_act_plain(x, a, b), warmup=1,
+                           reps=3)
+        lib_ms = cuda_ms(lambda: amp_act_unfused(x, a, b), warmup=1, reps=3)
+        n = float(x.numel())
+        t_bytes = 2 * 2 * n / PEAK_BYTES
+        t_ops = (24 * 2 + 2 * 4) * n / PEAK_F32_OPS
+        stages.append({"shape": [BENCH_B, C, T], "ms": ms,
+                       "bound_ms": max(t_bytes, t_ops) * 1e3,
+                       "bound_by": "bytes" if t_bytes >= t_ops
+                       else "operations",
+                       "plain_ms": plain_ms, "library_ms": lib_ms})
+        del x
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_vs_plain", "kernel": "amp_act", "checks": checks,
+          "ok": True})
+    tc = TTSConfig()
+    tc.model.vocoder_model = "BigVGAN"
+    tc.vocoder = VocoderModelConfig(
+        upsample_rates=[4, 4, 2, 2, 2, 2],
+        upsample_kernel_sizes=[8, 8, 4, 4, 4, 4],
+        upsample_initial_channel=1536, max_wav_value=32767.0)
+    with torch.device("meta"):
+        sd = seeded_state_dict(BigVGAN(tc.vocoder), 0)
+    # conv_post at 1/80 of its draw, as the benchmark's weight rule
+    sd["conv_post.weight"] = sd["conv_post.weight"] / 80
+    voc = Vocoder(tc, variables=sd, dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    mel = torch.randn(BENCH_B, BENCH_T, 80, generator=g, device="cuda") - 5
+    lengths = np.asarray(BULK_FRAMES) * 256
+    voc.generate(mel, lengths)
+    torch.cuda.synchronize()
+    amp.launches = amp.elements = 0
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wavs = voc.generate(mel, lengths)
+        torch.cuda.synchronize()
+    counted = {"launches": amp.launches, "elements": amp.elements}
+    events = prof.events()
+    traced = sum(1 for e in events if "amp_act_kernel" in e.name
+                 and e.device_type == torch.autograd.DeviceType.CUDA)
+    spans = sum(1 for e in events if e.name == "vocoder.act"
+                and e.device_type == torch.autograd.DeviceType.CPU)
+    want_elements = BENCH_B * BENCH_T * (sum(
+        C * T // 1000 * 18 for C, T in AMP_STAGES) + 24 * 256)
+    if not (counted["launches"] == traced == spans == 109
+            and counted["elements"] == want_elements
+            and [len(w) for w in wavs] == list(lengths)):
+        fail(f"amp_act counters {counted} against the trace: {traced} "
+             f"launches, {spans} vocoder.act spans (109 and "
+             f"{want_elements} elements wanted)")
+    row = {"name": "amp_act", "route": "cuda",
+           "source": "tts_king_torch/csrc/amp_act.cu",
+           "replaces": "none (BigVGAN's Activation1d(SnakeBeta); the JAX "
+                       "package has no BigVGAN)", "dtype": "bf16",
+           "ms": sum(s["ms"] for s in stages),
+           "bound_ms": sum(s["bound_ms"] for s in stages),
+           "plain_ms": sum(s["plain_ms"] for s in stages),
+           "library_ms": sum(s["library_ms"] for s in stages),
+           "stages": stages, "checks": checks,
+           "generate_call": dict(counted, traced_launches=traced,
+                                 spans=spans),
+           "nvidia_smi": smi,
+           "note": "ms, bound_ms, plain_ms, library_ms: one activation at "
+                   "each of the six stages at B 32 (T_mel 1000), summed; a "
+                   "stage runs 18 of them a generator call; library: the "
+                   "unfused PyTorch chain in bf16"}
+    del voc
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_timing(cfg, launches, train_launches, errs, mel_lens, mrf_runs):
     rows = [attention_timing_row(cfg, launches, errs["attention"], mel_lens),
             mrf_timing_row(cfg, launches, mrf_runs, errs["mrf_stage"]),
@@ -5126,6 +5313,7 @@ def main():
                                  probs_errs["flash_attention"][0],
                                  probs_bf16=True))
     rows[-1]["launches_parallel"] = par_launches["3p"]
+    rows.append(amp_act_timing_row(smi))
     mark("kernels")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": phase_s})

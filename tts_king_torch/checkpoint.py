@@ -20,6 +20,16 @@ The port's own copy of the converters of tts_king_tpu/checkpoint.py:
     ``resblocks.{n}.convs.{j}``, upsamplers at ``ups.{i}``;
   * MelGAN (models/melgan.convert_melgan_state): the descript generator's
     ``model.{idx}`` Sequential;
+  * BigVGAN (``convert_bigvgan_checkpoint``): NVIDIA's
+    ``bigvgan_generator.pt``, ``{"generator": state_dict}`` with weight
+    norm as ``weight_g`` / ``weight_v`` pairs (folded as HiFi-GAN's),
+    upsamplers at ``ups.{i}.0``, AMP blocks' convs at
+    ``resblocks.{n}.convs1.{j}`` / ``convs2.{j}``, their activations'
+    ``resblocks.{n}.activations.{m}.act.{alpha,beta}`` and
+    ``activation_post.act.{alpha,beta}``; the activations' low-pass filter
+    buffers (``upsample.filter``, ``downsample.lowpass.filter``) are
+    checked against the published formula and dropped (the port computes
+    the filter);
   * HiFi-GAN discriminators (``convert_hifigan_discriminators``), the
     upstream ``do_*`` checkpoint's ``{"mpd": ..., "msd": ...}``: weight
     norm kept as (v, g) pairs (``weight_v``, ``weight_g``), MSD scale 1's
@@ -207,6 +217,56 @@ def convert_hifigan_checkpoint(path, **kw):
     ckpt = load_torch_checkpoint(path)
     state = ckpt["generator"] if "generator" in ckpt else ckpt
     return convert_hifigan_generator(state, **kw)
+
+
+def _bigvgan_activation(state, src, dst, out):
+    """An Activation1d(SnakeBeta): alpha and beta kept, the filter buffers
+    checked against ops/kernels/amp_act.lowpass_filter."""
+    from tts_king_torch.ops.kernels.amp_act import lowpass_filter
+
+    for name in ("alpha", "beta"):
+        out[f"{dst}.{name}"] = torch.as_tensor(
+            state[f"{src}.act.{name}"]).float().reshape(-1)
+    for key in (f"{src}.upsample.filter", f"{src}.downsample.lowpass.filter"):
+        if key in state:
+            f = torch.as_tensor(state[key]).float().reshape(-1)
+            if f.shape != lowpass_filter().shape or not torch.allclose(
+                    f, lowpass_filter(), rtol=0, atol=1e-6):
+                raise ValueError(f"{key}: not the published 12-tap Kaiser-"
+                                 "sinc filter (cutoff 0.25, half-width 0.3)")
+
+
+def convert_bigvgan_generator(state, n_ups=6, dilations=((1, 3, 5),) * 3):
+    """NVIDIA's BigVGAN generator state dict -> the port's BigVGAN state
+    dict (models/bigvgan.py names), weight norm folded. ``dilations``: the
+    dilations of each AMP branch (resblock_dilation_sizes)."""
+    out = {}
+    _conv(state, "conv_pre", "conv_pre", out)
+    for i in range(n_ups):
+        _conv(state, f"ups.{i}.0", f"ups_{i}", out)
+    for n in range(n_ups * len(dilations)):
+        src, dst = f"resblocks.{n}", f"resblocks_{n}"
+        n_dil = len(dilations[n % len(dilations)])
+        for j in range(n_dil):
+            for g in ("convs1", "convs2"):
+                _conv(state, f"{src}.{g}.{j}", f"{dst}.{g}_{j}", out)
+        for m in range(2 * n_dil):
+            _bigvgan_activation(state, f"{src}.activations.{m}",
+                                f"{dst}.activations_{m}", out)
+    _bigvgan_activation(state, "activation_post", "activation_post", out)
+    if "conv_post.bias" in state:
+        raise ValueError("conv_post.bias: BigVGAN-v2's conv_post has none "
+                         "(use_bias_at_final false), and the port runs v2")
+    out["conv_post.weight"] = fold_weight_norm(state, "conv_post").contiguous()
+    return out
+
+
+def convert_bigvgan_checkpoint(path, **kw):
+    """NVIDIA's ``bigvgan_generator.pt`` ({"generator": ...} or a bare
+    state dict) -> the port's BigVGAN state dict."""
+    ckpt = load_torch_checkpoint(path)
+    state = ckpt["generator"] if "generator" in ckpt else ckpt
+    return convert_bigvgan_generator(state, **kw)
 
 
 def convert_melgan_state(state, ratios=(8, 8, 2, 2), n_residual_layers=3):

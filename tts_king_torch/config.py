@@ -278,8 +278,36 @@ def load_config(path):
         raw = yaml.safe_load(f)
     if "model_config" in raw or "preprocess_config" in raw:
         raw = _from_reference_layout(raw)
+    if isinstance(raw.get("vocoder"), dict):
+        model = raw.get("model") or {}
+        raw = dict(raw, vocoder=take_bigvgan_keys(
+            raw["vocoder"], model.get("vocoder_model", "HiFi-GAN")))
     cfg = _build(TTSConfig, raw)
     return cfg.validate()
+
+
+# BigVGAN's generator keys as its published configs name them, at the
+# values of every BigVGAN-v2 config: the anti-aliased SnakeBeta with
+# log-scale parameters, a clamp to [-1, 1] at the output and no bias in
+# conv_post. The port runs these alone, so they follow from
+# model.vocoder_model "BigVGAN" and VocoderModelConfig holds none of them.
+BIGVGAN_V2 = {"activation": "snakebeta", "snake_logscale": True,
+              "use_tanh_at_final": False, "use_bias_at_final": False}
+
+
+def take_bigvgan_keys(vocoder, vocoder_model):
+    """``vocoder`` (a dict of VocoderModelConfig keys) without BigVGAN's
+    published keys, after checking that any it states are BIGVGAN_V2's and
+    that the vocoder is BigVGAN."""
+    given = {k: vocoder[k] for k in BIGVGAN_V2 if k in vocoder}
+    if given and vocoder_model != "BigVGAN":
+        raise ValueError(f"vocoder keys {sorted(given)} are BigVGAN's; "
+                         f"vocoder_model is {vocoder_model!r}")
+    wrong = {k: v for k, v in given.items() if v != BIGVGAN_V2[k]}
+    if wrong:
+        raise ValueError(f"BigVGAN {wrong}: the port runs BigVGAN-v2's "
+                         f"{BIGVGAN_V2}")
+    return {k: v for k, v in vocoder.items() if k not in BIGVGAN_V2}
 
 
 def _from_reference_layout(raw):
@@ -319,6 +347,7 @@ def _from_reference_layout(raw):
             "win_size": h.get("win_size", 1024),
             "sampling_rate": h.get("sampling_rate", 22050),
         }
+        voc.update({k: h[k] for k in BIGVGAN_V2 if k in h})
         out["vocoder"] = voc
     if "train_config" in raw:
         tc = raw["train_config"]

@@ -1,0 +1,122 @@
+"""BigVGAN-v2 generator, inference only.
+
+BigVGAN (Lee et al., arXiv:2206.04658; NVIDIA/BigVGAN bigvgan.py,
+activations.py, alias_free_activation/torch/), the layout of
+``configs/bigvgan_v2_22khz_80band_256x.json`` and of every BigVGAN-v2
+config (config.BIGVGAN_V2: log-scale SnakeBeta, a clamp and no final bias;
+the widths come from VocoderModelConfig). The JAX package has no BigVGAN.
+
+  conv_pre (k 7) -> per upsample stage [transposed conv (kernel k, stride
+  u, padding (k - u) / 2), with no activation before it -> the mean of the
+  AMPBlock1 branches] -> anti-aliased SnakeBeta -> conv_post (k 7, no bias)
+  -> in f32, a clamp to [-1, 1].
+
+AMPBlock1 is HiFi-GAN's ResBlock1 with each leaky ReLU replaced by an
+anti-aliased SnakeBeta of its own: for each dilation d, x = conv2(act2(
+conv1_d(act1(x)))) + x, six activations a block. The activation
+(``AntiAliasedSnakeBeta``, ops/kernels/amp_act.py) is the fused kernel on
+the card and its plain version on the CPU; each call runs under the span
+``vocoder.act``. Convs and activations compute in the module's dtype
+(weights and activations bf16 or f32; the activation works in f32 inside).
+
+State-dict names follow the HiFi-GAN Generator's (``ups_<i>``,
+``resblocks_<n>.convs1_<j>``, ``convs2_<j>``) with
+``resblocks_<n>.activations_<m>.{alpha,beta}`` and
+``activation_post.{alpha,beta}``; the low-pass filter is a constant
+(``amp_act.lowpass_filter``), no buffer. ``checkpoint.
+convert_bigvgan_checkpoint`` maps NVIDIA's published layout onto these.
+
+Activations are (B, C, T) inside; mel (B, T, num_mels) natural-log in,
+waveform (B, T * prod(upsample_rates)) out.
+"""
+
+import torch
+from torch import nn
+
+from tts_king_torch.config import VocoderModelConfig
+from tts_king_torch.models.hifigan import get_padding
+from tts_king_torch.ops.kernels.amp_act import amp_act
+from tts_king_torch.utils.profiling import span
+
+
+class AntiAliasedSnakeBeta(nn.Module):
+    """Activation1d(SnakeBeta(channels, alpha_logscale=True)): 2x up,
+    x + sin^2(x e^alpha) / (e^beta + 1e-9), 2x down; alpha and beta start
+    at 0 (upstream's log-scale initialisation)."""
+
+    def __init__(self, channels):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.zeros(channels))
+        self.beta = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        with span("vocoder.act"):
+            return amp_act(x, self.alpha, self.beta)
+
+
+class AMPBlock1(nn.Module):
+    """3 x [act -> dilated conv -> act -> conv] + skip, an activation of its
+    own before each conv (bigvgan.py AMPBlock1)."""
+
+    def __init__(self, channels, kernel_size=3, dilation=(1, 3, 5)):
+        super().__init__()
+        self.dilation = tuple(dilation)
+        for i, d in enumerate(self.dilation):
+            self.add_module(f"convs1_{i}", nn.Conv1d(
+                channels, channels, kernel_size, dilation=d,
+                padding=get_padding(kernel_size, d)))
+            self.add_module(f"convs2_{i}", nn.Conv1d(
+                channels, channels, kernel_size,
+                padding=get_padding(kernel_size, 1)))
+        for m in range(2 * len(self.dilation)):
+            self.add_module(f"activations_{m}", AntiAliasedSnakeBeta(channels))
+
+    def forward(self, x):
+        for i in range(len(self.dilation)):
+            xt = getattr(self, f"activations_{2 * i}")(x)
+            xt = getattr(self, f"convs1_{i}")(xt)
+            xt = getattr(self, f"activations_{2 * i + 1}")(xt)
+            x = getattr(self, f"convs2_{i}")(xt) + x
+        return x
+
+
+class BigVGAN(nn.Module):
+    """Mel (B, T, num_mels) -> waveform (B, T * prod(upsample_rates)) in
+    [-1, 1]. Takes resblock "1" (every published BigVGAN-v2 config)."""
+
+    def __init__(self, config: VocoderModelConfig):
+        super().__init__()
+        h = config
+        if h.resblock != "1":
+            raise ValueError(f"BigVGAN: resblock {h.resblock!r}; the port "
+                             "runs AMPBlock1 (resblock '1')")
+        self.config = h
+        self.num_kernels = len(h.resblock_kernel_sizes)
+        ch = h.upsample_initial_channel
+        self.conv_pre = nn.Conv1d(h.num_mels, ch, 7, padding=3)
+        for i, (u, k) in enumerate(zip(h.upsample_rates,
+                                       h.upsample_kernel_sizes)):
+            self.add_module(f"ups_{i}", nn.ConvTranspose1d(
+                ch, ch // 2, k, stride=u, padding=(k - u) // 2))
+            ch //= 2
+            for j, (rk, rd) in enumerate(zip(h.resblock_kernel_sizes,
+                                             h.resblock_dilation_sizes)):
+                self.add_module(f"resblocks_{i * self.num_kernels + j}",
+                                AMPBlock1(ch, rk, tuple(rd)))
+        self.activation_post = AntiAliasedSnakeBeta(ch)
+        self.conv_post = nn.Conv1d(ch, 1, 7, padding=3, bias=False)
+
+    def forward(self, mel, frames=None):
+        """mel (B, T, num_mels) -> waveform (B, T * hop). frames (each
+        item's real mel frames) is taken as the HiFi-GAN Generator takes
+        it; every sample is computed all the same."""
+        x = self.conv_pre(mel.to(self.conv_pre.weight.dtype).transpose(1, 2))
+        for i in range(len(self.config.upsample_rates)):
+            x = getattr(self, f"ups_{i}")(x)
+            acc = None
+            for j in range(self.num_kernels):
+                out = getattr(self, f"resblocks_{i * self.num_kernels + j}")(x)
+                acc = out if acc is None else acc + out
+            x = acc / self.num_kernels
+        x = self.conv_post(self.activation_post(x)).float()
+        return torch.clamp(x, -1.0, 1.0)[:, 0, :]

@@ -30,7 +30,7 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 SOURCES = {"attention": "attention.cu", "mrf_stage": "mrf_stage.cu",
            "mrf_stage_int8": "mrf_stage_int8.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu", "amp_act": "amp_act.cu"}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> {entry point: (restype, argtypes)}; pointers and the stream are
 # c_void_p (a plain int would be cut to 32 bits).
@@ -60,6 +60,8 @@ SIGNATURES = {
         "tk_mrf_int8_cluster_stage": (_I, [_P] * 5 + [_I] * 8
                                       + [_P, _I, _P, _P] + [_I] * 4
                                       + [_LL] * 6 + [_P])},
+    "amp_act": {
+        "tk_amp_act": (_I, [_P] * 4 + [_I, _LL, _I, _I, _I, _P, _P])},
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,11 +1,12 @@
 """Streaming (chunked) vocoder synthesis.
 
-The port's copy of tts_king_tpu/ops/streaming.py. A HiFi-GAN generator is
-fully convolutional, so a waveform chunk depends only on a bounded mel
-neighbourhood: vocoding fixed-size mel windows with a halo on either side
-gives the full pass's audio everywhere but at the utterance's edges, and
-the first chunk is ready after one small vocoder call. Every window has one
-shape, so the card sees the same launches for every chunk.
+The port's copy of tts_king_tpu/ops/streaming.py. A HiFi-GAN (or
+BigVGAN) generator is fully convolutional, so a waveform chunk depends only
+on a bounded mel neighbourhood: vocoding fixed-size mel windows with a halo
+on either side gives the full pass's audio everywhere but at the
+utterance's edges, and the first chunk is ready after one small vocoder
+call. Every window has one shape, so the card sees the same launches for
+every chunk.
 """
 
 from typing import Callable, Iterator
@@ -13,21 +14,31 @@ from typing import Callable, Iterator
 import numpy as np
 
 
-def generator_receptive_field(config) -> int:
+# One-sided reach, in samples at its own rate, of BigVGAN's anti-aliased
+# activation: the 12-tap 2x up- and down-sampling filters
+# (ops/kernels/amp_act.py) make y[t] depend on x[t - 5 .. t + 5].
+ANTI_ALIAS_REACH = 5
+
+
+def generator_receptive_field(config, vocoder_model="HiFi-GAN") -> int:
     """Conservative one-sided receptive field of the HiFi-GAN generator in
     mel frames: conv_pre + per stage (transposed-conv and MRF halos, divided
-    back to the mel rate by the upsampling so far) + conv_post."""
+    back to the mel rate by the upsampling so far) + conv_post. For
+    ``vocoder_model`` "BigVGAN" it adds the reach of BigVGAN's anti-aliased
+    activations: two before each dilation's convs and one before conv_post.
+    MelGAN takes HiFi-GAN's, as in the JAX package."""
+    aa = ANTI_ALIAS_REACH if vocoder_model == "BigVGAN" else 0
     rf = 3.0  # conv_pre k=7
     up = 1.0
     for u, k in zip(config.upsample_rates, config.upsample_kernel_sizes):
         prev_up, up = up, up * u
         rf += (k / u) / prev_up  # transposed conv halo, at the input rate
         mrf_halo = max(
-            sum((kk - 1) // 2 * d + (kk - 1) // 2 for d in dil)
+            sum((kk - 1) // 2 * d + (kk - 1) // 2 + 2 * aa for d in dil)
             for kk, dil in zip(config.resblock_kernel_sizes,
                                config.resblock_dilation_sizes))
         rf += mrf_halo / up
-    rf += 3.0 / up  # conv_post k=7 at sample rate
+    rf += (3.0 + aa) / up  # conv_post k=7 at sample rate
     return int(np.ceil(rf)) + 2
 
 

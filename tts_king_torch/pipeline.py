@@ -58,10 +58,12 @@ import os
 import numpy as np
 import torch
 
-from tts_king_torch.checkpoint import (convert_fs2_checkpoint,
+from tts_king_torch.checkpoint import (convert_bigvgan_checkpoint,
+                                       convert_fs2_checkpoint,
                                        convert_hifigan_checkpoint,
                                        convert_melgan_checkpoint)
 from tts_king_torch.config import TTSConfig
+from tts_king_torch.models.bigvgan import BigVGAN
 from tts_king_torch.models.fs2 import build_fastspeech2
 from tts_king_torch.models.hifigan import Generator
 from tts_king_torch.models.melgan import MelGANGenerator
@@ -399,7 +401,8 @@ class Vocoder:
     both of the reference's vocoders (model_config.vocoder.model,
     fs_two/utils/model.py:46-99): HiFi-GAN, and MelGAN (the descript
     architecture; it consumes log10 mels, so natural-log mels are divided by
-    ln 10, vocoder_infer:87-89)."""
+    ln 10, vocoder_infer:87-89); and for BigVGAN-v2 (models/bigvgan.py),
+    which takes this system's natural-log mel as HiFi-GAN does."""
 
     def __init__(self, config: TTSConfig, variables=None, dtype=torch.float32,
                  device="cuda"):
@@ -417,9 +420,14 @@ class Vocoder:
             convert = lambda path: convert_hifigan_checkpoint(
                 path, n_ups=len(v.upsample_rates),
                 n_kernels=len(v.resblock_kernel_sizes))
+        elif self.kind == "BigVGAN":
+            build = lambda: BigVGAN(v)
+            convert = lambda path: convert_bigvgan_checkpoint(
+                path, n_ups=len(v.upsample_rates),
+                dilations=v.resblock_dilation_sizes)
         else:
-            raise ValueError(f"unknown vocoder {self.kind!r} (HiFi-GAN or "
-                             "MelGAN)")
+            raise ValueError(f"unknown vocoder {self.kind!r} (HiFi-GAN, "
+                             "MelGAN or BigVGAN)")
         self.model = _materialize(build, variables, v.weights_path,
                                   self.device, 1, "Vocoder",
                                   convert).to(self.dtype)
@@ -456,15 +464,15 @@ class Vocoder:
         """ONE long utterance, its time axis split over ``mesh[axis]`` with
         a halo exchange (ops/time_parallel.py): audiobook-length audio
         vocoded n ways. mel: (1, T, M) natural-log mel (MelGAN's divided by
-        ln 10). The halo is the HiFi-GAN generator's receptive field,
-        whatever the vocoder, as in the JAX package. Returns the
+        ln 10). The halo is generator_receptive_field's for this vocoder
+        (MelGAN takes HiFi-GAN's, as in the JAX package). Returns the
         (T * hop,) int16 numpy waveform."""
         from tts_king_torch.ops.time_parallel import vocoder_time_sharded
 
         v = self.config.vocoder
         wav = vocoder_time_sharded(
             self.model, self._mel(mel), mesh,
-            halo_frames=generator_receptive_field(v),
+            halo_frames=generator_receptive_field(v, self.kind),
             upsample=int(np.prod(v.upsample_rates)), axis=axis)
         return wav_to_int16(wav, v.max_wav_value)[0].cpu().numpy()
 
@@ -548,14 +556,15 @@ class TTSKing:
                         energy_control=1.0, speaker=0, chunk_frames=64):
         """Yield int16 numpy waveform chunks as they are vocoded: audio
         starts after one small vocoder window instead of the whole
-        utterance. The halo is the HiFi-GAN generator's receptive field
-        (generator_receptive_field(cfg.vocoder)), whatever the vocoder, as
-        in the JAX package; each window is scaled and cast on the device."""
+        utterance. The halo is generator_receptive_field's for the
+        vocoder (MelGAN takes HiFi-GAN's, as in the JAX package); each
+        window is scaled and cast on the device."""
         mel, mel_lens = self.generate_mel(
             text, duration_control, pitch_control, energy_control, speaker)
         n = int(mel_lens[0])
         mel = mel[:1, :max(n, 1)].float().cpu().numpy()
-        halo = generator_receptive_field(self.cfg.vocoder)
+        halo = generator_receptive_field(self.cfg.vocoder,
+                                         self.cfg.model.vocoder_model)
         yield from stream_vocoder(
             lambda piece: self.vocoder.vocode_int16(piece).cpu().numpy(),
             mel, chunk_frames=chunk_frames, halo_frames=halo,

@@ -461,7 +461,8 @@ class SynthesisServer:
                                pitch_control=controls[1],
                                energy_control=controls[2],
                                speaker_name=int(speaker))
-            halo = generator_receptive_field(self.king.cfg.vocoder)
+            halo = generator_receptive_field(
+                self.king.cfg.vocoder, self.king.cfg.model.vocoder_model)
             hop = self.king.cfg.preprocess.stft.hop_length
 
             def head():

@@ -214,7 +214,8 @@ def seeded_state_dict(module, seed=0):
     """Random weights for ``module`` from a numpy RandomState: conv/linear
     weights N(0, 1/fan_in), embeddings N(0, 0.3^2), norm scales 1 + N(0,
     0.1^2), biases and shifts N(0, 0.02^2), running stats mean N(0, 0.1^2)
-    and var 1 + |N(0, 0.1^2)|. Shapes only are read from ``module``, so a
+    and var 1 + |N(0, 0.1^2)|, BigVGAN's log-scale alpha and beta N(0,
+    0.1^2). Shapes only are read from ``module``, so a
     module built on the meta device will do."""
     rng = np.random.RandomState(seed)
     sd = {}
@@ -229,6 +230,9 @@ def seeded_state_dict(module, seed=0):
             a = 1.0 + np.abs(0.1 * rng.standard_normal(shape))
         elif name == "bias":
             a = 0.02 * rng.standard_normal(shape)
+        elif name in ("alpha", "beta"):
+            # BigVGAN's log-scale SnakeBeta parameters, near their 0
+            a = 0.1 * rng.standard_normal(shape)
         elif len(shape) == 1:
             a = 1.0 + 0.1 * rng.standard_normal(shape)
         elif "emb" in key:
