@@ -122,7 +122,12 @@ non-zero exit (nothing is caught):
                its plain version and timed at its six stages' shapes (B =
                32, T_mel = 1000) beside the unfused PyTorch chain, and its
                counters held against the trace of one bf16
-               Vocoder.generate(mel, lengths) at B 32 and T_mel 1000.
+               Vocoder.generate(mel, lengths) at B 32 and T_mel 1000;
+               then BigVGAN-v2's folded AMP convs (phase_amp_conv): each
+               conv that dilated_conv.folds folds, at its stage's (32, C,
+               T), held against cuDNN's dilated conv in bf16 and f32, and
+               the AMP conv counters of one traced bf16
+               Vocoder.generate(mel, lengths) against its spans.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout, it prints no result and exits 1. The JAX package is not imported.
@@ -3407,6 +3412,32 @@ def amp_act_inputs(B, C, T, seed):
     return x, a, b
 
 
+def ulp_of(t, bits):
+    """One ulp at each value of t for a float of ``bits`` stored mantissa
+    bits (bf16 7, f32 23): 2^(e - bits)."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(
+        t.float().abs().clamp(min=2.0 ** -126))) - bits)
+
+
+def ulp_errors(got, want, scale, ulp):
+    """Errors of got against want where each value's room is ``ulp`` there
+    (a tensor) or 1e-5 of ``scale``, whichever is larger: (the most ulps
+    where one ulp is the room, the largest error over scale where 1e-5 of
+    it is, the largest excess over the room, <= 0 when every error is
+    within it)."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    room = torch.maximum(ulp, torch.full_like(err, 1e-5 * scale))
+    by_ulp = ulp >= 1e-5 * scale
+    ulps = float((err / ulp)[by_ulp].max()) if bool(by_ulp.any()) else 0.0
+    cancel = (float(err[~by_ulp].max()) / scale
+              if not bool(by_ulp.all()) else 0.0)
+    return ulps, cancel, float((err - room).max())
+
+
 def amp_act_check(x, a, b):
     """Hold the fused activation to its plain version on the f32 inputs x
     (B, C, T), a and b (C,), and on them rounded to bf16: f32 within 1e-6
@@ -3427,18 +3458,11 @@ def amp_act_check(x, a, b):
     rounded = amp.amp_act_plain(xb.float(), ab.float(), bb.float())
     scale = float(rounded.abs().max())
     rounded = rounded.bfloat16().float()
-    ulp = torch.exp2(torch.floor(torch.log2(
-        rounded.abs().clamp(min=2.0 ** -126))) - 7)
-    err = (gotb - rounded).abs()
-    room = torch.maximum(ulp, torch.full_like(err, 1e-5 * scale))
-    by_ulp = ulp >= 1e-5 * scale
-    ulps = float((err / ulp)[by_ulp].max()) if bool(by_ulp.any()) else 0.0
-    cancel = (float(err[~by_ulp].max()) / scale
-              if not bool(by_ulp.all()) else 0.0)
-    if not (err32 <= 1e-6 and bool((err <= room).all())
+    ulps, cancel, past = ulp_errors(gotb, rounded, scale, ulp_of(rounded, 7))
+    if not (err32 <= 1e-6 and past <= 0
             and bool(torch.isfinite(gotb).all())):
         fail(f"amp_act {list(x.shape)}: f32 rel err {err32}, bf16 {ulps} "
-             f"ulps, {float((err - room).max())} past its room")
+             f"ulps, {past} past its room")
     # bf16: the most ulps where one ulp is the room, and the largest error
     # over the largest value where 1e-5 of it is
     return {"f32_rel_err": err32, "bf16_max_ulps": ulps,
@@ -3547,6 +3571,115 @@ def amp_act_timing_row(smi):
     del voc
     torch.cuda.empty_cache()
     return row
+
+
+def phase_amp_conv(smi):
+    """BigVGAN-v2's AMP convs folded by their dilation (ops/dilated_conv.py).
+    Each conv of the published layout that dilated_conv.folds folds in
+    bf16, at its stage's (B 32, C, T) at T_mel 1000: the fold against
+    cuDNN's dilated conv on the same inputs, in bf16 within one bf16 ulp of
+    the larger of the two values (or 1e-5 of the largest value where the
+    sums cancel), and in f32 within one f32 ulp (or 1e-5 of the largest
+    value); the bf16 fold also against the f32 dilated conv on the bf16
+    inputs rounded once, within one bf16 ulp. The bf16 sums are compared
+    without the bias: PyTorch adds a conv's bias after cuDNN's conv, in the
+    output's dtype, by the same op on either route, so a bf16 result with
+    it is rounded twice (the f32 check keeps the bias). Then one bf16
+    BigVGAN-v2 Vocoder.generate(mel, lengths) at B 32, T_mel 1000 with
+    BULK_FRAMES' lengths under the profiler: bigvgan.amp_conv_calls and
+    amp_conv_folded (zeroed just before) against the vocoder.amp_conv spans
+    (108) and the rule's count. Fails the run past any of them."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tts_king_torch.config import TTSConfig, VocoderModelConfig
+    from tts_king_torch.models import bigvgan
+    from tts_king_torch.ops.dilated_conv import dilated_conv1d, folds
+    from tts_king_torch.pipeline import Vocoder
+    from tts_king_torch.weights import seeded_state_dict
+
+    def within(got, want, scale, bits):
+        ulp = ulp_of(torch.maximum(got.float().abs(), want.float().abs()),
+                     bits)
+        return ulp_errors(got, want, scale, ulp)
+
+    tc = TTSConfig()
+    tc.model.vocoder_model = "BigVGAN"
+    tc.vocoder = VocoderModelConfig(
+        upsample_rates=[4, 4, 2, 2, 2, 2],
+        upsample_kernel_sizes=[8, 8, 4, 4, 4, 4],
+        upsample_initial_channel=1536, max_wav_value=32767.0)
+    with torch.device("meta"):
+        meta = bigvgan.BigVGAN(tc.vocoder)
+    T, C, want_folded, checks = BENCH_T, 1536, 0, {}
+    for i, u in enumerate(tc.vocoder.upsample_rates):
+        T, C = T * u, C // 2
+        for k, dils in zip(tc.vocoder.resblock_kernel_sizes,
+                           tc.vocoder.resblock_dilation_sizes):
+            for d in dils:
+                if not folds(C, k, d, torch.bfloat16):
+                    continue
+                want_folded += 1
+                g = torch.Generator(device="cuda").manual_seed(C * k + d)
+                x = torch.randn(BENCH_B, C, T, generator=g, device="cuda")
+                w = torch.randn(C, C, k, generator=g,
+                                device="cuda") / math.sqrt(C * k)
+                b = 0.1 * torch.randn(C, generator=g, device="cuda")
+                p = d * (k - 1) // 2
+                got = dilated_conv1d(x, w, b, d, p)
+                ref = F.conv1d(x, w, b, padding=p, dilation=d)
+                f32 = within(got, ref, float(ref.abs().max()), 23)
+                del got, ref
+                xb, wb = x.bfloat16(), w.bfloat16()
+                del x
+                got = dilated_conv1d(xb, wb, None, d, p)
+                ref = F.conv1d(xb, wb, None, padding=p, dilation=d)
+                bf16 = within(got, ref, float(ref.float().abs().max()), 7)
+                del ref
+                exact = F.conv1d(xb.float(), wb.float(), None, padding=p,
+                                 dilation=d)
+                once = within(got, exact.bfloat16(),
+                              float(exact.abs().max()), 7)
+                del got, exact, xb
+                name = f"{BENCH_B}x{C}x{T} k{k} d{d}"
+                checks[name] = {
+                    "f32_max_ulps": f32[0], "f32_cancel_rel_err": f32[1],
+                    "bf16_max_ulps": bf16[0], "bf16_cancel_rel_err": bf16[1],
+                    "bf16_vs_rounded_once_max_ulps": once[0],
+                    "bf16_vs_rounded_once_cancel_rel_err": once[1]}
+                if max(f32[2], bf16[2], once[2]) > 0:
+                    fail(f"amp_conv fold {name}: {checks[name]}")
+                torch.cuda.empty_cache()
+    with torch.device("meta"):
+        sd = seeded_state_dict(meta, 0)
+    sd["conv_post.weight"] = sd["conv_post.weight"] / 80
+    voc = Vocoder(tc, variables=sd, dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    mel = torch.randn(BENCH_B, BENCH_T, 80, generator=g, device="cuda") - 5
+    lengths = np.asarray(BULK_FRAMES) * 256
+    voc.generate(mel, lengths)
+    torch.cuda.synchronize()
+    bigvgan.amp_conv_calls = bigvgan.amp_conv_folded = 0
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wavs = voc.generate(mel, lengths)
+        torch.cuda.synchronize()
+    counted = {"calls": bigvgan.amp_conv_calls,
+               "folded": bigvgan.amp_conv_folded}
+    spans = sum(1 for e in prof.events() if e.name == "vocoder.amp_conv"
+                and e.device_type == torch.autograd.DeviceType.CPU)
+    if not (counted["calls"] == spans == 108
+            and counted["folded"] == want_folded
+            and [len(w) for w in wavs] == list(lengths)):
+        fail(f"amp_conv counters {counted} against {spans} vocoder.amp_conv "
+             f"spans (108 calls and {want_folded} folded wanted)")
+    emit({"phase": "amp_conv", "checks": checks,
+          "generate_call": dict(counted, spans=spans), "nvidia_smi": smi,
+          "ok": True})
+    del voc
+    torch.cuda.empty_cache()
 
 
 def phase_timing(cfg, launches, train_launches, errs, mel_lens, mrf_runs):
@@ -5314,6 +5447,7 @@ def main():
                                  probs_bf16=True))
     rows[-1]["launches_parallel"] = par_launches["3p"]
     rows.append(amp_act_timing_row(smi))
+    phase_amp_conv(smi)
     mark("kernels")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": phase_s})

@@ -16,8 +16,14 @@ anti-aliased SnakeBeta of its own: for each dilation d, x = conv2(act2(
 conv1_d(act1(x)))) + x, six activations a block. The activation
 (``AntiAliasedSnakeBeta``, ops/kernels/amp_act.py) is the fused kernel on
 the card and its plain version on the CPU; each call runs under the span
-``vocoder.act``. Convs and activations compute in the module's dtype
-(weights and activations bf16 or f32; the activation works in f32 inside).
+``vocoder.act``. Each of the block's convs (``amp_conv``) runs under the
+span ``vocoder.amp_conv`` (the residual add outside it): the dilated ones
+that cuDNN would run on CUDA cores as a dilation-free conv over time folded
+by the dilation (ops/dilated_conv.py, whose ``folds`` picks them), the rest
+as they are; ``amp_conv_calls`` counts the convs run and
+``amp_conv_folded`` those folded. Convs and activations compute in the
+module's dtype (weights and activations bf16 or f32; the activation works
+in f32 inside).
 
 State-dict names follow the HiFi-GAN Generator's (``ups_<i>``,
 ``resblocks_<n>.convs1_<j>``, ``convs2_<j>``) with
@@ -35,8 +41,13 @@ from torch import nn
 
 from tts_king_torch.config import VocoderModelConfig
 from tts_king_torch.models.hifigan import get_padding
+from tts_king_torch.ops.dilated_conv import dilated_conv1d, folds
+from tts_king_torch.ops.kernels import _build
 from tts_king_torch.ops.kernels.amp_act import amp_act
 from tts_king_torch.utils.profiling import span
+
+amp_conv_calls = 0    # AMP block convs run
+amp_conv_folded = 0   # of them, run folded by their dilation
 
 
 class AntiAliasedSnakeBeta(nn.Module):
@@ -52,6 +63,21 @@ class AntiAliasedSnakeBeta(nn.Module):
     def forward(self, x):
         with span("vocoder.act"):
             return amp_act(x, self.alpha, self.beta)
+
+
+def amp_conv(conv, x):
+    """``conv(x)`` for one of an AMP block's convs (an nn.Conv1d, stride 1,
+    one group), folded by its dilation where ``folds`` says, under the span
+    ``vocoder.amp_conv``."""
+    d = conv.dilation[0]
+    fold = folds(conv.in_channels, conv.kernel_size[0], d, x.dtype)
+    _build.count_launch(globals(), "amp_conv_calls")
+    if fold:
+        _build.count_launch(globals(), "amp_conv_folded")
+    with span("vocoder.amp_conv"):
+        if not fold:
+            return conv(x)
+        return dilated_conv1d(x, conv.weight, conv.bias, d, conv.padding[0])
 
 
 class AMPBlock1(nn.Module):
@@ -74,9 +100,9 @@ class AMPBlock1(nn.Module):
     def forward(self, x):
         for i in range(len(self.dilation)):
             xt = getattr(self, f"activations_{2 * i}")(x)
-            xt = getattr(self, f"convs1_{i}")(xt)
+            xt = amp_conv(getattr(self, f"convs1_{i}"), xt)
             xt = getattr(self, f"activations_{2 * i + 1}")(xt)
-            x = getattr(self, f"convs2_{i}")(xt) + x
+            x = amp_conv(getattr(self, f"convs2_{i}"), xt) + x
         return x
 
 
