@@ -743,7 +743,7 @@ def phase_vocoders():
         pth = os.path.join(tmp, "g_02500000.pth.tar")
         torch.save({"generator": upstream_hifigan_state(cfg.vocoder, 3)}, pth)
         flat = flatten_variables(torch_to_flax(
-            convert_hifigan_checkpoint(pth, n_ups=2)))
+            convert_hifigan_checkpoint(pth, cfg.vocoder)))
         npz = os.path.join(tmp, "vocoder.npz")
         np.savez(npz, **flat)
         mel = np.random.RandomState(4).randn(2, 50, 80).astype(np.float32)
@@ -770,8 +770,6 @@ def phase_streaming(king, n_fused, n_layers, text):
     import numpy as np
     import torch
 
-    from tts_king_torch.ops.streaming import generator_receptive_field
-
     cfg = king.cfg
     hop = cfg.preprocess.stft.hop_length
     zero_launch_counts()
@@ -786,7 +784,7 @@ def phase_streaming(king, n_fused, n_layers, text):
     torch.cuda.synchronize()
     wav = king.speak(text)[0]
     streamed = np.concatenate(chunks)
-    edge = generator_receptive_field(cfg.vocoder) * hop
+    edge = king.vocoder.halo_frames * hop
     diff = np.abs(streamed[edge:-edge].astype(np.int32)
                   - wav[edge:-edge].astype(np.int32))
     ok = (streamed.shape == wav.shape
@@ -1866,17 +1864,15 @@ def check_served_alone(king, requests, wavs, what, exact_samples=True):
     variables, as the JAX AcousticModel does): equal but for at most 1
     request in 16 one frame off. Samples (exact_samples, the f32 server):
     where the lengths are equal, samples before the last
-    generator_receptive_field frames more than 2 LSB apart at under 1% of
+    halo_frames (the vocoder's) more than 2 LSB apart at under 1% of
     them; the bf16 server's vocoder computes in bf16, and other kernels at
     another batch shape round otherwise (one bf16 rounding apart is up to
     128 LSB), so its samples are only reported."""
     import numpy as np
     import torch
 
-    from tts_king_torch.ops.streaming import generator_receptive_field
-
     hop = king.cfg.preprocess.stft.hop_length
-    edge = generator_receptive_field(king.cfg.vocoder) * hop
+    edge = king.vocoder.halo_frames * hop
     off_frames, worst, t0 = {}, 0.0, time.perf_counter()
     n_wider = 0
     for i, ((phonemes, speaker, dctl), got) in enumerate(zip(requests,
@@ -4361,7 +4357,8 @@ def time_sharded_vocode(rank, spec):
     single-process mesh over those devices. The Vocoder of ``spec["cfg"]``
     (``spec["variables"]``, ``spec["dtype"]``) on ``spec["mel"]``:
     ``spec["what"]`` "float" is vocoder_time_sharded on the generator (the
-    mel as given, ``spec["halo"]`` or the HiFi-GAN receptive field),
+    mel as given, ``spec["halo"]`` or the configuration's family's
+    receptive field),
     "int16" is Vocoder.generate_long. With ``spec["melgan"]`` (the
     MelGANGenerator's arguments) the generator is that MelGAN, "float"
     only. Returns the waveform (numpy) and the launch counts."""
@@ -4369,10 +4366,9 @@ def time_sharded_vocode(rank, spec):
     import torch
 
     from tts_king_torch.models.melgan import MelGANGenerator
-    from tts_king_torch.ops.streaming import generator_receptive_field
     from tts_king_torch.ops.time_parallel import vocoder_time_sharded
     from tts_king_torch.parallel.mesh import build_mesh
-    from tts_king_torch.pipeline import Vocoder, _state_dict
+    from tts_king_torch.pipeline import Vocoder, _state_dict, vocoder_family
     from tts_king_torch.weights import load_into
 
     device = worker_device(spec)
@@ -4394,7 +4390,8 @@ def time_sharded_vocode(rank, spec):
     if spec.get("what", "int16") == "int16":
         wav = voc.generate_long(spec["mel"], mesh)
     else:
-        halo = spec.get("halo") or generator_receptive_field(cfg.vocoder)
+        halo = spec.get("halo") or vocoder_family(
+            cfg.model.vocoder_model).receptive_field(cfg.vocoder)
         with torch.inference_mode():
             wav = vocoder_time_sharded(
                 gen, torch.from_numpy(spec["mel"]).to(device), mesh,
@@ -4786,11 +4783,10 @@ def phase_parallel_path(smi, tmp, device="cuda:0"):
           "launches": per_rank, "ok": True})
 
     # (c): against the whole utterance on one device
-    from tts_king_torch.ops.streaming import generator_receptive_field
-    from tts_king_torch.pipeline import Vocoder
+    from tts_king_torch.pipeline import Vocoder, vocoder_family
 
     hop = cfg.preprocess.stft.hop_length
-    halo = generator_receptive_field(cfg.vocoder)
+    halo = vocoder_family(cfg.model.vocoder_model).receptive_field(cfg.vocoder)
     edge = halo * hop
     # the whole utterance on one device, and the whole utterance between
     # halo zero frames (the time-sharded contract at the sequence's ends:

@@ -369,34 +369,42 @@ def test_published_checkpoint_layout_loads_through_the_vocoder(tmp_path):
 
 
 def test_receptive_field():
-    """BigVGAN's adds its activations' filters (5 samples a side each, two
-    a dilation and one before conv_post); HiFi-GAN's is unchanged: 17 at
-    V1, and 17 at the benchmark's MelGAN configuration, whose
-    VocoderModelConfig keeps HiFi-GAN's default kernels (MelGAN takes
-    HiFi-GAN's field, as the parent gives it)."""
-    from tts_king_torch.ops.streaming import generator_receptive_field
+    """Each family's field (pipeline.VOCODERS): BigVGAN's adds its
+    activations' filters (5 samples a side each, two a dilation and one
+    before conv_post); HiFi-GAN's is 17 at V1, and 17 at the benchmark's
+    MelGAN configuration, whose VocoderModelConfig keeps HiFi-GAN's default
+    kernels (MelGAN takes HiFi-GAN's field, as in the JAX package). The
+    Vocoder's halo is its family's."""
+    from tts_king_torch.config import TTSConfig
+    from tts_king_torch.pipeline import Vocoder, vocoder_family
 
-    assert generator_receptive_field(VocoderModelConfig()) == 17
+    def field(name, cfg):
+        return vocoder_family(name).receptive_field(cfg)
+
+    assert field("HiFi-GAN", VocoderModelConfig()) == 17
     melgan = VocoderModelConfig(
         upsample_rates=[8, 8, 2, 2], num_mels=80, hop_size=256,
         sampling_rate=22050, max_wav_value=32768.0)
-    assert generator_receptive_field(melgan) == 17
-    assert generator_receptive_field(melgan, "MelGAN") == 17
-    assert generator_receptive_field(bigvgan_config(), "BigVGAN") == 42
-    # the same widths without the activations' filters
-    assert generator_receptive_field(bigvgan_config()) == 31
+    assert field("MelGAN", melgan) == 17
+    assert field("BigVGAN", bigvgan_config()) == 42
+    tc = TTSConfig()
+    tc.model.vocoder_model = "BigVGAN"
+    tc.vocoder = micro_config()
+    assert Vocoder(tc, device="cpu").halo_frames == BigVGAN.receptive_field(
+        micro_config()) == 42
+    with pytest.raises(ValueError, match="HiFi-GAN, MelGAN, BigVGAN"):
+        vocoder_family("WaveGlow")
 
 
 def test_streaming_matches_the_whole_utterance():
     """Chunks vocoded with the receptive field as halo equal the whole
     pass in the interior (the utterance's edges see the edge frames
     repeated, where the whole pass sees the convs' zero padding)."""
-    from tts_king_torch.ops.streaming import (generator_receptive_field,
-                                              stream_vocoder)
+    from tts_king_torch.ops.streaming import stream_vocoder
 
     cfg = micro_config()
     model, _ = seeded(BigVGAN(cfg), 8)
-    rf = generator_receptive_field(cfg, "BigVGAN")
+    rf = BigVGAN.receptive_field(cfg)
     mel = np.random.RandomState(0).randn(1, 3 * rf, 80).astype(np.float32)
 
     def vocode(m):

@@ -17,7 +17,6 @@ import chip_smoke as cs
 from tts_king_torch.config import TTSConfig, VocoderModelConfig
 from tts_king_torch.models import hifigan
 from tts_king_torch.ops.kernels import mrf
-from tts_king_torch.ops.streaming import generator_receptive_field
 
 KS = (3, 7, 11)
 DIL = (1, 3, 5)
@@ -95,8 +94,8 @@ def test_delivered_samples_depend_on_the_rows_kept(monkeypatch, frames):
         assert torch.isfinite(got[b, :n]).all()
         assert torch.equal(got[b, :n], full[b, :n])
     if min(frames) < T_mel:
-        monkeypatch.setattr(hifigan, "generator_receptive_field",
-                            lambda config: 0)
+        monkeypatch.setattr(hifigan.Generator, "receptive_field",
+                            staticmethod(lambda config: 0))
         with torch.no_grad():
             cut = gen(mel, frames)
         assert any(not torch.isfinite(cut[b, :f * hop]).all()
@@ -139,7 +138,7 @@ def test_generator_needs_host_frames():
 
 def test_needed_rows_follow_the_receptive_field():
     cfg = VocoderModelConfig()
-    assert generator_receptive_field(cfg) == 17   # V1, PERF.md
+    assert hifigan.Generator.receptive_field(cfg) == 17   # V1, PERF.md
     assert hifigan.needed_rows(cfg, [0, 10, 1000], 64, 64000) == [
         17 * 64, 27 * 64, 64000]
 

@@ -453,17 +453,37 @@ def test_http_429_and_stats(king):
         server.close()
 
 
-def test_stream_speculative_first_window(king, monkeypatch):
+def _with_vocoder(king, family):
+    """``king`` with a seeded ``family`` Vocoder at the same widths.
+    BigVGAN-v2 scales by its own max_wav_value, 32767 (NVIDIA/BigVGAN
+    meldataset.py): its clamped +1.0 stays +32767 where 32768 would wrap."""
+    import copy
+
+    from tts_king_torch.pipeline import Vocoder
+
+    other = copy.copy(king)
+    other.cfg = copy.deepcopy(king.cfg)
+    other.cfg.model.vocoder_model = family
+    if family == "BigVGAN":
+        other.cfg.vocoder.max_wav_value = 32767.0
+    other.vocoder = Vocoder(other.cfg, device="cpu")
+    return other
+
+
+@pytest.mark.parametrize("family", ["HiFi-GAN", "MelGAN", "BigVGAN"])
+def test_stream_speculative_first_window(king, monkeypatch, family):
     """Time to first audio: with a long utterance (mel covers chunk+halo
-    frames) the speculative first window fires, and the streamed audio
+    frames) the speculative first window fires for every vocoder family
+    (MelGAN's log10 prep is the Vocoder's own), and the streamed audio
     still matches the plain stream at every sample."""
-    from tts_king_torch.ops.streaming import (generator_receptive_field,
-                                              stream_vocoder)
+    from tts_king_torch.ops.streaming import stream_vocoder
     from tts_king_torch.serve import SynthesisServer
 
+    if family != king.cfg.model.vocoder_model:
+        king = _with_vocoder(king, family)
     rng = np.random.RandomState(11)
     phonemes = rng.randint(10, 100, size=(48,))
-    halo = generator_receptive_field(king.cfg.vocoder)
+    halo = king.vocoder.halo_frames
     chunk = 16
 
     server = SynthesisServer(king, max_batch=4)

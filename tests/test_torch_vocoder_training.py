@@ -3,7 +3,8 @@ step of golden_gan_step.npz (and two faults it catches: one power
 iteration too few, weight decay masked on g and the biases), the mel loss's
 backward in exact f32, learning over a few steps, the bf16 step against the
 f32 one, the AdamW schedule against optax, MelDataset against the JAX one,
-train_vocoder and its CLI (tests/test_vocoder_loop.py mirrored), and the
+train_vocoder and its CLI (tests/test_vocoder_loop.py mirrored), the
+vocoder family train_vocoder refuses, and the
 default device."""
 
 import json
@@ -418,6 +419,31 @@ def test_train_vocoder_emergency_checkpoint(tmp_path, monkeypatch):
     payload = restore_vocoder_state(os.path.join(cfg.train.ckpt_path,
                                                  "vocoder"))
     assert payload["step"] == payload["gan_state"]["step"] == 1
+
+
+def test_train_vocoder_refuses_a_family_it_cannot_train(tmp_path,
+                                                       monkeypatch):
+    """vocoder_model BigVGAN is refused, naming the family, before any
+    weights or directories are made; MelGAN trains HiFi-GAN's Generator, as
+    the JAX package does, and gets as far as its weights."""
+    from tts_king_torch.train import vocoder as vocoder_mod
+    from tts_king_torch.train.vocoder_loop import train_vocoder
+
+    class Made(Exception):
+        pass
+
+    def init_state(self, seed):
+        raise Made
+
+    monkeypatch.setattr(vocoder_mod.VocoderTrainer, "init_state", init_state)
+    cfg, wavs = _loop_env(tmp_path)
+    cfg.model.vocoder_model = "BigVGAN"
+    with pytest.raises(ValueError, match="'BigVGAN'"):
+        train_vocoder(cfg, wavs, max_steps=1, device="cpu", **DISC)
+    assert not os.path.exists(cfg.train.ckpt_path)
+    cfg.model.vocoder_model = "MelGAN"
+    with pytest.raises(Made):
+        train_vocoder(cfg, wavs, max_steps=1, device="cpu", **DISC)
 
 
 def test_vocoder_cli(tmp_path, monkeypatch):

@@ -264,14 +264,13 @@ def _stream_setup():
 def test_stream_vocoder_matches_jax_and_full_pass():
     """The port's chunks equal the JAX streaming's chunks on the same
     weights, and the full pass in the interior (tests/test_streaming.py)."""
-    from tts_king_torch.ops.streaming import (generator_receptive_field,
-                                              stream_vocoder)
+    from tts_king_torch.ops.streaming import stream_vocoder
     from tts_king_tpu.ops.streaming import \
         generator_receptive_field as jax_receptive_field
     from tts_king_tpu.ops.streaming import stream_vocoder as jax_stream
 
     jcfg, pcfg, japply, variables, gen = _stream_setup()
-    rf = generator_receptive_field(pcfg)
+    rf = gen.receptive_field(pcfg)
     assert rf == jax_receptive_field(jcfg) and rf < 40
     mel = np.random.RandomState(0).randn(1, 150, jcfg.num_mels).astype(
         np.float32)
@@ -300,8 +299,9 @@ def test_speak_streaming_matches_speak(tmp_path):
     """int16 chunks whose total length is speak()'s and whose interior is
     speak()'s waveform (tests/test_streaming.py:49-68)."""
     from tts_king_torch.config import micro_config
-    from tts_king_torch.ops.streaming import generator_receptive_field
     from tts_king_torch.pipeline import TTSKing
+    from tts_king_tpu.ops.streaming import \
+        generator_receptive_field as jax_receptive_field
 
     cfg = micro_config()
     lex = tmp_path / "mini.dict"
@@ -318,8 +318,8 @@ def test_speak_streaming_matches_speak(tmp_path):
     wav = king.speak("привет")[0]
     streamed = np.concatenate(chunks)
     assert streamed.shape == wav.shape
-    edge = generator_receptive_field(cfg.vocoder) * \
-        cfg.preprocess.stft.hop_length
+    assert king.vocoder.halo_frames == jax_receptive_field(cfg.vocoder)
+    edge = king.vocoder.halo_frames * cfg.preprocess.stft.hop_length
     diff = np.abs(streamed[edge:-edge].astype(np.int32)
                   - wav[edge:-edge].astype(np.int32))
     assert diff.max() <= 1   # f32 sums over other window lengths: one LSB

@@ -211,12 +211,13 @@ def convert_hifigan_discriminators(ckpt, periods=(2, 3, 5, 7, 11),
     return mpd, msd
 
 
-def convert_hifigan_checkpoint(path, **kw):
+def convert_hifigan_checkpoint(path, config):
     """An upstream HiFi-GAN checkpoint ({"generator": ...} or a bare state
-    dict) -> the port's Generator state dict."""
+    dict) -> the port's Generator state dict at ``config``'s counts."""
     ckpt = load_torch_checkpoint(path)
     state = ckpt["generator"] if "generator" in ckpt else ckpt
-    return convert_hifigan_generator(state, **kw)
+    return convert_hifigan_generator(state, len(config.upsample_rates),
+                                     len(config.resblock_kernel_sizes))
 
 
 def _bigvgan_activation(state, src, dst, out):
@@ -261,12 +262,13 @@ def convert_bigvgan_generator(state, n_ups=6, dilations=((1, 3, 5),) * 3):
     return out
 
 
-def convert_bigvgan_checkpoint(path, **kw):
+def convert_bigvgan_checkpoint(path, config):
     """NVIDIA's ``bigvgan_generator.pt`` ({"generator": ...} or a bare
-    state dict) -> the port's BigVGAN state dict."""
+    state dict) -> the port's BigVGAN state dict at ``config``'s counts."""
     ckpt = load_torch_checkpoint(path)
     state = ckpt["generator"] if "generator" in ckpt else ckpt
-    return convert_bigvgan_generator(state, **kw)
+    return convert_bigvgan_generator(state, len(config.upsample_rates),
+                                     config.resblock_dilation_sizes)
 
 
 def convert_melgan_state(state, ratios=(8, 8, 2, 2), n_residual_layers=3):
@@ -296,12 +298,12 @@ def convert_melgan_state(state, ratios=(8, 8, 2, 2), n_residual_layers=3):
     return out
 
 
-def convert_melgan_checkpoint(path, ratios=(8, 8, 2, 2), n_residual_layers=3):
-    """A MelGAN generator checkpoint -> the port's state dict. A state dict
-    saved from the hub wrapper carries a ``mel2wav.`` prefix, which is
-    stripped (tts_king_tpu/pipeline.py:261-264)."""
+def convert_melgan_checkpoint(path, config):
+    """A MelGAN generator checkpoint -> the port's state dict at ``config``'s
+    ratios. A hub wrapper's state dict carries a ``mel2wav.`` prefix, which
+    is stripped (tts_king_tpu/pipeline.py:261-264)."""
     state = load_torch_checkpoint(path)
     if not any(k.startswith("model.") for k in state):
         state = {k.split("mel2wav.", 1)[-1]: v for k, v in state.items()}
-    return convert_melgan_state(state, ratios, n_residual_layers)
+    return convert_melgan_state(state, config.upsample_rates)
 

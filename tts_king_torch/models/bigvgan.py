@@ -43,7 +43,8 @@ from tts_king_torch.config import VocoderModelConfig
 from tts_king_torch.models.hifigan import get_padding
 from tts_king_torch.ops.dilated_conv import dilated_conv1d, folds
 from tts_king_torch.ops.kernels import _build
-from tts_king_torch.ops.kernels.amp_act import amp_act
+from tts_king_torch.ops.kernels.amp_act import REACH, amp_act
+from tts_king_torch.ops.streaming import generator_receptive_field
 from tts_king_torch.utils.profiling import span
 
 amp_conv_calls = 0    # AMP block convs run
@@ -131,6 +132,11 @@ class BigVGAN(nn.Module):
                                 AMPBlock1(ch, rk, tuple(rd)))
         self.activation_post = AntiAliasedSnakeBeta(ch)
         self.conv_post = nn.Conv1d(ch, 1, 7, padding=3, bias=False)
+
+    @staticmethod
+    def receptive_field(config):
+        """One-sided receptive field in mel frames, with the filters' reach."""
+        return generator_receptive_field(config, act_reach=REACH)
 
     def forward(self, mel, frames=None):
         """mel (B, T, num_mels) -> waveform (B, T * hop). frames (each

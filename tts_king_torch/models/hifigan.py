@@ -222,11 +222,11 @@ class ResBlock2(nn.Module):
 def needed_rows(config, frames, rate, T):
     """Per item, the rows of a stage at ``rate`` rows a frame (T rows) that
     samples [0, frames[b] * hop) depend on: those below (frames[b] + R) *
-    rate. R (generator_receptive_field) is the whole generator's one-sided
+    rate. R (Generator.receptive_field) is the whole generator's one-sided
     reach in frames, so the layers after the stage carry a row's value less
     than R frames back: whatever a row past the bound holds (zeros, or what
     later rows make of such rows), no delivered sample changes."""
-    R = generator_receptive_field(config)
+    R = Generator.receptive_field(config)
     return [min(T, (f + R) * rate) for f in frames]
 
 
@@ -240,6 +240,11 @@ class Generator(nn.Module):
     pair. compute_dtype (with weight_norm only): the dtype the convs run in,
     the parameters' by default.
     """
+
+    @staticmethod
+    def receptive_field(config):
+        """One-sided receptive field in mel frames (leaky ReLUs: no reach)."""
+        return generator_receptive_field(config, act_reach=0)
 
     def __init__(self, config: VocoderModelConfig, mrf_backend="fused",
                  weight_norm=False, compute_dtype=None):

@@ -34,6 +34,7 @@ TAPS = 12
 CUTOFF = 0.25       # 0.5 / ratio, ratio 2
 HALF_WIDTH = 0.3    # 0.6 / ratio
 EPS = 1e-9          # SnakeBeta's no_div_by_zero
+REACH = 5           # the filters' one-sided reach: y[t] reads x[t-5 .. t+5]
 launches = 0
 elements = 0
 

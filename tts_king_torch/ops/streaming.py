@@ -14,31 +14,25 @@ from typing import Callable, Iterator
 import numpy as np
 
 
-# One-sided reach, in samples at its own rate, of BigVGAN's anti-aliased
-# activation: the 12-tap 2x up- and down-sampling filters
-# (ops/kernels/amp_act.py) make y[t] depend on x[t - 5 .. t + 5].
-ANTI_ALIAS_REACH = 5
-
-
-def generator_receptive_field(config, vocoder_model="HiFi-GAN") -> int:
-    """Conservative one-sided receptive field of the HiFi-GAN generator in
-    mel frames: conv_pre + per stage (transposed-conv and MRF halos, divided
-    back to the mel rate by the upsampling so far) + conv_post. For
-    ``vocoder_model`` "BigVGAN" it adds the reach of BigVGAN's anti-aliased
-    activations: two before each dilation's convs and one before conv_post.
-    MelGAN takes HiFi-GAN's, as in the JAX package."""
-    aa = ANTI_ALIAS_REACH if vocoder_model == "BigVGAN" else 0
+def generator_receptive_field(config, act_reach: int) -> int:
+    """Conservative one-sided receptive field of a HiFi-GAN-shaped
+    generator in mel frames: conv_pre + per stage (transposed-conv and MRF
+    halos, divided back to the mel rate by the upsampling so far) +
+    conv_post, with ``act_reach`` (an activation's reach in samples) twice
+    a dilation and once before conv_post. pipeline.VOCODERS holds each
+    family's."""
     rf = 3.0  # conv_pre k=7
     up = 1.0
     for u, k in zip(config.upsample_rates, config.upsample_kernel_sizes):
         prev_up, up = up, up * u
         rf += (k / u) / prev_up  # transposed conv halo, at the input rate
         mrf_halo = max(
-            sum((kk - 1) // 2 * d + (kk - 1) // 2 + 2 * aa for d in dil)
+            sum((kk - 1) // 2 * d + (kk - 1) // 2 + 2 * act_reach
+                for d in dil)
             for kk, dil in zip(config.resblock_kernel_sizes,
                                config.resblock_dilation_sizes))
         rf += mrf_halo / up
-    rf += (3.0 + aa) / up  # conv_post k=7 at sample rate
+    rf += (3.0 + act_reach) / up  # conv_post k=7 at sample rate
     return int(np.ceil(rf)) + 2
 
 
@@ -50,7 +44,7 @@ def stream_vocoder(vocode: Callable[[np.ndarray], np.ndarray], mel,
 
     vocode: (1, frames, n_mels) numpy mel -> (1, frames * hop) numpy
     waveform. halo_frames must cover the generator's receptive field
-    (generator_receptive_field()). Windows past the utterance's edges repeat
+    (pipeline.Vocoder.halo_frames). Windows past the utterance's edges repeat
     its edge frames. The chunks concatenate to the full pass's waveform,
     exactly in the interior. start_frame skips the chunks before it, which
     were already produced (serve.SynthesisServer.stream's first window).

@@ -34,8 +34,8 @@ def vocoder_time_sharded(generator, mel, mesh, halo_frames: int,
     generator: (1, t, M) mel -> (1, t * upsample) waveform (a module or a
         function of the tensor);
     mel: (1, T, M) tensor;
-    halo_frames: the one-sided halo, at least
-        generator_receptive_field(config);
+    halo_frames: the one-sided halo, at least the generator's receptive
+        field (pipeline.Vocoder.halo_frames);
     upsample: the total upsampling (the product of upsample_rates).
 
     Returns the (1, T * upsample) waveform on ``mel``'s device.

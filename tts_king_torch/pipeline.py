@@ -1,7 +1,7 @@
 """End-to-end synthesis pipeline: text -> phonemes -> mel -> waveform.
 
 Port of tts_king_tpu/pipeline.py (API of the reference tts_king.py TTSKing,
-fsapi.py FSTWOapi, hifiapi.py HIFIapi), inference with HiFi-GAN or MelGAN:
+fsapi.py FSTWOapi, hifiapi.py HIFIapi), inference with a family of VOCODERS:
   * phoneme lengths pad up to power-of-two buckets, or to a load-tuned grid
     (``AcousticModel.phone_buckets``, serve.py's suggest_buckets) where it
     covers the length;
@@ -54,6 +54,7 @@ either, seeded random weights.
 import json
 import math
 import os
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -67,8 +68,7 @@ from tts_king_torch.models.bigvgan import BigVGAN
 from tts_king_torch.models.fs2 import build_fastspeech2
 from tts_king_torch.models.hifigan import Generator
 from tts_king_torch.models.melgan import MelGANGenerator
-from tts_king_torch.ops.streaming import (generator_receptive_field,
-                                          stream_vocoder)
+from tts_king_torch.ops.streaming import stream_vocoder
 from tts_king_torch.parallel.mesh import set_dp_axis
 from tts_king_torch.utils.profiling import span
 from tts_king_torch.weights import (flax_to_torch, load_flax_npz, load_into,
@@ -396,46 +396,59 @@ class AcousticModel:
         return out["postnet_mel"], out["mel_lens"]
 
 
+class VocoderFamily(NamedTuple):
+    """What only a vocoder family knows; each callable takes the
+    VocoderModelConfig (convert: the upstream checkpoint's path first)."""
+    build: Callable             # -> its generator
+    convert: Callable           # -> the generator's state dict
+    log10_mels: bool            # natural-log mels / ln 10 (vocoder_infer:87)
+    receptive_field: Callable   # -> one-sided halo in mel frames
+    trained_as_hifigan: bool    # train_vocoder trains Generator, as in JAX
+
+
+# model.vocoder_model -> its family (fs_two/utils/model.py:46-99, and
+# BigVGAN-v2). MelGAN takes HiFi-GAN's receptive field, as in JAX.
+VOCODERS = {
+    "HiFi-GAN": VocoderFamily(Generator, convert_hifigan_checkpoint, False,
+                              Generator.receptive_field, True),
+    "MelGAN": VocoderFamily(
+        lambda v: MelGANGenerator(ratios=tuple(v.upsample_rates)),
+        convert_melgan_checkpoint, True, Generator.receptive_field, True),
+    "BigVGAN": VocoderFamily(BigVGAN, convert_bigvgan_checkpoint, False,
+                             BigVGAN.receptive_field, False),
+}
+
+
+def vocoder_family(name):
+    """The VocoderFamily of model.vocoder_model ``name``."""
+    if name not in VOCODERS:
+        raise ValueError(f"unknown vocoder {name!r} ({', '.join(VOCODERS)})")
+    return VOCODERS[name]
+
+
 class Vocoder:
-    """Vocoder inference wrapper (HIFIapi equivalent, hifiapi.py:11-52), for
-    both of the reference's vocoders (model_config.vocoder.model,
-    fs_two/utils/model.py:46-99): HiFi-GAN, and MelGAN (the descript
-    architecture; it consumes log10 mels, so natural-log mels are divided by
-    ln 10, vocoder_infer:87-89); and for BigVGAN-v2 (models/bigvgan.py),
-    which takes this system's natural-log mel as HiFi-GAN does."""
+    """Vocoder inference wrapper (HIFIapi equivalent, hifiapi.py:11-52) for
+    the family that model.vocoder_model names in VOCODERS. ``halo_frames``:
+    its receptive field, the halo of streaming and time sharding."""
 
     def __init__(self, config: TTSConfig, variables=None, dtype=torch.float32,
                  device="cuda"):
         self.device = resolve_device(device)
         self.dtype = _check_dtype(dtype)
         self.config = config
-        self.kind = config.model.vocoder_model
+        family = vocoder_family(config.model.vocoder_model)
         v = config.vocoder
-        if self.kind == "MelGAN":
-            ratios = tuple(v.upsample_rates)
-            build = lambda: MelGANGenerator(ratios=ratios)
-            convert = lambda path: convert_melgan_checkpoint(path, ratios)
-        elif self.kind == "HiFi-GAN":
-            build = lambda: Generator(v)
-            convert = lambda path: convert_hifigan_checkpoint(
-                path, n_ups=len(v.upsample_rates),
-                n_kernels=len(v.resblock_kernel_sizes))
-        elif self.kind == "BigVGAN":
-            build = lambda: BigVGAN(v)
-            convert = lambda path: convert_bigvgan_checkpoint(
-                path, n_ups=len(v.upsample_rates),
-                dilations=v.resblock_dilation_sizes)
-        else:
-            raise ValueError(f"unknown vocoder {self.kind!r} (HiFi-GAN, "
-                             "MelGAN or BigVGAN)")
-        self.model = _materialize(build, variables, v.weights_path,
-                                  self.device, 1, "Vocoder",
-                                  convert).to(self.dtype)
+        self.log10_mels = family.log10_mels
+        self.halo_frames = family.receptive_field(v)
+        self.model = _materialize(lambda: family.build(v), variables,
+                                  v.weights_path, self.device, 1, "Vocoder",
+                                  lambda path: family.convert(path, v)
+                                  ).to(self.dtype)
 
     def _mel(self, mel):
         mel = (mel.to(self.device) if isinstance(mel, torch.Tensor)
                else to_device(np.asarray(mel), self.device))
-        if self.kind == "MelGAN":
+        if self.log10_mels:
             # one IEEE division, as the JAX package divides (PyTorch's CUDA
             # kernels divide by a Python scalar through its reciprocal); the
             # divisor is filled on the device, so nothing waits for the card
@@ -464,15 +477,13 @@ class Vocoder:
         """ONE long utterance, its time axis split over ``mesh[axis]`` with
         a halo exchange (ops/time_parallel.py): audiobook-length audio
         vocoded n ways. mel: (1, T, M) natural-log mel (MelGAN's divided by
-        ln 10). The halo is generator_receptive_field's for this vocoder
-        (MelGAN takes HiFi-GAN's, as in the JAX package). Returns the
-        (T * hop,) int16 numpy waveform."""
+        ln 10). The halo is halo_frames. Returns the (T * hop,) int16 numpy
+        waveform."""
         from tts_king_torch.ops.time_parallel import vocoder_time_sharded
 
         v = self.config.vocoder
         wav = vocoder_time_sharded(
-            self.model, self._mel(mel), mesh,
-            halo_frames=generator_receptive_field(v, self.kind),
+            self.model, self._mel(mel), mesh, halo_frames=self.halo_frames,
             upsample=int(np.prod(v.upsample_rates)), axis=axis)
         return wav_to_int16(wav, v.max_wav_value)[0].cpu().numpy()
 
@@ -556,16 +567,14 @@ class TTSKing:
                         energy_control=1.0, speaker=0, chunk_frames=64):
         """Yield int16 numpy waveform chunks as they are vocoded: audio
         starts after one small vocoder window instead of the whole
-        utterance. The halo is generator_receptive_field's for the
-        vocoder (MelGAN takes HiFi-GAN's, as in the JAX package); each
-        window is scaled and cast on the device."""
+        utterance. The halo is the vocoder's halo_frames; each window is
+        scaled and cast on the device."""
         mel, mel_lens = self.generate_mel(
             text, duration_control, pitch_control, energy_control, speaker)
         n = int(mel_lens[0])
         mel = mel[:1, :max(n, 1)].float().cpu().numpy()
-        halo = generator_receptive_field(self.cfg.vocoder,
-                                         self.cfg.model.vocoder_model)
         yield from stream_vocoder(
             lambda piece: self.vocoder.vocode_int16(piece).cpu().numpy(),
-            mel, chunk_frames=chunk_frames, halo_frames=halo,
+            mel, chunk_frames=chunk_frames,
+            halo_frames=self.vocoder.halo_frames,
             hop=self.cfg.preprocess.stft.hop_length)

@@ -62,8 +62,7 @@ import torch
 
 from tts_king_torch import pipeline
 from tts_king_torch.ops.kernels import _build
-from tts_king_torch.ops.streaming import (generator_receptive_field,
-                                          stream_vocoder)
+from tts_king_torch.ops.streaming import stream_vocoder
 from tts_king_torch.utils.profiling import span
 
 _now = time.monotonic
@@ -461,8 +460,7 @@ class SynthesisServer:
                                pitch_control=controls[1],
                                energy_control=controls[2],
                                speaker_name=int(speaker))
-            halo = generator_receptive_field(
-                self.king.cfg.vocoder, self.king.cfg.model.vocoder_model)
+            halo = self.king.vocoder.halo_frames
             hop = self.king.cfg.preprocess.stft.hop_length
 
             def head():
@@ -476,8 +474,7 @@ class SynthesisServer:
                                                  **generate_kw)
                     bucket = out["mel_bucket"]
                     win0 = None
-                    if (bucket >= chunk_frames + halo
-                            and self.king.vocoder.kind != "MelGAN"):
+                    if bucket >= chunk_frames + halo:
                         win0 = self._first_window(out["postnet_mel"],
                                                   chunk_frames, halo)
                 # one fetch for everything the first yield needs
@@ -532,11 +529,10 @@ class SynthesisServer:
         with no host sync between them: one dispatch sequence produces
         (mel, lens, first audio window). Returns (out_dict, window_wav,
         mel_bucket), or None where it does not apply (a mesh, whose
-        inference splits the batch's rows; MelGAN; or a first bucket
-        shorter than chunk + halo frames). Whether the window is exact is
+        inference splits the batch's rows, or a first bucket shorter than
+        chunk + halo frames). Whether the window is exact is
         decided in stream()."""
-        if (getattr(self.king.tts, "mesh", None) is not None
-                or self.king.vocoder.kind == "MelGAN"):
+        if getattr(self.king.tts, "mesh", None) is not None:
             return None
         L = len(phonemes)
         guess = int(L * pipeline._FRAMES_PER_PHONE_GUESS * controls[0])

@@ -35,7 +35,7 @@ import torch
 from tts_king_torch.config import TTSConfig
 from tts_king_torch.data.mel_dataset import MelDataset
 from tts_king_torch.parallel.lockstep import add_cli_args, init_from_args
-from tts_king_torch.pipeline import resolve_device
+from tts_king_torch.pipeline import resolve_device, vocoder_family
 from tts_king_torch.train.checkpoint import (load_vocoder_state,
                                              restore_vocoder_state,
                                              save_vocoder_state)
@@ -86,6 +86,9 @@ def train_vocoder(cfg: TTSConfig, wav_paths: List[str],
     compute_dtype: the GAN step's conv dtype (None = f32; see
     VocoderTrainer). ``distributed``: every rank of the process group calls
     this, on its own device, and trains one data-parallel run."""
+    if not vocoder_family(cfg.model.vocoder_model).trained_as_hifigan:
+        raise ValueError(f"train_vocoder trains HiFi-GAN's Generator, not "
+                         f"vocoder_model {cfg.model.vocoder_model!r}")
     device = resolve_device(device)
     vc = cfg.vocoder
     mesh = _vocoder_mesh(vc, use_mesh, distributed, device)
