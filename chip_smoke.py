@@ -118,11 +118,17 @@ non-zero exit (nothing is caught):
                rows 1p and 3p the kernels' bf16-probability mode at the
                batched and speak shapes and the train step's (library:
                none; SDPA's f32 time beside); row 4, BigVGAN-v2's fused
-               anti-aliased SnakeBeta (amp_act_timing_row), checked against
-               its plain version and timed at its six stages' shapes (B =
-               32, T_mel = 1000) beside the unfused PyTorch chain, and its
-               counters held against the trace of one bf16
-               Vocoder.generate(mel, lengths) at B 32 and T_mel 1000;
+               anti-aliased SnakeBeta (amp_act_timing_row) on (B, T, C)
+               signals, checked against its plain version with each
+               prologue (none, a conv's bias, the bias and a residual) and
+               timed with each at its six stages' shapes (B = 32, T_mel =
+               1000) beside the unfused PyTorch chain, and its counters
+               (launches, bias_in, residual_in) held against the trace of
+               one bf16 Vocoder.generate(mel, lengths) at B 32 and T_mel
+               1000; row 4m, the stage mean over the AMP blocks
+               (amp_mean_timing_row) at the six stages in bf16 and f32,
+               bit for bit, timed in bf16 beside its bound and the PyTorch
+               route it replaces;
                then BigVGAN-v2's folded AMP convs (phase_amp_conv): each
                conv that dilated_conv.folds folds, at its stage's (32, C,
                T), held against cuDNN's dilated conv in bf16 and f32, and
@@ -3399,13 +3405,17 @@ def amp_act_unfused(x, alpha, beta):
 
 
 def amp_act_inputs(B, C, T, seed):
+    """x (B, C, T) in (B, T, C) memory, as BigVGAN holds its signals; a and
+    b (alpha, beta), the bias (C,) and a residual like x."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = 3.0 * torch.randn((B, C, T), generator=g, device="cuda")
+    x = 3.0 * torch.randn((B, T, C), generator=g, device="cuda")
     a = 0.3 * torch.randn(C, generator=g, device="cuda")
     b = 0.3 * torch.randn(C, generator=g, device="cuda")
-    return x, a, b
+    bias = torch.randn(C, generator=g, device="cuda")
+    r = torch.randn((B, T, C), generator=g, device="cuda")
+    return x.transpose(1, 2), a, b, bias, r.transpose(1, 2)
 
 
 def ulp_of(t, bits):
@@ -3434,81 +3444,152 @@ def ulp_errors(got, want, scale, ulp):
     return ulps, cancel, float((err - room).max())
 
 
-def amp_act_check(x, a, b):
-    """Hold the fused activation to its plain version on the f32 inputs x
-    (B, C, T), a and b (C,), and on them rounded to bf16: f32 within 1e-6
-    of the plain version's largest value; bf16 within one bf16 ulp of the
-    plain f32 result rounded once (or 1e-5 of the largest value where the
-    sums cancel to near zero). Fails the run past either; returns the
-    errors."""
+AMP_PROLOGUES = ("none", "bias", "residual")
+
+
+def amp_act_prologue(prologue, bias, r):
+    """amp_act's optional arguments for a prologue: none, a conv's bias, or
+    the bias and a residual."""
+    return {"none": (), "bias": (bias,), "residual": (bias, r)}[prologue]
+
+
+def amp_act_check(x, a, b, bias, r):
+    """Hold the fused activation to its plain version of the f32 sum of its
+    inputs, with each prologue (none, bias, bias and residual), on the f32
+    inputs x (B, C, T) in (B, T, C) memory, a, b and bias (C,), r like x
+    (f32 signals laid out (B, C, T) first, as f32 BigVGAN holds them), and
+    on them rounded to bf16: f32 within 1e-6 of the plain version's
+    largest value; bf16 within one bf16 ulp of the plain f32 result rounded
+    once (or 1e-5 of the largest value where the sums cancel to near zero);
+    the stored sum equal to the f32 sum rounded once. Fails the run past
+    any; returns the errors, the largest over the prologues."""
     import torch
 
+    from tts_king_torch.ops.dilated_conv import laid_out
     from tts_king_torch.ops.kernels import amp_act as amp
 
-    got = amp.amp_act(x, a, b)
-    ref = amp.amp_act_plain(x, a, b)
-    err32 = float((got - ref).abs().max()) / float(ref.abs().max())
-    del got, ref
-    xb, ab, bb = x.bfloat16(), a.bfloat16(), b.bfloat16()
-    gotb = amp.amp_act(xb, ab, bb).float()
-    rounded = amp.amp_act_plain(xb.float(), ab.float(), bb.float())
-    scale = float(rounded.abs().max())
-    rounded = rounded.bfloat16().float()
-    ulps, cancel, past = ulp_errors(gotb, rounded, scale, ulp_of(rounded, 7))
-    if not (err32 <= 1e-6 and past <= 0
-            and bool(torch.isfinite(gotb).all())):
-        fail(f"amp_act {list(x.shape)}: f32 rel err {err32}, bf16 {ulps} "
-             f"ulps, {past} past its room")
+    out = {"f32_rel_err": 0.0, "bf16_max_ulps": 0.0,
+           "bf16_cancel_rel_err": 0.0}
+    for prologue in AMP_PROLOGUES:
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = [laid_out(t.to(dtype)) if t.dim() == 3 else t.to(dtype)
+                   for t in (x, a, b, bias, r)]
+            s = ins[0].float()
+            if prologue != "none":
+                s = s + ins[3].float()[:, None]
+            if prologue == "residual":
+                s = s + ins[4].float()
+            got = amp.amp_act(*ins[:3], *amp_act_prologue(prologue,
+                                                          *ins[3:]))
+            if prologue == "residual":
+                total, got = got
+                if not torch.equal(total, s.to(dtype)):
+                    fail(f"amp_act {list(x.shape)} {dtype}: the stored sum "
+                         "is not the f32 sum rounded once")
+                del total
+            ref = amp.amp_act_plain(s, ins[1].float(), ins[2].float())
+            del s
+            scale = float(ref.abs().max())
+            if dtype == torch.float32:
+                err32 = float((got - ref).abs().max()) / scale
+                out["f32_rel_err"] = max(out["f32_rel_err"], err32)
+                ok = err32 <= 1e-6
+            else:
+                rounded = ref.bfloat16().float()
+                ulps, cancel, past = ulp_errors(got.float(), rounded, scale,
+                                                ulp_of(rounded, 7))
+                out["bf16_max_ulps"] = max(out["bf16_max_ulps"], ulps)
+                out["bf16_cancel_rel_err"] = max(out["bf16_cancel_rel_err"],
+                                                 cancel)
+                ok = past <= 0 and bool(torch.isfinite(got).all())
+                del rounded
+            if not ok:
+                fail(f"amp_act {list(x.shape)} {dtype} {prologue}: "
+                     f"{out}")
+            del got, ref, ins
     # bf16: the most ulps where one ulp is the room, and the largest error
     # over the largest value where 1e-5 of it is
-    return {"f32_rel_err": err32, "bf16_max_ulps": ulps,
-            "bf16_cancel_rel_err": cancel}
+    return out
+
+
+def amp_chain_kernels(events, span, ops):
+    """Device kernels in a trace launched by one of ``ops`` (aten operator
+    names) inside ``span``."""
+    n = 0
+    for e in events:
+        chain, p = set(), e
+        while p is not None:
+            chain.add(p.name)
+            p = p.cpu_parent
+        if span in chain and chain & set(ops):
+            n += len(getattr(e, "kernels", []))
+    return n
 
 
 def amp_act_timing_row(smi):
-    """Row 4: the fused anti-aliased SnakeBeta (csrc/amp_act.cu). Checks
-    (amp_act_check) at AMP_CHECKS, then at each stage of AMP_STAGES at B 32
-    the check and, bf16: the kernel's ms beside its bound (input read and
-    output written once, 2 bytes an element, over HBM; 24 multiply-adds and
-    two sines an element over the CUDA cores' f32 peak), the plain
-    version's ms and the unfused PyTorch chain's in bf16. Last, one bf16
+    """Row 4: the fused anti-aliased SnakeBeta (csrc/amp_act.cu) on signals
+    in their dtype's layout (bf16 (B, T, C), the tile kernel; f32 (B, C,
+    T), the row kernel). Checks (amp_act_check, each prologue) at
+    AMP_CHECKS, then at each stage of AMP_STAGES at B 32 the check, the f32
+    row kernel's ms without a prologue (ms_f32) and,
+    bf16: the kernel's ms with each prologue beside its bound (bytes over
+    HBM: the input read and the output written once, 2 bytes an element, the
+    bias's C elements read, and with a residual its read and the sum's write
+    too; operations over the CUDA cores' f32 peak: 24 multiply-adds and two
+    sines an element, and the prologue's adds), the plain version's ms and
+    the unfused PyTorch chain's in bf16 (no prologue). Last, one bf16
     BigVGAN-v2 Vocoder.generate(mel, lengths) at the published widths, B 32
     and the mel bucket 1000 with BULK_FRAMES' lengths (the bulk cell's
     call), under the profiler: the wrapper's counters (amp_act.launches,
-    amp_act.elements, zeroed just before) against the kernel's launches in
-    the trace and the vocoder.act spans."""
+    elements, bias_in, residual_in, mean_launches, zeroed just before)
+    against the kernels' launches in the trace, the vocoder.act spans and
+    the layout's counts (109 launches, 90 with a bias, 36 with a residual,
+    6 stage means), and no bias add left inside a vocoder.amp_conv span."""
     import numpy as np
     import torch
 
     from tts_king_torch.config import TTSConfig, VocoderModelConfig
     from tts_king_torch.models.bigvgan import BigVGAN
+    from tts_king_torch.ops.dilated_conv import laid_out
     from tts_king_torch.ops.kernels import amp_act as amp
     from tts_king_torch.pipeline import Vocoder
     from tts_king_torch.weights import seeded_state_dict
 
     checks = {}
     for B, C, T in AMP_CHECKS:
-        x, a, b = amp_act_inputs(B, C, T, seed=B * C + T)
-        checks[f"{B}x{C}x{T}"] = amp_act_check(x, a, b)
-        del x
+        ins = amp_act_inputs(B, C, T, seed=B * C + T)
+        checks[f"{B}x{C}x{T}"] = amp_act_check(*ins)
+        del ins
     stages = []
     for C, T in AMP_STAGES:
-        x, a, b = amp_act_inputs(BENCH_B, C, T, seed=C)
-        checks[f"{BENCH_B}x{C}x{T}"] = amp_act_check(x, a, b)
-        x, a, b = x.bfloat16(), a.bfloat16(), b.bfloat16()
-        ms = cuda_ms(lambda: amp.amp_act(x, a, b), warmup=3, reps=10)
-        plain_ms = cuda_ms(lambda: amp.amp_act_plain(x, a, b), warmup=1,
-                           reps=3)
-        lib_ms = cuda_ms(lambda: amp_act_unfused(x, a, b), warmup=1, reps=3)
+        ins = amp_act_inputs(BENCH_B, C, T, seed=C)
+        checks[f"{BENCH_B}x{C}x{T}"] = amp_act_check(*ins)
+        x32 = laid_out(ins[0])
+        stage = {"shape": [BENCH_B, C, T], "ms_f32": cuda_ms(
+            lambda: amp.amp_act(x32, *ins[1:3]), warmup=3, reps=10)}
+        del x32
+        x, a, b, bias, r = [t.bfloat16() for t in ins]
+        del ins
         n = float(x.numel())
-        t_bytes = 2 * 2 * n / PEAK_BYTES
-        t_ops = (24 * 2 + 2 * 4) * n / PEAK_F32_OPS
-        stages.append({"shape": [BENCH_B, C, T], "ms": ms,
-                       "bound_ms": max(t_bytes, t_ops) * 1e3,
-                       "bound_by": "bytes" if t_bytes >= t_ops
-                       else "operations",
-                       "plain_ms": plain_ms, "library_ms": lib_ms})
-        del x
+        for prologue in AMP_PROLOGUES:
+            extra = amp_act_prologue(prologue, bias, r)
+            ms = cuda_ms(lambda: amp.amp_act(x, a, b, *extra), warmup=3,
+                         reps=10)
+            moved = 2 * 2 * n + (2 * C if extra else 0) + (
+                2 * 2 * n if prologue == "residual" else 0)
+            t_bytes = moved / PEAK_BYTES
+            t_ops = (24 * 2 + 2 * 4 + len(extra)) * n / PEAK_F32_OPS
+            key = "" if prologue == "none" else f"_{prologue}"
+            stage[f"ms{key}"] = ms
+            stage[f"bound_ms{key}"] = max(t_bytes, t_ops) * 1e3
+            stage[f"bound_by{key}"] = ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+        stage["plain_ms"] = cuda_ms(lambda: amp.amp_act_plain(x, a, b),
+                                    warmup=1, reps=3)
+        stage["library_ms"] = cuda_ms(lambda: amp_act_unfused(x, a, b),
+                                      warmup=1, reps=3)
+        stages.append(stage)
+        del x, r
         torch.cuda.empty_cache()
     emit({"phase": "kernel_vs_plain", "kernel": "amp_act", "checks": checks,
           "ok": True})
@@ -3528,51 +3609,149 @@ def amp_act_timing_row(smi):
     lengths = np.asarray(BULK_FRAMES) * 256
     voc.generate(mel, lengths)
     torch.cuda.synchronize()
-    amp.launches = amp.elements = 0
+    names = ("launches", "elements", "bias_in", "residual_in",
+             "mean_launches")
+    for name in names:
+        setattr(amp, name, 0)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         wavs = voc.generate(mel, lengths)
         torch.cuda.synchronize()
-    counted = {"launches": amp.launches, "elements": amp.elements}
+    counted = {name: getattr(amp, name) for name in names}
     events = prof.events()
     traced = sum(1 for e in events if "amp_act_kernel" in e.name
                  and e.device_type == torch.autograd.DeviceType.CUDA)
+    traced_means = sum(1 for e in events if "amp_mean_kernel" in e.name
+                       and e.device_type == torch.autograd.DeviceType.CUDA)
     spans = sum(1 for e in events if e.name == "vocoder.act"
                 and e.device_type == torch.autograd.DeviceType.CPU)
+    conv_bias_adds = amp_chain_kernels(events, "vocoder.amp_conv",
+                                       ("aten::add_", "aten::add"))
     want_elements = BENCH_B * BENCH_T * (sum(
         C * T // 1000 * 18 for C, T in AMP_STAGES) + 24 * 256)
     if not (counted["launches"] == traced == spans == 109
             and counted["elements"] == want_elements
+            and (counted["bias_in"], counted["residual_in"]) == (90, 36)
+            and counted["mean_launches"] == traced_means == 6
+            and conv_bias_adds == 0
             and [len(w) for w in wavs] == list(lengths)):
         fail(f"amp_act counters {counted} against the trace: {traced} "
-             f"launches, {spans} vocoder.act spans (109 and "
-             f"{want_elements} elements wanted)")
+             f"launches, {spans} vocoder.act spans, {traced_means} stage "
+             f"means, {conv_bias_adds} adds inside vocoder.amp_conv (109, "
+             f"{want_elements} elements, 90 with a bias, 36 with a "
+             "residual, 6 means and no add wanted)")
     row = {"name": "amp_act", "route": "cuda",
            "source": "tts_king_torch/csrc/amp_act.cu",
            "replaces": "none (BigVGAN's Activation1d(SnakeBeta); the JAX "
                        "package has no BigVGAN)", "dtype": "bf16",
            "ms": sum(s["ms"] for s in stages),
            "bound_ms": sum(s["bound_ms"] for s in stages),
+           "ms_bias": sum(s["ms_bias"] for s in stages),
+           "bound_ms_bias": sum(s["bound_ms_bias"] for s in stages),
+           "ms_residual": sum(s["ms_residual"] for s in stages),
+           "ms_f32": sum(s["ms_f32"] for s in stages),
+           "bound_ms_residual": sum(s["bound_ms_residual"] for s in stages),
            "plain_ms": sum(s["plain_ms"] for s in stages),
            "library_ms": sum(s["library_ms"] for s in stages),
            "stages": stages, "checks": checks,
            "generate_call": dict(counted, traced_launches=traced,
-                                 spans=spans),
+                                 spans=spans, traced_means=traced_means,
+                                 adds_in_amp_conv=conv_bias_adds),
            "nvidia_smi": smi,
            "note": "ms, bound_ms, plain_ms, library_ms: one activation at "
-                   "each of the six stages at B 32 (T_mel 1000), summed; a "
-                   "stage runs 18 of them a generator call; library: the "
-                   "unfused PyTorch chain in bf16"}
+                   "each of the six stages at B 32 (T_mel 1000) on (B, T, C) "
+                   "signals, summed; a stage runs 18 of them a generator "
+                   "call, 15 with a bias (_bias), 6 of those with a "
+                   "residual too (_residual); library: the unfused PyTorch "
+                   "chain in bf16"}
     del voc
     torch.cuda.empty_cache()
     return row
 
 
+def stage_mean_pytorch(parts):
+    """An upsampling stage's mean over its AMP blocks' parts (a, bias, x)
+    as PyTorch ops in the parts' dtype: each block's output (a + bias) + x
+    in two adds, their sum, divided by n (the route that amp_mean
+    replaces)."""
+    acc = None
+    for a, b, x in parts:
+        out = (a + b[:, None]) + x
+        acc = out if acc is None else acc + out
+    return acc / len(parts)
+
+
+def amp_mean_timing_row(smi):
+    """Row 4m: an upsampling stage's mean over its 3 AMP blocks
+    (amp_act.amp_mean, amp_mean_kernel in csrc/amp_act.cu) at each stage of
+    AMP_STAGES at B 32, in bf16 ((B, T, C) memory) and f32 ((B, C, T)):
+    bit for bit the f32 sum of the parts, (a + bias) + x a block, divided
+    by n and rounded once. bf16: its ms beside its bound (bytes over HBM:
+    each block's a and x read, 2 bytes an element, and its bias, the mean
+    written) and the PyTorch route's ms (``stage_mean_pytorch``). Fails the
+    run past any check."""
+    import torch
+
+    from tts_king_torch.ops.dilated_conv import laid_out
+    from tts_king_torch.ops.kernels import amp_act as amp
+
+    stages = []
+    for C, T in AMP_STAGES:
+        g = torch.Generator(device="cuda").manual_seed(C + 1)
+        stage = {"shape": [BENCH_B, C, T]}
+        for dtype in (torch.float32, torch.bfloat16):
+            parts = [tuple(laid_out(t.to(dtype)) if t.dim() == 3
+                           else t.to(dtype) for t in (
+                torch.randn(BENCH_B, T, C, generator=g,
+                            device="cuda").transpose(1, 2),
+                torch.randn(C, generator=g, device="cuda"),
+                torch.randn(BENCH_B, T, C, generator=g,
+                            device="cuda").transpose(1, 2)))
+                for _ in range(3)]
+            s = 0
+            for a, b, x in parts:
+                s = s + ((a.float() + b.float()[:, None]) + x.float())
+            # a divisor on the card: PyTorch multiplies by the reciprocal
+            # of a Python scalar there, where the kernel divides
+            want = (s / torch.full((), 3.0, device="cuda")).to(dtype)
+            del s
+            got = amp.amp_mean(parts)
+            if not (torch.equal(got, want) and laid_out(got) is got):
+                fail(f"amp_mean {[BENCH_B, C, T]} {dtype}: not the f32 sum "
+                     "of its parts over n rounded once, in its layout")
+            del got, want
+            if dtype == torch.bfloat16:
+                n = float(BENCH_B * C * T)
+                stage["ms"] = cuda_ms(lambda: amp.amp_mean(parts), warmup=3,
+                                      reps=10)
+                stage["bound_ms"] = (3 * (2 * 2 * n + 2 * C) + 2 * n) / (
+                    PEAK_BYTES) * 1e3
+                stage["pytorch_ms"] = cuda_ms(
+                    lambda: stage_mean_pytorch(parts), warmup=1, reps=5)
+            del parts
+            torch.cuda.empty_cache()
+        stages.append(stage)
+    return {"name": "amp_mean", "route": "cuda",
+            "source": "tts_king_torch/csrc/amp_act.cu",
+            "replaces": "none (BigVGAN's mean over a stage's AMP blocks; "
+                        "the JAX package has no BigVGAN)", "dtype": "bf16",
+            "ms": sum(s["ms"] for s in stages),
+            "bound_ms": sum(s["bound_ms"] for s in stages),
+            "pytorch_ms": sum(s["pytorch_ms"] for s in stages),
+            "stages": stages, "checks": "bit for bit, bf16 and f32",
+            "nvidia_smi": smi,
+            "note": "one stage mean (3 blocks) at each of the six stages at "
+                    "B 32 (T_mel 1000), summed: a generator call's 6 "
+                    "launches; pytorch: the blocks' last sums and their "
+                    "mean as PyTorch ops in bf16"}
+
+
 def phase_amp_conv(smi):
     """BigVGAN-v2's AMP convs folded by their dilation (ops/dilated_conv.py).
     Each conv of the published layout that dilated_conv.folds folds in
-    bf16, at its stage's (B 32, C, T) at T_mel 1000: the fold against
+    bf16, at its stage's (B 32, C, T) at T_mel 1000, input and weight
+    channels-last as the generator holds them: the fold against
     cuDNN's dilated conv on the same inputs, in bf16 within one bf16 ulp of
     the larger of the two values (or 1e-5 of the largest value where the
     sums cancel), and in f32 within one f32 ulp (or 1e-5 of the largest
@@ -3591,7 +3770,8 @@ def phase_amp_conv(smi):
 
     from tts_king_torch.config import TTSConfig, VocoderModelConfig
     from tts_king_torch.models import bigvgan
-    from tts_king_torch.ops.dilated_conv import dilated_conv1d, folds
+    from tts_king_torch.ops.dilated_conv import (channels_last,
+                                                 dilated_conv1d, folds)
     from tts_king_torch.pipeline import Vocoder
     from tts_king_torch.weights import seeded_state_dict
 
@@ -3618,9 +3798,10 @@ def phase_amp_conv(smi):
                     continue
                 want_folded += 1
                 g = torch.Generator(device="cuda").manual_seed(C * k + d)
-                x = torch.randn(BENCH_B, C, T, generator=g, device="cuda")
-                w = torch.randn(C, C, k, generator=g,
-                                device="cuda") / math.sqrt(C * k)
+                x = torch.randn(BENCH_B, T, C, generator=g,
+                                device="cuda").transpose(1, 2)
+                w = channels_last(torch.randn(C, C, k, generator=g,
+                                              device="cuda") / math.sqrt(C * k))
                 b = 0.1 * torch.randn(C, generator=g, device="cuda")
                 p = d * (k - 1) // 2
                 got = dilated_conv1d(x, w, b, d, p)
@@ -5443,6 +5624,7 @@ def main():
                                  probs_bf16=True))
     rows[-1]["launches_parallel"] = par_launches["3p"]
     rows.append(amp_act_timing_row(smi))
+    rows.append(amp_mean_timing_row(smi))
     phase_amp_conv(smi)
     mark("kernels")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -34,6 +34,7 @@ from benchmark.reference import bigvgan as reference  # noqa: E402
 from tts_king_torch.config import (BIGVGAN_V2,  # noqa: E402
                                    VocoderModelConfig)
 from tts_king_torch.models.bigvgan import BigVGAN  # noqa: E402
+from tts_king_torch.ops.dilated_conv import laid_out  # noqa: E402
 from tts_king_torch.ops.kernels import amp_act as amp  # noqa: E402
 
 PUBLISHED = dict(upsample_rates=[4, 4, 2, 2, 2, 2],
@@ -175,16 +176,25 @@ def test_frames_do_not_move_the_samples():
 def test_launch_count_per_generator_call(monkeypatch):
     """6 activations an AMP block (stages x branches of them) and one
     before conv_post, each under a vocoder.act span; their inputs'
-    base-rate sizes are the reference's count. On the card each call is
-    one launch, counted in amp_act.launches and amp_act.elements (chip_smoke
-    row 4 holds them against the trace); on the CPU the calls launch
-    nothing and count nothing, so the model's calls are counted here."""
+    base-rate sizes are the reference's count. 5 of a block's 6 take the
+    conv bias that their input's conv left out, 2 of them the residual too
+    (act1 of the block's second and third dilation): 90 and 36 of the 109
+    at the published 18 blocks. On the card each call is one launch,
+    counted in amp_act.launches, amp_act.elements, amp_act.bias_in and
+    amp_act.residual_in (chip_smoke row 4 holds them against the trace); on
+    the CPU the calls launch nothing and count nothing, so the model's
+    calls are counted here."""
     from tts_king_torch.models import bigvgan
     from tts_king_torch.utils import profiling
 
     calls, spans = [], []
-    monkeypatch.setattr(bigvgan, "amp_act", lambda x, a, b: (
-        calls.append(x.numel()), amp.amp_act(x, a, b))[1])
+
+    def recording(x, a, b, bias=None, residual=None):
+        calls.append((x.numel(), bias is not None, residual is not None))
+        return amp.amp_act(x, a, b, bias, residual)
+
+    recording.fuses_prologue = True
+    monkeypatch.setattr(bigvgan, "amp_act", recording)
     real_span = profiling.span
 
     def counting_span(name, *args):
@@ -195,13 +205,83 @@ def test_launch_count_per_generator_call(monkeypatch):
     cfg = micro_config()
     model, _ = seeded(BigVGAN(cfg), 5)
     mel = torch.randn(1, 10, 80, generator=torch.Generator().manual_seed(3))
-    launches, elements = amp.launches, amp.elements
+    counters = ("launches", "elements", "bias_in", "residual_in")
+    before = [getattr(amp, n) for n in counters]
     with torch.no_grad():
         model(mel)
     n_blocks = len(cfg.upsample_rates) * len(cfg.resblock_kernel_sizes)
+    assert n_blocks == 18
     assert len(calls) == spans.count("vocoder.act") == 6 * n_blocks + 1
-    assert sum(calls) == reference.act_elements_per_frame(ref_v(cfg)) * 10
-    assert (amp.launches, amp.elements) == (launches, elements)
+    assert sum(n for n, _, _ in calls) == reference.act_elements_per_frame(
+        ref_v(cfg)) * 10
+    assert sum(b for _, b, _ in calls) == 5 * n_blocks == 90
+    assert sum(r for _, _, r in calls) == 2 * n_blocks == 36
+    assert all(b for _, b, r in calls if r)
+    assert [getattr(amp, n) for n in counters] == before
+
+
+def test_a_stand_in_activation_gets_the_summed_input(monkeypatch):
+    """A stand-in for amp_act that takes (x, alpha, beta) alone (the
+    benchmark's control without anti-aliasing is one) is handed x + bias +
+    residual, summed by PyTorch in the module's dtype: in f32 the same sums,
+    so the same waveform."""
+    from tts_king_torch.models import bigvgan
+
+    cfg = micro_config()
+    model, _ = seeded(BigVGAN(cfg), 9)
+    mel = torch.randn(1, 11, 80, generator=torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        fused = model(mel)
+        monkeypatch.setattr(bigvgan, "amp_act", lambda x, a, b: (
+            amp.amp_act_plain(x, a, b)))
+        stand_in = model(mel)
+    torch.testing.assert_close(stand_in, fused, rtol=0, atol=1e-6)
+
+
+def _lies_as_its_dtype(t):
+    """Whether (B, C, T) ``t`` lies in its dtype's layout: bf16 in (B, T,
+    C) memory, f32 contiguous (B, C, T)."""
+    return laid_out(t) is t
+
+
+def _signal(shape, gen, dtype, scale=1.0):
+    """A (B, C, T) signal of ``dtype`` in its layout."""
+    B, C, T = shape
+    return laid_out((scale * torch.randn(B, T, C, generator=gen)).transpose(
+        1, 2).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prologue", ["none", "bias", "residual"])
+@pytest.mark.parametrize("shape", [(1, 24, 13), (2, 24, 7), (3, 5, 1),
+                                   (2, 16, 37)])
+def test_wrapper_sums_bias_and_residual_in_f32(shape, prologue, dtype):
+    """On inputs in their dtype's layout (bf16 (B, T, C), f32 (B, C, T)):
+    y = amp_act_plain(a + bias + r) with the sum in f32 from the inputs as
+    given, and with a residual the sum rounded once to the inputs' dtype;
+    both outputs in that layout. T not a multiple of 8, one sample, C = 24
+    and a batch of one."""
+    g = torch.Generator().manual_seed(sum(shape))
+    a = _signal(shape, g, dtype, 2.0)
+    alpha = (0.3 * torch.randn(shape[1], generator=g)).to(dtype)
+    beta = (0.3 * torch.randn(shape[1], generator=g)).to(dtype)
+    bias = (torch.randn(shape[1], generator=g)).to(dtype)
+    r = _signal(shape, g, dtype)
+    s = a.float()
+    if prologue != "none":
+        s = s + bias.float()[:, None]
+    if prologue == "residual":
+        s = s + r.float()
+    ref = amp.amp_act_plain(s, alpha, beta).to(dtype)
+    got = amp.amp_act(a, alpha, beta, *{
+        "none": (), "bias": (bias,), "residual": (bias, r)}[prologue])
+    if prologue == "residual":
+        total, got = got
+        assert total.dtype == dtype and torch.equal(total, s.to(dtype))
+        assert _lies_as_its_dtype(total)
+    assert got.shape == a.shape and got.dtype == dtype
+    assert _lies_as_its_dtype(got)
+    assert torch.equal(got, ref)
 
 
 def test_published_layout_has_109_activations_and_112m_parameters():
@@ -435,6 +515,36 @@ def test_port_seeds_log_scale_parameters_near_zero():
     assert float(alphas.abs().mean()) < 0.2
 
 
+def _mean_parts(shape, n, dtype, gen, device="cpu"):
+    """n blocks' parts (a, bias, x) for amp_mean, a and x in their dtype's
+    layout."""
+    B, C, T = shape
+    return [tuple(t.to(dtype) if t.dim() == 1 else laid_out(t.to(dtype))
+                  for t in (
+        torch.randn(B, T, C, generator=gen, device=device).transpose(1, 2),
+        torch.randn(C, generator=gen, device=device),
+        torch.randn(B, T, C, generator=gen, device=device).transpose(1, 2)))
+        for _ in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 3])
+def test_stage_mean_sums_the_blocks_parts_in_f32(n, dtype):
+    """amp_mean: sum_j (a_j + bias_j + x_j) / n from the parts as given,
+    summed in f32 in that order and rounded once, in the dtype's layout;
+    one block's mean is its output. Counts no launch on the CPU."""
+    g = torch.Generator().manual_seed(n)
+    parts = _mean_parts((2, 12, 9), n, dtype, g)
+    s = 0
+    for a, b, x in parts:
+        s = s + ((a.float() + b.float()[:, None]) + x.float())
+    launches = amp.mean_launches
+    got = amp.amp_mean(parts)
+    assert got.dtype == dtype and _lies_as_its_dtype(got)
+    assert torch.equal(got, (s / n).to(dtype))
+    assert amp.mean_launches == launches
+
+
 # ------------------------------------------------------------ on the card
 
 
@@ -448,8 +558,8 @@ def cuda_device():
 
 
 # (B, C, T) of each stage's activations at B 32 and the mel bucket 1000,
-# and ragged shapes: T no multiple of 8 (the scalar path), T shorter than
-# a tile, a tile and a frame past it.
+# and ragged shapes: C no multiple of 8 (one element at a time), T no
+# multiple of 8, T shorter than a tile, a tile and a frame past it.
 STAGE_SHAPES = [(32, 768, 4000), (32, 384, 16000), (32, 192, 32000),
                 (32, 96, 64000), (32, 48, 128000), (32, 24, 256000)]
 RAGGED_SHAPES = [(3, 5, 1), (2, 7, 13), (3, 9, 1027), (2, 24, 2053),
@@ -457,11 +567,19 @@ RAGGED_SHAPES = [(3, 5, 1), (2, 7, 13), (3, 9, 1027), (2, 24, 2053),
 
 
 def _inputs(shape, dtype, device, seed):
+    """x (and the residual) in the dtype's layout, in bf16 x a prefix of
+    each item's rows of a longer signal (a compacted fold's batch stride);
+    alpha, beta, bias."""
+    B, C, T = shape
     g = torch.Generator(device=device).manual_seed(seed)
-    x = 3.0 * torch.randn(shape, generator=g, device=device)
-    alpha = 0.3 * torch.randn(shape[1], generator=g, device=device)
-    beta = 0.3 * torch.randn(shape[1], generator=g, device=device)
-    return x.to(dtype), alpha.to(dtype), beta.to(dtype)
+    x = 3.0 * torch.randn(B, T + 8, C, generator=g, device=device)
+    r = torch.randn(B, T, C, generator=g, device=device)
+    alpha = 0.3 * torch.randn(C, generator=g, device=device)
+    beta = 0.3 * torch.randn(C, generator=g, device=device)
+    bias = torch.randn(C, generator=g, device=device)
+    return [laid_out(t.to(dtype)) if t.dim() == 3 else t.to(dtype)
+            for t in (x[:, :T].transpose(1, 2), alpha, beta, bias,
+                      r.transpose(1, 2))]
 
 
 def _bf16_ulp(t):
@@ -471,26 +589,63 @@ def _bf16_ulp(t):
 
 
 @pytest.mark.chip
+@pytest.mark.parametrize("prologue", ["none", "bias", "residual"])
 @pytest.mark.parametrize("shape", STAGE_SHAPES + RAGGED_SHAPES)
-def test_kernel_matches_plain_on_the_card(cuda_device, shape):
-    """f32: within 1e-6 of the plain version relative to the largest value
+def test_kernel_matches_plain_on_the_card(cuda_device, shape, prologue):
+    """The kernel on signals in their dtype's layout (bf16 (B, T, C), the
+    tile kernel; f32 (B, C, T), the row kernel) against the plain version
+    of the f32 sum of its inputs (none, a conv's bias, the bias and a
+    residual).
+    f32: within 1e-6 of the plain version relative to the largest value
     (the kernel's sums run in another order); bf16: within one bf16 ulp of
     the plain f32 result rounded once, or within 1e-5 of the largest value
     where the sums cancel to near zero and the ulp is smaller than f32's
-    own rounding of them."""
-    x, a, b = _inputs(shape, torch.float32, cuda_device, sum(shape))
-    got = amp.amp_act(x, a, b)
-    ref = amp.amp_act_plain(x, a, b)
-    torch.cuda.synchronize()
-    scale = float(ref.abs().max())
-    assert float((got - ref).abs().max()) <= 1e-6 * scale
-    xb, ab, bb = x.bfloat16(), a.bfloat16(), b.bfloat16()
-    got = amp.amp_act(xb, ab, bb)
-    ref = amp.amp_act_plain(xb.float(), ab.float(), bb.float())
-    torch.cuda.synchronize()
-    assert got.dtype == torch.bfloat16
-    rounded = ref.bfloat16()
-    err = (got.float() - rounded.float()).abs()
-    room = torch.maximum(_bf16_ulp(rounded), torch.full_like(
-        err, 1e-5 * float(ref.abs().max())))
-    assert bool((err <= room).all()), float((err - room).max())
+    own rounding of them. The stored sum equals the f32 sum rounded once,
+    and the outputs lie in the inputs' layout."""
+    extra = {"none": lambda b, r: (), "bias": lambda b, r: (b,),
+             "residual": lambda b, r: (b, r)}[prologue]
+    for dtype in (torch.float32, torch.bfloat16):
+        x, a, b, bias, r = _inputs(shape, dtype, cuda_device, sum(shape))
+        s = x.float()
+        if prologue != "none":
+            s = s + bias.float()[:, None]
+        if prologue == "residual":
+            s = s + r.float()
+        got = amp.amp_act(x, a, b, *extra(bias, r))
+        if prologue == "residual":
+            total, got = got
+            assert torch.equal(total, s.to(dtype))
+        ref = amp.amp_act_plain(s, a.float(), b.float())
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and _lies_as_its_dtype(got)
+        scale = float(ref.abs().max())
+        if dtype == torch.float32:
+            assert float((got - ref).abs().max()) <= 1e-6 * scale
+            continue
+        rounded = ref.bfloat16()
+        err = (got.float() - rounded.float()).abs()
+        room = torch.maximum(_bf16_ulp(rounded), torch.full_like(
+            err, 1e-5 * scale))
+        assert bool((err <= room).all()), float((err - room).max())
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("shape", [(32, 384, 16000), (2, 24, 2053),
+                                   (3, 5, 7)])
+def test_stage_mean_matches_plain_on_the_card(cuda_device, shape):
+    """The stage-mean kernel equals the f32 sum of its parts divided by n
+    and rounded once, bit for bit (the same f32 operations in the same
+    order), in both dtypes; C = 5 takes the one-element path."""
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    for dtype in (torch.float32, torch.bfloat16):
+        parts = _mean_parts(shape, 3, dtype, g, cuda_device)
+        s = 0
+        for a, b, x in parts:
+            s = s + ((a.float() + b.float()[:, None]) + x.float())
+        got = amp.amp_mean(parts)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and _lies_as_its_dtype(got)
+        # a divisor on the card: PyTorch multiplies by the reciprocal of a
+        # Python scalar there, where the kernel divides
+        n = torch.full((), 3.0, device=cuda_device)
+        assert torch.equal(got, (s / n).to(dtype))

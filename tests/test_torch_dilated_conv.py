@@ -52,6 +52,12 @@ def _bf16_ulp(t):
     return torch.exp2(e - 7)
 
 
+def _lies_as_its_dtype(t):
+    """Whether (B, C, T) ``t`` lies in its dtype's layout: bf16 in (B, T,
+    C) memory, rows C apart; f32 contiguous (B, C, T)."""
+    return dilated_conv.laid_out(t) is t
+
+
 def _lengths(k, d):
     """T a multiple of d, one past it, and shorter than the taps span."""
     return {"multiple": 12 * d, "ragged": 12 * d + 1,
@@ -75,7 +81,7 @@ def test_fold_matches_the_dilated_conv(k, d, length, dtype):
     if dtype == "f32":
         ref = F.conv1d(x, w, b, padding=p, dilation=d)
         got = dilated_conv.dilated_conv1d(x, w, b, d, p)
-        assert got.shape == ref.shape == (2, 12, T) and got.is_contiguous()
+        assert got.shape == ref.shape == (2, 12, T) and _lies_as_its_dtype(got)
         assert float((got - ref).abs().max()) <= 1e-6 * float(
             ref.abs().max())
         return
@@ -84,12 +90,65 @@ def test_fold_matches_the_dilated_conv(k, d, length, dtype):
     ref = F.conv1d(xb.float(), wb.float(), bb.float(), padding=p, dilation=d)
     got = dilated_conv.dilated_conv1d(xb, wb, bb, d, p)
     assert got.dtype == torch.bfloat16
-    assert got.shape == (2, 12, T) and got.is_contiguous()
+    assert got.shape == (2, 12, T) and _lies_as_its_dtype(got)
     rounded = ref.bfloat16().float()
     err = (got.float() - rounded).abs()
     room = torch.maximum(_bf16_ulp(rounded), torch.full_like(
         err, 1e-5 * float(ref.abs().max())))
     assert bool((err <= room).all()), float((err - room).max())
+
+
+@pytest.mark.parametrize("channels", [16, 48])
+@pytest.mark.parametrize("op", ["conv1d", "conv_transpose1d"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_convs_take_and_give_signals_in_their_dtypes_layout(dtype, op,
+                                                            channels):
+    """The convs give F.conv1d's and F.conv_transpose1d's sums on a (B, C,
+    T) signal in its dtype's layout (bf16 channels-last, f32 (B, C, T)) and
+    return one so laid, with the signal and the weight in either layout:
+    f32 within 1e-6 of the largest value, bf16 within 1e-2 of it (bf16's
+    rounding of the output)."""
+    g = torch.Generator().manual_seed(channels)
+    x = torch.randn(2, 37, channels, generator=g).transpose(1, 2).to(dtype)
+    if op == "conv1d":
+        w = torch.randn(24, channels, 7, generator=g) / (7 * channels) ** 0.5
+        b = torch.randn(24, generator=g)
+        ref = F.conv1d(x.float(), w, b, padding=6, dilation=2)
+        call = lambda x, w: dilated_conv.conv1d(  # noqa: E731
+            x, w, b.to(dtype), 6, 2)
+    else:
+        w = torch.randn(channels, 24, 8, generator=g) / (8 * channels) ** 0.5
+        b = torch.randn(24, generator=g)
+        ref = F.conv_transpose1d(x.float(), w, b, stride=4, padding=2)
+        call = lambda x, w: dilated_conv.conv_transpose1d(  # noqa: E731
+            x, w, b.to(dtype), 4, 2)
+    room = (1e-6 if dtype == torch.float32 else 1e-2) * float(
+        ref.abs().max())
+    for signal in (x, x.contiguous()):
+        for weight in (w.to(dtype), dilated_conv.channels_last(w.to(dtype))):
+            got = call(signal, weight)
+            assert got.shape == ref.shape and got.dtype == dtype
+            assert _lies_as_its_dtype(got)
+            assert float((got.float() - ref).abs().max()) <= room
+    assert dilated_conv.channels_last_for(dtype) == (dtype == torch.bfloat16)
+
+
+def test_weights_are_laid_out_for_the_modules_dtype():
+    """BigVGAN's conv weights lie in their dtype's layout after ``to``, to
+    bf16 and back, with their values (rounded to bf16 once) and the state
+    dict's names and shapes unchanged."""
+    model = bigvgan.BigVGAN(micro_config())
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    convs = [m for m in model.modules()
+             if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d))]
+    for dtype in (torch.bfloat16, torch.float32):
+        model.to(dtype)
+        assert all(_lies_as_its_dtype(m.weight) for m in convs)
+        got = model.state_dict()
+        assert [(k, v.shape) for k, v in got.items()] == [
+            (k, v.shape) for k, v in sd.items()]
+        assert all(torch.equal(got[k].float(), sd[k].bfloat16().float())
+                   for k in sd)
 
 
 def test_fold_refuses_what_it_cannot_fold():

@@ -61,7 +61,8 @@ SIGNATURES = {
                                       + [_P, _I, _P, _P] + [_I] * 4
                                       + [_LL] * 6 + [_P])},
     "amp_act": {
-        "tk_amp_act": (_I, [_P] * 4 + [_I, _LL, _I, _I, _I, _P, _P])},
+        "tk_amp_act": (_I, [_P] * 7 + [_I] * 4 + [_LL, _LL, _I, _P, _P]),
+        "tk_amp_mean": (_I, [_P] * 3 + [_I, _P, _I, _LL, _I, _LL, _I, _P])},
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
